@@ -1,0 +1,59 @@
+// Host loop over the kernel's per-env body (fused_substep.cuh), for the CPU
+// tests and for counting the operations the kernel does on given inputs.
+// Never on the main path.
+//
+//   g++ -std=c++17 -O2 -shared -fPIC -I csrc -o libigt_host.so csrc/fused_substep_host.cpp
+#include <cmath>
+
+namespace igt {
+
+// A float that counts every arithmetic operation, comparison and math call
+// applied to it (unary minus and copies are free). Single-threaded use only.
+static long long g_ops = 0;
+
+struct CountF {
+  float v;
+  CountF() : v(0.0f) {}
+  CountF(float a) : v(a) {}  // NOLINT: implicit, so constants mix in
+};
+inline CountF operator+(CountF a, CountF b) { ++g_ops; return CountF(a.v + b.v); }
+inline CountF operator-(CountF a, CountF b) { ++g_ops; return CountF(a.v - b.v); }
+inline CountF operator*(CountF a, CountF b) { ++g_ops; return CountF(a.v * b.v); }
+inline CountF operator/(CountF a, CountF b) { ++g_ops; return CountF(a.v / b.v); }
+inline CountF operator-(CountF a) { return CountF(-a.v); }
+inline bool operator<(CountF a, CountF b) { ++g_ops; return a.v < b.v; }
+inline bool operator>(CountF a, CountF b) { ++g_ops; return a.v > b.v; }
+inline bool operator<=(CountF a, CountF b) { ++g_ops; return a.v <= b.v; }
+inline bool operator>=(CountF a, CountF b) { ++g_ops; return a.v >= b.v; }
+inline CountF sqrt_(CountF a) { ++g_ops; return CountF(std::sqrt(a.v)); }
+inline CountF sin_(CountF a) { ++g_ops; return CountF(std::sin(a.v)); }
+inline CountF cos_(CountF a) { ++g_ops; return CountF(std::cos(a.v)); }
+inline CountF abs_(CountF a) { ++g_ops; return CountF(std::fabs(a.v)); }
+inline CountF min_(CountF a, CountF b) { ++g_ops; return a.v < b.v ? a : b; }
+inline CountF max_(CountF a, CountF b) { ++g_ops; return a.v > b.v ? a : b; }
+inline float to_f(CountF a) { return a.v; }
+
+}  // namespace igt
+
+#include "fused_substep.cuh"
+
+extern "C" int igt_fused_substep_host(const float* consts, const float* x, float* y,
+                                      int B, int nd) {
+  if (nd != 7 || B < 1) return 1;
+  for (int b = 0; b < B; ++b) igt::fused_substep_env<float, 7>(consts, x, y, b, B);
+  return 0;
+}
+
+// Runs the body on every env with the counting float; returns the total
+// number of operations (outputs are written as by igt_fused_substep_host).
+extern "C" long long igt_fused_substep_count_ops(const float* consts, const float* x,
+                                                 float* y, int B, int nd) {
+  if (nd != 7 || B < 1) return -1;
+  igt::g_ops = 0;
+  for (int b = 0; b < B; ++b) igt::fused_substep_env<igt::CountF, 7>(consts, x, y, b, B);
+  return igt::g_ops;
+}
+
+extern "C" int igt_fused_layout(int nd, int* out, int n) {
+  return igt::fill_layout(nd, out, n);
+}

@@ -1,0 +1,152 @@
+"""Vectorized-task base: the env step with its branch-free auto-reset.
+
+Counterpart of ``isaacgym_tpu/env/vec_task.py`` (``EnvState``, ``reset``,
+``_step_impl`` at ``:205-290``) without the domain-randomization branches:
+action clip -> PD targets -> physics -> body states -> reward -> auto-reset
+(every env's would-be reset state, merged with ``torch.where``, no host
+sync) -> observation. The JAX package's per-env PRNG keys become one
+``torch.Generator`` on the env's device.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from isaacgym_tpu_torch.sim.scene import SceneSpec, compile_scene
+from isaacgym_tpu_torch.sim.simulator import SimState, Simulator
+
+
+class EnvState(NamedTuple):
+    sim: SimState                  # batched (B, ...)
+    progress: torch.Tensor         # (B,) int32
+    flags: Dict[str, torch.Tensor]  # task one-shot flags, each (B,) bool
+    pre_ball_root: torch.Tensor    # (B, 13) ball root before the last physics step
+    ep_return: torch.Tensor        # (B,) running episode return
+
+
+def _merge(do, a, b):
+    return torch.where(do.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
+class TorchVecTask:
+    """Base class of the pingpong task family; subclasses supply the scene,
+    the reset, the observation and the reward, all batched."""
+
+    ball_actor: int = 2
+    #: flag -> event name surfaced per episode in ``info["episode_events"]``
+    event_flag_names: Optional[Dict[str, str]] = None
+
+    def __init__(self, cfg: Dict[str, Any], seed: int = 42, device="cuda"):
+        self.cfg = cfg
+        env_cfg = cfg["env"]
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' asked for but no CUDA device is available")
+        if bool((cfg.get("task") or {}).get("randomize", False)):
+            raise NotImplementedError("domain randomization is not ported yet "
+                                      "(ROADMAP, module 5)")
+        self.num_envs = int(env_cfg["numEnvs"])
+        self.num_obs = int(env_cfg["numObservations"])
+        self.num_actions = int(env_cfg["numActions"])
+        self.max_episode_length = int(env_cfg["episodeLength"])
+        self.clip_actions = float(env_cfg.get("clipActions", 1.0))
+        self.seed = int(seed)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(self.seed)
+
+        self.scene_spec: SceneSpec = self.create_scene()
+        self.scene = compile_scene(self.scene_spec)
+        self.sim = Simulator(self.scene, device=self.device)
+
+        lo, hi = self._action_dof_limits()
+        self._pd_action_offset = torch.as_tensor(0.5 * (hi + lo), dtype=torch.float32,
+                                                 device=self.device)
+        self._pd_action_scale = torch.as_tensor(0.5 * (hi - lo), dtype=torch.float32,
+                                                device=self.device)
+        self._rb_fn = self.sim.make_body_state_fn(self.rb_body_ids())
+
+    # -- subclass hooks (batched) -------------------------------------------
+
+    def create_scene(self) -> SceneSpec:
+        raise NotImplementedError
+
+    def init_flags(self) -> Dict[str, bool]:
+        return {}
+
+    def rb_body_ids(self):
+        raise NotImplementedError
+
+    def reset_sim(self, sim: SimState) -> SimState:
+        raise NotImplementedError
+
+    def observe(self, sim: SimState, rb_states, flags) -> torch.Tensor:
+        raise NotImplementedError
+
+    def reward(self, pre_ball_root, sim: SimState, rb_states, flags, progress):
+        raise NotImplementedError
+
+    def _action_dof_limits(self) -> Tuple[np.ndarray, np.ndarray]:
+        los = [s.model.tree.lower for s in self.scene.articulations]
+        his = [s.model.tree.upper for s in self.scene.articulations]
+        return np.concatenate(los), np.concatenate(his)
+
+    # -- public API ------------------------------------------------------------
+
+    def _flags0(self, B):
+        return {k: torch.full((B,), bool(v), device=self.device)
+                for k, v in self.init_flags().items()}
+
+    def reset(self) -> Tuple[EnvState, torch.Tensor]:
+        """Fresh env state + initial observations."""
+        B = self.num_envs
+        sim = self.reset_sim(self.sim.initial_state(B))
+        flags = self._flags0(B)
+        state = EnvState(sim=sim, progress=torch.zeros(B, dtype=torch.int32, device=self.device),
+                         flags=flags, pre_ball_root=sim.root[:, self.ball_actor].clone(),
+                         ep_return=torch.zeros(B, dtype=torch.float32, device=self.device))
+        return state, self.observe(sim, self._rb_fn(sim), flags)
+
+    def action_to_drive(self, actions):
+        targets = self._pd_action_offset + self._pd_action_scale * actions
+        return targets, torch.zeros_like(targets)
+
+    def step(self, state: EnvState, actions):
+        """One vectorized env step: (state', obs, reward, done, info)."""
+        actions = torch.clamp(actions, -self.clip_actions, self.clip_actions)
+        targets, efforts = self.action_to_drive(actions)
+        pre_ball = state.sim.root[:, self.ball_actor]
+        sim = self.sim.step(state.sim, targets, efforts)
+        progress = state.progress + 1
+
+        rew, reset, flags = self.reward(pre_ball, sim, self._rb_fn(sim), state.flags, progress)
+
+        # branch-free auto-reset: the would-be reset state of every env,
+        # merged where ``reset`` is set
+        sim_reset = self.reset_sim(sim)
+        do = reset.to(torch.bool)
+        ev_map = (self.event_flag_names if self.event_flag_names is not None
+                  else {k: k[:-len("_count")] for k in flags if k.endswith("_count")})
+        events = {name: do & flags[flag].to(torch.bool) for flag, name in ev_map.items()}
+        sim = SimState(*[_merge(do, a, b) for a, b in zip(sim_reset, sim)])
+        progress = torch.where(do, torch.zeros_like(progress), progress)
+        init = self.init_flags()
+        flags = {k: torch.where(do, torch.full_like(v, bool(init[k])), v)
+                 for k, v in flags.items()}
+        obs = self.observe(sim, self._rb_fn(sim), flags)
+
+        finished_return = state.ep_return + rew
+        ep_return = torch.where(do, torch.zeros_like(finished_return), finished_return)
+        new_state = EnvState(sim=sim, progress=progress, flags=flags,
+                             pre_ball_root=pre_ball, ep_return=ep_return)
+        time_outs = state.progress + 1 >= self.max_episode_length - 1
+        info = {
+            "time_outs": time_outs & do,
+            "episode_done": do,
+            "episode_return": torch.where(do, finished_return, torch.zeros_like(finished_return)),
+            "episode_length": torch.where(do, state.progress + 1, torch.zeros_like(progress)),
+            "episode_events": events,
+        }
+        return new_state, obs, rew, reset, info

@@ -1,0 +1,891 @@
+"""K2, the fused substep of the flagship scene: wrapper, plain version and
+the constant pack.
+
+One launch computes the whole substep of a single fixed-base humanoid with
+one ball, as ``isaacgym_tpu/ops/pallas_dynamics.py:754``
+(``build_fused_substep``, built with ``with_dr=False``, ``with_torque=False``)
+does: PD -> FK -> world inertias -> mass matrix -> RNEA bias -> Cholesky ->
+semi-implicit Euler with limits -> FK at the new q -> ball gravity and
+damping -> plane, static-geom and articulated-geom contacts (swept CCD,
+gated restitution, spin friction, joint-space reactions through the factor)
+-> art-vs-static narrowphase with exact support and the 2 mm resting band
+-> ball integration.
+
+The Pallas kernel folds the scene's numbers in at trace time. Here they are
+packed once per simulator into one float32 buffer (``build_constants``);
+the CUDA kernel (``csrc/fused_substep.cu``) reads it from device memory, so
+one nvcc build serves every scene. The layout below mirrors the ``C_*``,
+``D_*``, ``G_*``, ``A_*`` and ``P_*`` slots of ``csrc/fused_substep.cuh``;
+the loaded library reports its own layout and the wrapper checks the two.
+
+``fused_substep_reference`` is the plain PyTorch version, batched over B in
+the Pallas kernel's formulation and contact order. ``FusedSubstep`` takes
+it only for tensors on the CPU; for a CUDA tensor it launches the kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from isaacgym_tpu_torch.models import urdf as U
+from isaacgym_tpu_torch.ops.dynamics import ArticulationModel
+
+# ---------------------------------------------------------------------------
+# constant-pack layout (mirrors csrc/fused_substep.cuh)
+# ---------------------------------------------------------------------------
+
+KERNEL_ND = 7            # the one DOF count the kernel is instantiated for
+MAX_STATIC = 16
+MAX_ART = 8
+MAX_PAIRS = 32
+
+(C_ND, C_NSTATIC, C_NART, C_NPAIR, C_DT, C_DT_HALF, C_DT_QUARTER, C_GX, C_GY,
+ C_GZ, C_BOUNCE, C_MAX_DEPEN, C_BIAS_K) = range(13)
+C_BASE_P = 13
+C_BASE_Q = 16
+(C_INV_MB, C_MB, C_RB, C_E_BALL, C_MU_BALL, C_PLANE_E, C_PLANE_MU, C_MAX_LIN,
+ C_MAX_ANG, C_LIN_DAMP, C_ANG_DAMP, C_KD_AERO, C_KM_AERO, C_KAPPA,
+ C_ONE_P_KAPPA, C_KAPPA_OVER_RB, C_WT0, C_KAPPA_INVMB_OVER_RB) = range(20, 38)
+
+DOF_OFF = 48
+DOF_STRIDE = 32
+D_PARENT, D_REV, D_PRE_POS, D_PRE_QUAT, D_AXIS = 0, 1, 2, 5, 9
+D_MASS, D_COM, D_INERTIA, D_ARMATURE = 12, 13, 16, 25
+D_LO, D_HI, D_EFFORT, D_MAXVEL, D_KP, D_KD = 26, 27, 28, 29, 30, 31
+
+STATIC_STRIDE = 20
+G_KIND, G_POS, G_ROT, G_SIZE, G_E, G_MU = 0, 1, 4, 13, 16, 17
+ART_STRIDE = 20
+A_KIND, A_LINK, A_OFF_POS, A_OFF_QUAT, A_SIZE, A_E, A_MU, A_RBOUND = (
+    0, 1, 2, 5, 9, 12, 13, 14)
+PAIR_STRIDE = 8
+P_ART, P_STATIC, P_EXACT, P_E, P_MU = 0, 1, 2, 3, 4
+
+RESTING_SMOOTH_BAND = 0.002  # m, the JAX package's resting-contact band
+
+
+def layout(nd: int) -> dict:
+    """Offsets of the pack's blocks for an ``nd``-DOF articulation."""
+    mask = DOF_OFF + nd * DOF_STRIDE
+    static = mask + nd * nd
+    art = static + MAX_STATIC * STATIC_STRIDE
+    pair = art + MAX_ART * ART_STRIDE
+    return dict(dof=DOF_OFF, mask=mask, static=static, art=art, pair=pair,
+                total=pair + MAX_PAIRS * PAIR_STRIDE)
+
+
+def n_in(nd: int) -> int:
+    """Input channels: q, qd, targets, efforts (nd each), ball pos/vel/omega."""
+    return 4 * nd + 9
+
+
+def n_out(nd: int, ng: int) -> int:
+    """Output channels: q, qd, tau, ball pos/vel/omega, impulse rows."""
+    return 3 * nd + 9 + 3 * (ng + 1)
+
+
+# ---------------------------------------------------------------------------
+# constant packing (the trace-time half of pallas_dynamics.py:754-950)
+# ---------------------------------------------------------------------------
+
+def _np_qrot(q, v):
+    x, y, z, w = [float(c) for c in q]
+    u = np.asarray([x, y, z], np.float64)
+    v = np.asarray(v, np.float64)
+    return v + 2.0 * np.cross(u, np.cross(u, v) + w * v)
+
+
+def _point_geom_dist_np(p_world, sg) -> float:
+    """Distance from a world point to a static geom's surface (negative
+    inside; unknown kinds -> -inf, never pruned)."""
+    sgq = np.asarray(sg["quat"], np.float64)
+    c = _np_qrot((-sgq[0], -sgq[1], -sgq[2], sgq[3]),
+                 np.asarray(p_world, np.float64) - np.asarray(sg["pos"], np.float64))
+    kind, size = int(sg["kind"]), np.asarray(sg["size"], np.float64)
+    if kind == U.GEOM_SPHERE:
+        return float(np.linalg.norm(c) - size[0])
+    if kind == U.GEOM_BOX:
+        q = np.abs(c) - size
+        return float(np.linalg.norm(np.maximum(q, 0.0)) + min(float(np.max(q)), 0.0))
+    if kind == U.GEOM_CYLINDER:
+        dr = float(np.hypot(c[0], c[1]) - size[0])
+        dz = float(abs(c[2]) - size[1])
+        if dr <= 0.0 and dz <= 0.0:
+            return max(dr, dz)
+        return float(np.hypot(max(dr, 0.0), max(dz, 0.0)))
+    return -np.inf
+
+
+def _art_geom_reach_np(model: ArticulationModel, g) -> float:
+    """Upper bound on |geom centre - base origin| over all joint values."""
+    tree = model.tree
+    reach = float(np.linalg.norm(np.asarray(g["off_pos"], np.float64)))
+    reach += float(g["radius_bound"])
+    d = int(g["link"])
+    while d >= 0:
+        reach += float(np.linalg.norm(tree.dof_pre_pos[d].astype(np.float64)))
+        if int(tree.dof_type[d]) == U.JOINT_PRISMATIC:
+            lo, hi = float(tree.lower[d]), float(tree.upper[d])
+            if not (np.isfinite(lo) and np.isfinite(hi)):
+                return float(np.inf)
+            reach += max(abs(lo), abs(hi))
+        d = int(tree.dof_parent[d])
+    return reach
+
+
+def static_pair_unreachable(model: ArticulationModel, base_pos, g, sg,
+                            margin: float = 0.02) -> bool:
+    """Build-time broadphase for a fixed base (``pallas_dynamics.py:329``):
+    True when art geom ``g`` can never touch static geom ``sg``."""
+    return (_point_geom_dist_np(base_pos, sg)
+            > _art_geom_reach_np(model, g) + 0.005 + margin)
+
+
+def _round_unit(c, tol=1e-7):
+    """Snap rotation coefficients to exact 0/±1, as the Pallas kernel's
+    constant rotations do."""
+    if abs(c) < tol:
+        return 0.0
+    if abs(c - 1.0) < tol:
+        return 1.0
+    if abs(c + 1.0) < tol:
+        return -1.0
+    return c
+
+
+def _rotmat_np(q):
+    x, y, z, w = [float(v) for v in q]
+    R = ((1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)),
+         (2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)),
+         (2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)))
+    return [_round_unit(R[i][j]) for i in range(3) for j in range(3)]
+
+
+def build_constants(model: ArticulationModel, base_pos, base_quat, kp, kd,
+                    gravity, dt_s: float, ball_cfg: dict, static_geoms: list,
+                    art_geoms: list, *, bounce_threshold: float = 0.2,
+                    n_true_static: int = None, max_depenetration: float = 10.0,
+                    exact_support: bool = False) -> np.ndarray:
+    """Pack the scene's constants into one float32 array (integers are
+    stored as exact small floats).
+
+    Arguments are those of ``build_fused_substep``: ``ball_cfg`` a dict of
+    mass, radius, restitution, friction, plane_e, plane_mu, max_lin, max_ang,
+    lin_damp, ang_damp, drag_k, magnus_k, kappa; ``static_geoms`` dicts of
+    kind, pos, quat, size, e, mu in the world frame; ``art_geoms`` dicts of
+    kind, link, off_pos, off_quat, size, e, mu, radius_bound.
+    """
+    tree = model.tree
+    nd = tree.n_dof
+    if model.floating or not np.all((tree.dof_type == U.JOINT_REVOLUTE)
+                                    | (tree.dof_type == U.JOINT_PRISMATIC)):
+        raise NotImplementedError("fused substep: fixed base, revolute/prismatic only")
+    if n_true_static is None:
+        n_true_static = len(static_geoms)
+    pairs = [(gi, si) for gi, g in enumerate(art_geoms)
+             for si, sg in enumerate(static_geoms[:n_true_static])
+             if not static_pair_unreachable(model, base_pos, g, sg)]
+    if (len(static_geoms) > MAX_STATIC or len(art_geoms) > MAX_ART
+            or len(pairs) > MAX_PAIRS):
+        raise ValueError(f"scene exceeds the kernel's maxima: {len(static_geoms)} "
+                         f"static (max {MAX_STATIC}), {len(art_geoms)} art "
+                         f"(max {MAX_ART}), {len(pairs)} pairs (max {MAX_PAIRS})")
+    lay = layout(nd)
+    c = np.zeros(lay["total"], np.float64)
+
+    mass = float(ball_cfg["mass"])
+    inv_mb = 1.0 / mass
+    rb = float(ball_cfg["radius"])
+    e_ball = float(ball_cfg["restitution"])
+    mu_ball = float(ball_cfg["friction"])
+    kappa = float(ball_cfg.get("kappa", 0.0))
+    c[C_ND], c[C_NSTATIC], c[C_NART], c[C_NPAIR] = (
+        nd, len(static_geoms), len(art_geoms), len(pairs))
+    c[C_DT], c[C_DT_HALF], c[C_DT_QUARTER] = dt_s, dt_s / 2, dt_s / 4
+    c[C_GX:C_GZ + 1] = [float(v) for v in gravity]
+    c[C_BOUNCE] = bounce_threshold
+    c[C_MAX_DEPEN] = max_depenetration
+    c[C_BIAS_K] = 0.2 / dt_s
+    c[C_BASE_P:C_BASE_P + 3] = [float(v) for v in base_pos]
+    c[C_BASE_Q:C_BASE_Q + 4] = [float(v) for v in base_quat]
+    c[C_INV_MB], c[C_MB], c[C_RB] = inv_mb, 1.0 / inv_mb, rb
+    c[C_E_BALL], c[C_MU_BALL] = e_ball, mu_ball
+    c[C_PLANE_E] = 0.5 * (e_ball + float(ball_cfg.get("plane_e", 0.0)))
+    c[C_PLANE_MU] = 0.5 * (mu_ball + float(ball_cfg.get("plane_mu", 1.0)))
+    c[C_MAX_LIN] = float(ball_cfg.get("max_lin", 1000.0))
+    c[C_MAX_ANG] = float(ball_cfg.get("max_ang", 64.0))
+    c[C_LIN_DAMP] = max(0.0, 1.0 - float(ball_cfg.get("lin_damp", 0.0)) * dt_s)
+    c[C_ANG_DAMP] = max(0.0, 1.0 - float(ball_cfg.get("ang_damp", 0.5)) * dt_s)
+    c[C_KD_AERO] = float(ball_cfg.get("drag_k", 0.0))
+    c[C_KM_AERO] = float(ball_cfg.get("magnus_k", 0.0))
+    c[C_KAPPA], c[C_ONE_P_KAPPA] = kappa, 1.0 + kappa
+    c[C_KAPPA_OVER_RB] = kappa / rb
+    c[C_WT0] = (1.0 + kappa) * inv_mb
+    c[C_KAPPA_INVMB_OVER_RB] = kappa * inv_mb / rb
+
+    kp = np.asarray(kp, np.float32)
+    kd = np.asarray(kd, np.float32)
+    for d in range(nd):
+        o = DOF_OFF + d * DOF_STRIDE
+        c[o + D_PARENT] = int(tree.dof_parent[d])
+        c[o + D_REV] = 1.0 if int(tree.dof_type[d]) == U.JOINT_REVOLUTE else 0.0
+        c[o + D_PRE_POS:o + D_PRE_POS + 3] = tree.dof_pre_pos[d]
+        c[o + D_PRE_QUAT:o + D_PRE_QUAT + 4] = tree.dof_pre_quat[d]
+        c[o + D_AXIS:o + D_AXIS + 3] = tree.dof_axis[d]
+        c[o + D_MASS] = tree.comp_mass[d]
+        c[o + D_COM:o + D_COM + 3] = tree.comp_com[d]
+        c[o + D_INERTIA:o + D_INERTIA + 9] = model.link_inertia_com[d].reshape(9)
+        c[o + D_ARMATURE] = model.armature[d]
+        c[o + D_LO], c[o + D_HI] = tree.lower[d], tree.upper[d]
+        c[o + D_EFFORT], c[o + D_MAXVEL] = tree.effort[d], tree.max_velocity[d]
+        c[o + D_KP], c[o + D_KD] = kp[d], kd[d]
+    c[lay["mask"]:lay["mask"] + nd * nd] = model.ancestor_mask[:nd, :nd].reshape(-1)
+
+    for si, g in enumerate(static_geoms):
+        o = lay["static"] + si * STATIC_STRIDE
+        c[o + G_KIND] = int(g["kind"])
+        c[o + G_POS:o + G_POS + 3] = [float(v) for v in g["pos"]]
+        c[o + G_ROT:o + G_ROT + 9] = _rotmat_np(g["quat"])
+        c[o + G_SIZE:o + G_SIZE + 3] = [float(v) for v in g["size"]]
+        c[o + G_E] = 0.5 * (e_ball + float(g["e"]))
+        c[o + G_MU] = 0.5 * (mu_ball + float(g["mu"]))
+    f32 = np.float32
+    for gi, g in enumerate(art_geoms):
+        o = lay["art"] + gi * ART_STRIDE
+        c[o + A_KIND] = int(g["kind"])
+        c[o + A_LINK] = int(g["link"])
+        c[o + A_OFF_POS:o + A_OFF_POS + 3] = [float(v) for v in g["off_pos"]]
+        c[o + A_OFF_QUAT:o + A_OFF_QUAT + 4] = [float(v) for v in g["off_quat"]]
+        c[o + A_SIZE:o + A_SIZE + 3] = [float(v) for v in g["size"]]
+        # the Pallas kernel forms these in float32 (material x DR scale 1)
+        c[o + A_E] = f32(0.5) * (f32(e_ball) + f32(g["e"]))
+        c[o + A_MU] = f32(0.5) * (f32(mu_ball) + f32(g["mu"]))
+        c[o + A_RBOUND] = float(g["radius_bound"])
+    for pi, (gi, si) in enumerate(pairs):
+        o = lay["pair"] + pi * PAIR_STRIDE
+        g, sg = art_geoms[gi], static_geoms[si]
+        c[o + P_ART], c[o + P_STATIC] = gi, si
+        c[o + P_EXACT] = float(exact_support and int(g["kind"])
+                               in (U.GEOM_CYLINDER, U.GEOM_BOX))
+        c[o + P_E] = 0.5 * (float(g["e"]) + float(sg["e"]))
+        c[o + P_MU] = 0.5 * (float(g["mu"]) + float(sg["mu"]))
+    return c.astype(np.float32)
+
+
+class FusedStepOutputs(NamedTuple):
+    q_new: torch.Tensor       # (B, nd)
+    qd_new: torch.Tensor      # (B, nd) post-contact
+    tau: torch.Tensor         # (B, nd)
+    ball_pos: torch.Tensor    # (B, 3)
+    ball_vel: torch.Tensor    # (B, 3)
+    ball_omega: torch.Tensor  # (B, 3)
+    impulses: torch.Tensor    # (B, ng+1, 3): per art geom body, then the ball total
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version: tuples of (B,) channels, the kernel's formulation
+# ---------------------------------------------------------------------------
+
+def _add(a, b):
+    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
+
+
+def _sub(a, b):
+    return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
+
+
+def _scale(v, s):
+    return (v[0] * s, v[1] * s, v[2] * s)
+
+
+def _dot(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _cross(a, b):
+    return (a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
+
+
+def _qrot(q, v):
+    qx, qy, qz, qw = q
+    tx = 2.0 * (qy * v[2] - qz * v[1])
+    ty = 2.0 * (qz * v[0] - qx * v[2])
+    tz = 2.0 * (qx * v[1] - qy * v[0])
+    return (v[0] + qw * tx + (qy * tz - qz * ty),
+            v[1] + qw * ty + (qz * tx - qx * tz),
+            v[2] + qw * tz + (qx * ty - qy * tx))
+
+
+def _qmul(a, b):
+    ax, ay, az, aw = a
+    bx, by, bz, bw = b
+    return ((aw * bx + ax * bw) + (ay * bz - az * by),
+            (aw * by + ay * bw) + (az * bx - ax * bz),
+            (aw * bz + az * bw) + (ax * by - ay * bx),
+            aw * bw - ((ax * bx + ay * by) + az * bz))
+
+
+def _conj(q):
+    return (-q[0], -q[1], -q[2], q[3])
+
+
+def _mat(R, v):
+    """Constant row-major 3x3 times a vector."""
+    return tuple(R[3 * i] * v[0] + R[3 * i + 1] * v[1] + R[3 * i + 2] * v[2]
+                 for i in range(3))
+
+
+def _mat_t(R, v):
+    return tuple(R[i] * v[0] + R[3 + i] * v[1] + R[6 + i] * v[2] for i in range(3))
+
+
+def _where(c, a, b):
+    return tuple(torch.where(c, x, y) for x, y in zip(a, b))
+
+
+def _sqrt_floor(x, floor):
+    return torch.sqrt(torch.clamp(x, min=floor))
+
+
+def _sphere_box(c, half, rad):
+    """Closest point sphere-vs-box in the box frame -> (dist, n_local)."""
+    cl = tuple(torch.clamp(c[i], -half[i], half[i]) for i in range(3))
+    d = _sub(c, cl)
+    out2 = _dot(d, d)
+    out_dist = _sqrt_floor(out2, 1e-18)
+    outside = out2 > 1e-12
+    gaps = [half[i] - torch.abs(c[i]) for i in range(3)]
+    s = [torch.where(c[i] >= 0, 1.0, -1.0) for i in range(3)]
+    use_x = (gaps[0] <= gaps[1]) & (gaps[0] <= gaps[2])
+    use_y = (~use_x) & (gaps[1] <= gaps[2])
+    use_z = (~use_x) & (~use_y)
+    n_in = (torch.where(use_x, s[0], 0.0), torch.where(use_y, s[1], 0.0),
+            torch.where(use_z, s[2], 0.0))
+    d_in = -torch.minimum(gaps[0], torch.minimum(gaps[1], gaps[2]))
+    n_out = _scale(d, 1.0 / out_dist)
+    return torch.where(outside, out_dist, d_in) - rad, _where(outside, n_out, n_in)
+
+
+def _sphere_cyl(c, radius, half_len, rad):
+    """Closest point sphere-vs-z-cylinder in the cylinder frame."""
+    r2 = c[0] * c[0] + c[1] * c[1]
+    r_xy = _sqrt_floor(r2, 1e-18)
+    sc = torch.clamp(radius / r_xy, max=1.0)
+    cl = (c[0] * sc, c[1] * sc, torch.clamp(c[2], -half_len, half_len))
+    d = _sub(c, cl)
+    out2 = _dot(d, d)
+    out_dist = _sqrt_floor(out2, 1e-18)
+    outside = out2 > 1e-12
+    face_gap = half_len - torch.abs(c[2])
+    wall_gap = radius - r_xy
+    zsgn = torch.where(c[2] >= 0, 1.0, -1.0)
+    use_face = face_gap < wall_gap
+    inv_rxy = 1.0 / r_xy
+    n_in = (torch.where(use_face, 0.0, c[0] * inv_rxy),
+            torch.where(use_face, 0.0, c[1] * inv_rxy),
+            torch.where(use_face, zsgn, 0.0))
+    d_in = -torch.minimum(face_gap, wall_gap)
+    n_out = _scale(d, 1.0 / out_dist)
+    return torch.where(outside, out_dist, d_in) - rad, _where(outside, n_out, n_in)
+
+
+def _sphere_geom(kind, size, c, rad):
+    """Sphere of radius ``rad`` at local point ``c`` vs a geom -> (dist, n)."""
+    if kind == U.GEOM_SPHERE:
+        dn = _sqrt_floor(_dot(c, c), 1e-18)
+        return dn - size[0] - rad, _scale(c, 1.0 / dn)
+    if kind == U.GEOM_BOX:
+        return _sphere_box(c, size, rad)
+    return _sphere_cyl(c, size[0], size[1], rad)
+
+
+def _sweep(kind, size, rad, c0, d0, n0, dv_l, samples):
+    """Swept-sample CCD in the geom frame: activation at the first
+    penetrating sample (entry-side normal)."""
+    best_d, best_n, found = d0, n0, d0 < 0.0
+    ck = c0
+    for _ in range(samples):
+        ck = _add(ck, dv_l)
+        dk, nk = _sphere_geom(kind, size, ck, rad)
+        take = (~found) & (dk < 0.0)
+        best_d = torch.where(take, dk, best_d)
+        best_n = _where(take, nk, best_n)
+        found = found | (dk < 0.0)
+    return best_d, best_n
+
+
+def _resolve_static(k, vel, omg, dist, n, e, mu, dist_now):
+    """Spin-aware impulse against a static surface -> (vel, omg, push, dv)."""
+    rb, kappa = k[C_RB], k[C_KAPPA]
+    vn = _dot(vel, n)
+    active = (dist < 0.0) & (vn < 0.0)
+    e_eff = torch.where(torch.abs(vn) > k[C_BOUNCE], e, 0.0)
+    jn = torch.where(active, -(1.0 + e_eff) * vn, 0.0)
+    slip = _sub(vel, _scale(_cross(omg, n), rb)) if kappa > 0 else vel
+    vt = _sub(slip, _scale(n, _dot(slip, n)))
+    vt_n = _sqrt_floor(_dot(vt, vt), 1e-18)
+    jt = torch.where(active, torch.minimum(mu * jn, vt_n / k[C_ONE_P_KAPPA]), 0.0)
+    t_hat = _scale(vt, 1.0 / vt_n)
+    dv = _sub(_scale(n, jn), _scale(t_hat, jt))
+    omg2 = _add(omg, _scale(_cross(n, t_hat), k[C_KAPPA_OVER_RB] * jt))
+    push = _scale(n, torch.where(active, torch.clamp(-dist_now, min=0.0), 0.0))
+    return _add(vel, dv), omg2, push, dv
+
+
+def _chol(M, nd):
+    L = [[None] * (i + 1) for i in range(nd)]
+    for j in range(nd):
+        s = M[j][j]
+        for k2 in range(j):
+            s = s - L[j][k2] * L[j][k2]
+        dia = _sqrt_floor(s, 1e-12)
+        L[j][j] = dia
+        inv_d = 1.0 / dia
+        for i in range(j + 1, nd):
+            s = M[i][j]
+            for k2 in range(j):
+                s = s - L[i][k2] * L[j][k2]
+            L[i][j] = s * inv_d
+    return L
+
+
+def _fwd_sub(L, b):
+    y = []
+    for i in range(len(b)):
+        s = b[i]
+        for j in range(i):
+            s = s - L[i][j] * y[j]
+        y.append(s / L[i][i])
+    return y
+
+
+def _back_sub(L, y):
+    nd = len(y)
+    x = [None] * nd
+    for i in reversed(range(nd)):
+        s = y[i]
+        for j in range(i + 1, nd):
+            s = s - L[j][i] * x[j]
+        x[i] = s / L[i][i]
+    return x
+
+
+def _fk(k, nd, q, zero):
+    """DOF frames and world axes at joint values ``q`` (list of (B,))."""
+    bp = tuple(zero + k[C_BASE_P + i] for i in range(3))
+    bq = tuple(zero + k[C_BASE_Q + i] for i in range(4))
+    fp, fq, axes = [], [], []
+    for d in range(nd):
+        o = DOF_OFF + d * DOF_STRIDE
+        par = int(k[o + D_PARENT])
+        pp, pq = (bp, bq) if par < 0 else (fp[par], fq[par])
+        jp = _add(pp, _qrot(pq, k[o + D_PRE_POS:o + D_PRE_POS + 3]))
+        jq = _qmul(pq, k[o + D_PRE_QUAT:o + D_PRE_QUAT + 4])
+        ax = k[o + D_AXIS:o + D_AXIS + 3]
+        if k[o + D_REV]:
+            half = 0.5 * q[d]
+            s, c = torch.sin(half), torch.cos(half)
+            fq.append(_qmul(jq, (ax[0] * s, ax[1] * s, ax[2] * s, c)))
+            fp.append(jp)
+        else:
+            fq.append(jq)
+            fp.append(_add(jp, _scale(_qrot(jq, ax), q[d])))
+        axes.append(_qrot(fq[d], ax))
+    return fp, fq, axes
+
+
+def _rotmat(q):
+    x, y, z, w = q
+    return ((1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)),
+            (2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)),
+            (2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)))
+
+
+def _world_inertia(R, I):
+    """R I R^T with a constant row-major 3x3 ``I`` -> symmetric nested rows."""
+    RI = [[R[i][0] * I[j] + R[i][1] * I[3 + j] + R[i][2] * I[6 + j]
+           for j in range(3)] for i in range(3)]
+    Iw = [[None] * 3 for _ in range(3)]
+    for i in range(3):
+        for j in range(i, 3):
+            Iw[i][j] = RI[i][0] * R[j][0] + RI[i][1] * R[j][1] + RI[i][2] * R[j][2]
+            Iw[j][i] = Iw[i][j]
+    return Iw
+
+
+def _sym_mat_vec(Iw, v):
+    return tuple(Iw[i][0] * v[0] + Iw[i][1] * v[1] + Iw[i][2] * v[2] for i in range(3))
+
+
+def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
+                            ball_vel, ball_omega) -> FusedStepOutputs:
+    """Plain PyTorch version of K2 over (B, n) float32 inputs.
+
+    ``consts`` is the pack of :func:`build_constants` (numpy or a tensor).
+    Every per-env value is a (B,) channel; the arithmetic and the order of
+    contacts follow the kernel, with ``torch.where`` for its branches.
+    """
+    k = np.asarray(consts.cpu() if torch.is_tensor(consts) else consts,
+                   np.float32).tolist()
+    nd = int(k[C_ND])
+    n_static, n_art, n_pair = int(k[C_NSTATIC]), int(k[C_NART]), int(k[C_NPAIR])
+    lay = layout(nd)
+    mask = [[k[lay["mask"] + l * nd + i] != 0.0 for i in range(nd)] for l in range(nd)]
+    dofs = [DOF_OFF + d * DOF_STRIDE for d in range(nd)]
+    dt = k[C_DT]
+    qv = [q[:, d] for d in range(nd)]
+    qdv = [qd[:, d] for d in range(nd)]
+    zero = torch.zeros_like(qv[0])
+
+    # PD drive + effort clamp
+    tau = []
+    for d, o in enumerate(dofs):
+        t = k[o + D_KP] * (targets[:, d] - qv[d]) - k[o + D_KD] * qdv[d] + efforts[:, d]
+        tau.append(torch.clamp(t, -k[o + D_EFFORT], k[o + D_EFFORT]))
+
+    fp, fq, axes = _fk(k, nd, qv, zero)
+    bp = tuple(zero + k[C_BASE_P + i] for i in range(3))
+    g = (k[C_GX], k[C_GY], k[C_GZ])
+
+    # velocity / bias propagation (RNEA with qdd = 0, world frame)
+    w_l, wd_l, ao_l = [], [], []
+    for d, o in enumerate(dofs):
+        par = int(k[o + D_PARENT])
+        if par < 0:
+            w_p = wd_p = ao_p = (zero, zero, zero)
+            o_p = bp
+        else:
+            w_p, wd_p, ao_p, o_p = w_l[par], wd_l[par], ao_l[par], fp[par]
+        r = _sub(fp[d], o_p)
+        ao_d = _add(ao_p, _add(_cross(wd_p, r), _cross(w_p, _cross(w_p, r))))
+        if k[o + D_REV]:
+            w_d = _add(w_p, _scale(axes[d], qdv[d]))
+            wd_d = _add(wd_p, _scale(_cross(w_p, axes[d]), qdv[d]))
+        else:
+            w_d, wd_d = w_p, wd_p
+            ao_d = _add(ao_d, _scale(_cross(w_p, axes[d]), 2.0 * qdv[d]))
+        w_l.append(w_d)
+        wd_l.append(wd_d)
+        ao_l.append(ao_d)
+
+    # per link: world COM/inertia, wrench, Jacobian columns; accumulate the
+    # bias and the mass matrix link by link (each entry sums over links in
+    # ascending order, as the Pallas kernel does)
+    acc_rhs = [zero] * nd
+    M = [[zero] * (i + 1) for i in range(nd)]
+    for l, o in enumerate(dofs):
+        com = _add(fp[l], _qrot(fq[l], k[o + D_COM:o + D_COM + 3]))
+        Iw = _world_inertia(_rotmat(fq[l]), k[o + D_INERTIA:o + D_INERTIA + 9])
+        rc = _sub(com, fp[l])
+        a_com = _add(ao_l[l], _add(_cross(wd_l[l], rc),
+                                   _cross(w_l[l], _cross(w_l[l], rc))))
+        m = k[o + D_MASS]
+        f = _scale((a_com[0] - g[0], a_com[1] - g[1], a_com[2] - g[2]), m)
+        n = _add(_sym_mat_vec(Iw, wd_l[l]), _cross(w_l[l], _sym_mat_vec(Iw, w_l[l])))
+        J = [None] * nd
+        for i in range(nd):
+            if mask[l][i]:
+                J[i] = (_cross(axes[i], _sub(com, fp[i]))
+                        if k[dofs[i] + D_REV] else axes[i])
+        for i in range(nd):
+            if not mask[l][i]:
+                continue
+            rev_i = k[dofs[i] + D_REV]
+            if rev_i:
+                acc_rhs[i] = acc_rhs[i] + _dot(axes[i], n)
+            acc_rhs[i] = acc_rhs[i] + _dot(J[i], f)
+            for j in range(i + 1):
+                if not mask[l][j]:
+                    continue
+                if rev_i and k[dofs[j] + D_REV]:
+                    M[i][j] = M[i][j] + _dot(axes[i], _sym_mat_vec(Iw, axes[j]))
+                M[i][j] = M[i][j] + m * _dot(J[i], J[j])
+    rhs = [tau[i] - acc_rhs[i] for i in range(nd)]
+    for i, o in enumerate(dofs):
+        M[i][i] = M[i][i] + k[o + D_ARMATURE]
+    L = _chol(M, nd)
+    qdd = _back_sub(L, _fwd_sub(L, rhs))
+
+    # semi-implicit Euler, velocity clamp, joint limits
+    q_new, u = [], []
+    for d, o in enumerate(dofs):
+        v = qdv[d] + dt * qdd[d]
+        if k[o + D_MAXVEL] > 0.0:
+            v = torch.clamp(v, -k[o + D_MAXVEL], k[o + D_MAXVEL])
+        p = qv[d] + dt * v
+        at_lo, at_hi = p < k[o + D_LO], p > k[o + D_HI]
+        p = torch.clamp(p, k[o + D_LO], k[o + D_HI])
+        v = torch.where(at_lo, torch.clamp(v, min=0.0), v)
+        v = torch.where(at_hi, torch.clamp(v, max=0.0), v)
+        q_new.append(p)
+        u.append(v)
+    fp2, fq2, axes2 = _fk(k, nd, q_new, zero)
+
+    # ------------------------------- ball ---------------------------------
+    rb, inv_mb = k[C_RB], k[C_INV_MB]
+    pos = tuple(ball_pos[:, i] for i in range(3))
+    vel = tuple(ball_vel[:, i] + g[i] * dt for i in range(3))
+    vel = _scale(vel, k[C_LIN_DAMP])
+    omg = _scale(tuple(ball_omega[:, i] for i in range(3)), k[C_ANG_DAMP])
+    if k[C_KD_AERO] > 0.0:
+        vel = _sub(vel, _scale(vel, dt * k[C_KD_AERO] * _sqrt_floor(_dot(vel, vel), 1e-18)))
+    if k[C_KM_AERO] > 0.0:
+        vel = _add(vel, _scale(_cross(omg, vel), dt * k[C_KM_AERO]))
+
+    # ground plane z = 0: the swept minimum along a plane is monotone
+    dist0 = pos[2] - rb
+    dist = torch.minimum(dist0, dist0 + vel[2] * dt)
+    vel, omg, push, dv = _resolve_static(k, vel, omg, dist, (zero, zero, zero + 1.0),
+                                         k[C_PLANE_E], k[C_PLANE_MU], dist0)
+    pos = _add(pos, push)
+    imp = _scale(dv, k[C_MB])
+
+    # static geoms (table, net, base-welded humanoid geoms): 2 sweep samples
+    for si in range(n_static):
+        o = lay["static"] + si * STATIC_STRIDE
+        kind, R = int(k[o + G_KIND]), k[o + G_ROT:o + G_ROT + 9]
+        size = k[o + G_SIZE:o + G_SIZE + 3]
+        c0 = _mat_t(R, _sub(pos, k[o + G_POS:o + G_POS + 3]))
+        dv_l = _mat_t(R, _scale(vel, k[C_DT_HALF]))
+        d0, n0 = _sphere_geom(kind, size, c0, rb)
+        dist, n_l = _sweep(kind, size, rb, c0, d0, n0, dv_l, 2)
+        vel, omg, push, dv = _resolve_static(k, vel, omg, dist, _mat(R, n_l),
+                                             k[o + G_E], k[o + G_MU], d0)
+        pos = _add(pos, push)
+        imp = tuple(imp[i] + dv[i] / inv_mb for i in range(3))
+
+    def jac_cols(link, point):
+        cols = []
+        for i in range(nd):
+            if mask[link][i]:
+                cols.append(_cross(axes2[i], _sub(point, fp2[i]))
+                            if k[dofs[i] + D_REV] else axes2[i])
+            else:
+                cols.append(None)
+        return cols
+
+    def jt_dot(cols, vec):
+        return [_dot(cc, vec) if cc is not None else zero for cc in cols]
+
+    def point_vel(cols):
+        v = (zero, zero, zero)
+        for i, cc in enumerate(cols):
+            if cc is not None:
+                v = _add(v, _scale(cc, u[i]))
+        return v
+
+    def sum_sq(ys):
+        s = 0
+        for y_ in ys:
+            s = s + y_ * y_
+        return s
+
+    # articulated geoms: ball contacts with joint-space reactions
+    geom_imp = [(zero, zero, zero)] * n_art
+    for gi in range(n_art):
+        o = lay["art"] + gi * ART_STRIDE
+        kind, link = int(k[o + A_KIND]), int(k[o + A_LINK])
+        size = k[o + A_SIZE:o + A_SIZE + 3]
+        gp = _add(fp2[link], _qrot(fq2[link], k[o + A_OFF_POS:o + A_OFF_POS + 3]))
+        gq = _qmul(fq2[link], k[o + A_OFF_QUAT:o + A_OFF_QUAT + 4])
+        gqi = _conj(gq)
+        c0 = _qrot(gqi, _sub(pos, gp))
+        d_now, n_now_l = _sphere_geom(kind, size, c0, rb)
+        n_now = _qrot(gq, n_now_l)
+        cp = _sub(pos, _scale(n_now, rb))
+        cols = jac_cols(link, cp)
+        v_rel = _sub(vel, point_vel(cols))
+        dv_l = _qrot(gqi, _scale(v_rel, k[C_DT_QUARTER]))
+        dist, n_l = _sweep(kind, size, rb, c0, d_now, n_now_l, dv_l, 4)
+        n = _qrot(gq, n_l)
+        vn = _dot(v_rel, n)
+        active = (dist < 0.0) & (vn < 0.0)
+        e_eff = torch.where(torch.abs(vn) > k[C_BOUNCE], k[o + A_E], 0.0)
+        yn = _fwd_sub(L, jt_dot(cols, n))
+        w_n = inv_mb + sum_sq(yn)
+        Pn = torch.where(active, -(1.0 + e_eff) * vn / w_n, 0.0)
+        slip = (_sub(v_rel, _scale(_cross(omg, n), rb)) if k[C_KAPPA] > 0 else v_rel)
+        vt = _sub(slip, _scale(n, _dot(slip, n)))
+        vt_n = _sqrt_floor(_dot(vt, vt), 1e-18)
+        t_hat = _scale(vt, 1.0 / vt_n)
+        yt = _fwd_sub(L, jt_dot(cols, t_hat))
+        w_t = k[C_WT0] + sum_sq(yt)
+        Pt = torch.where(active, torch.minimum(k[o + A_MU] * Pn, vt_n / w_t), 0.0)
+        P = _sub(_scale(n, Pn), _scale(t_hat, Pt))
+        vel = _add(vel, _scale(P, inv_mb))
+        omg = _add(omg, _scale(_cross(n, t_hat), k[C_KAPPA_INVMB_OVER_RB] * Pt))
+        du = _back_sub(L, [yn[i] * (-Pn) + yt[i] * Pt for i in range(nd)])
+        u = [u[i] + du[i] for i in range(nd)]
+        pos = _add(pos, _scale(n, torch.where(active, torch.clamp(-d_now, min=0.0), 0.0)))
+        imp = _add(imp, P)
+        geom_imp[gi] = (-P[0], -P[1], -P[2])
+
+    # articulation geoms vs the true statics (table slab, net): Baumgarte
+    # impulses on the generalized velocity, pairs pruned at build time
+    for pi in range(n_pair):
+        o = lay["pair"] + pi * PAIR_STRIDE
+        gi, si = int(k[o + P_ART]), int(k[o + P_STATIC])
+        oa = lay["art"] + gi * ART_STRIDE
+        os_ = lay["static"] + si * STATIC_STRIDE
+        link, rbound = int(k[oa + A_LINK]), k[oa + A_RBOUND]
+        center = _add(fp2[link], _qrot(fq2[link], k[oa + A_OFF_POS:oa + A_OFF_POS + 3]))
+        R = k[os_ + G_ROT:os_ + G_ROT + 9]
+        c_local = _mat_t(R, _sub(center, k[os_ + G_POS:os_ + G_POS + 3]))
+        dist, n_local = _sphere_geom(int(k[os_ + G_KIND]),
+                                     k[os_ + G_SIZE:os_ + G_SIZE + 3], c_local, rbound)
+        n = _mat(R, n_local)
+        if k[o + P_EXACT]:
+            gqg = _qmul(fq2[link], k[oa + A_OFF_QUAT:oa + A_OFF_QUAT + 4])
+            n_g = _qrot(_conj(gqg), n)
+            gs = k[oa + A_SIZE:oa + A_SIZE + 3]
+            if int(k[oa + A_KIND]) == U.GEOM_CYLINDER:
+                na = torch.abs(n_g[2])
+                sup = na * gs[1] + _sqrt_floor(1.0 - na * na, 0.0) * gs[0]
+            else:
+                sup = (torch.abs(n_g[0]) * gs[0] + torch.abs(n_g[1]) * gs[1]
+                       + torch.abs(n_g[2]) * gs[2])
+            dist = dist + rbound - sup
+            point = _sub(center, _scale(n, sup))
+        else:
+            point = _sub(center, _scale(n, rbound))
+        cols = jac_cols(link, point)
+        v_point = point_vel(cols)
+        vn = _dot(v_point, n)
+        active = (dist < 0.0) & (vn < 0.1)
+        bias = torch.clamp(k[C_BIAS_K] * torch.clamp(-dist - 0.005, min=0.0),
+                           max=k[C_MAX_DEPEN])
+        e_eff = torch.where(torch.abs(vn) > k[C_BOUNCE], k[o + P_E], 0.0)
+        yn = _fwd_sub(L, jt_dot(cols, n))
+        w_n = sum_sq(yn)
+        Pn = torch.where(active, (-(1.0 + e_eff) * torch.clamp(vn, max=0.0) + bias)
+                         / torch.clamp(w_n, min=1e-9), 0.0)
+        vt = _sub(v_point, _scale(n, vn))
+        vt_n = _sqrt_floor(_dot(vt, vt), 1e-18)
+        t_hat = _scale(vt, 1.0 / vt_n)
+        yt = _fwd_sub(L, jt_dot(cols, t_hat))
+        w_t = sum_sq(yt)
+        Pt = torch.where(active, torch.minimum(k[o + P_MU] * Pn,
+                                               vt_n / torch.clamp(w_t, min=1e-9)), 0.0)
+        s_r = torch.where(torch.abs(vn) > k[C_BOUNCE], 1.0,
+                          torch.clamp(-dist / RESTING_SMOOTH_BAND, 0.0, 1.0))
+        Pn = Pn * s_r
+        Pt = Pt * s_r
+        du = _back_sub(L, [yn[i] * Pn - yt[i] * Pt for i in range(nd)])
+        u = [u[i] + du[i] for i in range(nd)]
+        geom_imp[gi] = _add(geom_imp[gi], _sub(_scale(n, Pn), _scale(t_hat, Pt)))
+
+    # ball velocity caps (PhysX caps the magnitude) and integration
+    vel = _scale(vel, torch.clamp(k[C_MAX_LIN] / _sqrt_floor(_dot(vel, vel), 1e-18), max=1.0))
+    omg = _scale(omg, torch.clamp(k[C_MAX_ANG] / _sqrt_floor(_dot(omg, omg), 1e-18), max=1.0))
+    pos = tuple(pos[i] + vel[i] * dt for i in range(3))
+    stack = lambda xs: torch.stack(list(xs), dim=1)
+    impulses = torch.stack([stack(r) for r in geom_imp] + [stack(imp)], dim=1)
+    return FusedStepOutputs(stack(q_new), stack(u), stack(tau), stack(pos),
+                            stack(vel), stack(omg), impulses)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+_LAYOUT_KEYS = ("dof", "mask", "static", "art", "pair", "total")
+
+
+def check_library_layout(lib, nd: int) -> None:
+    """Raise unless the C side packs constants as :func:`layout` says."""
+    out = (ctypes.c_int * 16)()
+    if lib.igt_fused_layout(nd, ctypes.addressof(out), 16) != 0:
+        raise RuntimeError(f"fused substep library rejects nd={nd}")
+    theirs = dict(zip(_LAYOUT_KEYS + ("max_static", "max_art", "max_pairs"), out[:9]))
+    ours = dict(layout(nd), max_static=MAX_STATIC, max_art=MAX_ART, max_pairs=MAX_PAIRS)
+    if theirs != ours:
+        raise RuntimeError(f"constant-pack layout mismatch: C {theirs} vs Python {ours}")
+
+
+def pack_inputs(q, qd, targets, efforts, ball_pos, ball_vel, ball_omega):
+    """(B, n) inputs -> one (n_in, B) SoA buffer, channel-major."""
+    return torch.cat([q, qd, targets, efforts, ball_pos, ball_vel, ball_omega],
+                     dim=1).t().contiguous()
+
+
+def unpack_outputs(y, nd: int, ng: int) -> FusedStepOutputs:
+    """(n_out, B) SoA buffer -> (B, n) views."""
+    yt = y.t()
+    o = 3 * nd
+    return FusedStepOutputs(yt[:, 0:nd], yt[:, nd:2 * nd], yt[:, 2 * nd:o],
+                            yt[:, o:o + 3], yt[:, o + 3:o + 6], yt[:, o + 6:o + 9],
+                            yt[:, o + 9:].reshape(-1, ng + 1, 3))
+
+
+class FusedSubstep:
+    """K2 for one scene: holds the constant pack and counts kernel launches.
+
+    ``__call__`` takes the Pallas wrapper's (B, n) float32 inputs. On CPU
+    tensors it runs :func:`fused_substep_reference`; on CUDA tensors it
+    launches ``csrc/fused_substep.cu`` on the current stream (building the
+    library at first use) and adds one to ``launches``; anything else raises.
+    """
+
+    def __init__(self, consts: np.ndarray):
+        self.consts = np.asarray(consts, np.float32)
+        self.nd = int(self.consts[C_ND])
+        self.ng = int(self.consts[C_NART])
+        self.launches = 0
+        self._dev_consts = {}
+        self._lib = None
+
+    def device_consts(self, device: torch.device) -> torch.Tensor:
+        key = str(device)
+        if key not in self._dev_consts:
+            self._dev_consts[key] = torch.as_tensor(self.consts, device=device)
+        return self._dev_consts[key]
+
+    def __call__(self, q, qd, targets, efforts, ball_pos, ball_vel,
+                 ball_omega) -> FusedStepOutputs:
+        ins = (q, qd, targets, efforts, ball_pos, ball_vel, ball_omega)
+        B, nd = q.shape[0], self.nd
+        widths = (nd, nd, nd, nd, 3, 3, 3)
+        for t, w in zip(ins, widths):
+            if t.dtype != torch.float32 or t.dim() != 2 or tuple(t.shape) != (B, w):
+                raise ValueError(f"fused substep: expected float32 ({B}, {w}), got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+            if t.device != q.device:
+                raise ValueError("fused substep: inputs on different devices")
+        if q.device.type == "cpu":
+            return fused_substep_reference(self.consts, *ins)
+        if q.device.type != "cuda":
+            raise ValueError(f"fused substep: no kernel for device {q.device}")
+        return self.launch(pack_inputs(*ins))
+
+    def launch(self, x: torch.Tensor) -> FusedStepOutputs:
+        """Launch the kernel on a packed (n_in, B) CUDA buffer."""
+        from isaacgym_tpu_torch.ops import _build
+        nd, ng = self.nd, self.ng
+        if nd != KERNEL_ND:
+            raise NotImplementedError(f"fused substep kernel is built for "
+                                      f"{KERNEL_ND} DOFs, scene has {nd}")
+        if (x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() != 2
+                or x.shape[0] != n_in(nd) or x.shape[1] < 1 or not x.is_contiguous()):
+            raise ValueError(f"fused substep: expected a contiguous float32 CUDA "
+                             f"({n_in(nd)}, B) buffer, got {x.dtype} {tuple(x.shape)} "
+                             f"on {x.device}")
+        if self._lib is None:
+            lib = _build.build_cuda_library()
+            check_library_layout(lib, nd)
+            self._lib = lib
+        B = x.shape[1]
+        c = self.device_consts(x.device)
+        y = torch.empty((n_out(nd, ng), B), dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = self._lib.igt_fused_substep_launch(c.data_ptr(), x.data_ptr(), y.data_ptr(),
+                                           B, nd, ng, stream)
+        if err != 0:
+            raise RuntimeError(f"fused substep launch failed: cudaError {err}")
+        self.launches += 1
+        return unpack_outputs(y, nd, ng)

@@ -1,0 +1,227 @@
+"""Batched simulator for the flagship scene class, on the fused-substep kernel.
+
+Counterpart of ``isaacgym_tpu/sim/simulator.py``'s fused single-humanoid
+path: ``step`` -> ``_step_batched_pallas`` (``:626``) -> ``_substep_fused``
+(``:686-734``), run ``substeps`` times, with the ball-quaternion integration
+and the net-contact-force writeback. One kernel launch (K2) per substep.
+
+State layout (the reference tensor-API contract), batched over B envs:
+  root (B, num_actors, 13) = pos(3) + quat(4, xyzw) + linvel(3) + angvel(3),
+  dof_pos / dof_vel / dof_force (B, num_dofs), net contact force and torque
+  (B, num_bodies, 3).
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): the non-kernel path for other scene classes, domain randomization,
+link-vs-link contacts, terrain. The JAX package also guards the kernels'
+folded base and static poses (``_baked_roots_moved``, ``:568``) and falls
+back to its XLA path when a root is rewritten at run time; the port has no
+such path yet, and nothing in this slice moves a baked root (the reset
+writes ``initial_root``), so the guard is left out (ROADMAP, modules).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from isaacgym_tpu_torch.models import urdf as U
+from isaacgym_tpu_torch.models.kinematics import _qmul, _qrot, fk_body_states
+from isaacgym_tpu_torch.ops.fused_substep import FusedSubstep, build_constants
+from isaacgym_tpu_torch.sim.scene import DRIVE_POS, CompiledScene
+from isaacgym_tpu_torch.utils import rotations as rot
+
+
+class SimState(NamedTuple):
+    root: torch.Tensor                # (B, num_actors, 13)
+    dof_pos: torch.Tensor             # (B, num_dofs)
+    dof_vel: torch.Tensor             # (B, num_dofs)
+    dof_force: torch.Tensor           # (B, num_dofs) last applied drive torque
+    net_contact_force: torch.Tensor   # (B, num_bodies, 3)
+    net_contact_torque: torch.Tensor  # (B, num_bodies, 3)
+
+
+def _integrate_quat(quat, omega, dt):
+    """Free-body orientation update q += dt/2 [w,0] o q, normalized."""
+    wq = torch.cat([omega, torch.zeros_like(omega[..., :1])], dim=-1)
+    q2 = quat + 0.5 * dt * rot.quat_mul(wq, quat)
+    return q2 / torch.linalg.norm(q2, dim=-1, keepdim=True)
+
+
+def _ball_kappa(ball) -> float:
+    """Spin-coupling ratio kappa = m r^2 / I of a free sphere; 0 when no
+    inertia is recorded (spin decoupled)."""
+    if getattr(ball, "inertia", 0.0) > 0.0:
+        return float(ball.mass * ball.radius ** 2 / ball.inertia)
+    return 0.0
+
+
+def _compose(p1, q1, p2, q2):
+    """Compose two transforms in numpy (compile time)."""
+    p = np.asarray(p1, np.float64) + _qrot(np.asarray(q1, np.float64),
+                                           np.asarray(p2, np.float64))
+    q = _qmul(np.asarray(q1, np.float64), np.asarray(q2, np.float64))
+    return p.astype(np.float32), q.astype(np.float32)
+
+
+def fused_geom_lists(scene: CompiledScene):
+    """The static and articulated geom lists ``_maybe_build_fused``
+    (``simulator.py:435-535``) hands the kernel: true statics first, then
+    the base-welded humanoid geoms as statics; art geoms with their offsets
+    folded through the welded body transform.
+
+    Returns ``(static_list, n_true_static, art_list, art_bodies)``."""
+    static_list = []
+    for g in scene.static_geoms:
+        sroot = scene.initial_root[g.actor_index]
+        gp, gq = _compose(sroot[0:3], sroot[3:7], g.local_pos, g.local_quat)
+        static_list.append(dict(kind=g.kind, pos=gp, quat=gq, size=g.size,
+                                e=g.restitution, mu=g.friction))
+    n_true_static = len(static_list)
+    art_list, art_bodies = [], []
+    for g in scene.art_geoms:
+        slot = scene.articulations[g.art_index]
+        tree = slot.model.tree
+        init = scene.initial_root[slot.actor_index]
+        link = int(tree.body_ref_dof[g.body_index])
+        offp, offq = _compose(tree.body_ref_pos[g.body_index],
+                              tree.body_ref_quat[g.body_index],
+                              g.local_pos, g.local_quat)
+        rb = float(g.size[0]) if g.kind == U.GEOM_SPHERE else float(np.max(g.size))
+        if link < 0:
+            wp, wq = _compose(init[0:3], init[3:7], offp, offq)
+            static_list.append(dict(kind=g.kind, pos=wp, quat=wq, size=g.size,
+                                    e=g.restitution, mu=g.friction))
+        else:
+            art_list.append(dict(kind=g.kind, link=link, off_pos=offp, off_quat=offq,
+                                 size=g.size, e=g.restitution, mu=g.friction,
+                                 radius_bound=rb))
+            art_bodies.append(slot.body_start + g.body_index)
+    return static_list, n_true_static, art_list, np.asarray(art_bodies, np.int64)
+
+
+def fused_ball_cfg(scene: CompiledScene) -> dict:
+    ball, plane = scene.free_bodies[0], scene.spec.plane
+    return dict(mass=ball.mass, radius=ball.radius, restitution=ball.restitution,
+                friction=ball.friction, plane_e=plane.restitution,
+                plane_mu=plane.dynamic_friction, max_lin=ball.max_linear_velocity,
+                max_ang=ball.max_angular_velocity, lin_damp=ball.linear_damping,
+                ang_damp=ball.angular_damping, drag_k=ball.drag_k,
+                magnus_k=ball.magnus_k, kappa=_ball_kappa(ball))
+
+
+class Simulator:
+    """Compiled simulator for one flagship-class scene on one device."""
+
+    def __init__(self, scene: CompiledScene, device="cuda"):
+        self.scene = scene
+        self.device = torch.device(device)
+        spec = scene.spec
+        self.dt = float(spec.dt)
+        self.substeps = int(spec.substeps)
+        if (len(scene.articulations) != 1 or len(scene.free_bodies) != 1
+                or spec.terrain is not None or spec.plane is None
+                or spec.link_collision
+                or scene.articulations[0].drive_mode != DRIVE_POS
+                or scene.articulations[0].model.floating):
+            raise NotImplementedError(
+                "the port simulates only the single fixed-base humanoid + one ball "
+                "scene on the fused kernel (ROADMAP, modules 7-9)")
+        self.slot = scene.articulations[0]
+        self.ball = scene.free_bodies[0]
+        static_list, n_true, art_list, self.art_bodies = fused_geom_lists(scene)
+        init = scene.initial_root[self.slot.actor_index]
+        self.constants = build_constants(
+            self.slot.model, init[0:3], init[3:7], self.slot.stiffness,
+            self.slot.damping, np.asarray(spec.gravity, np.float32),
+            self.dt / self.substeps, fused_ball_cfg(scene), static_list, art_list,
+            bounce_threshold=float(spec.bounce_threshold_velocity),
+            n_true_static=n_true,
+            max_depenetration=float(spec.max_depenetration_velocity),
+            exact_support=bool(spec.exact_link_support))
+        #: K2 for this scene; ``fused_substep.launches`` counts its launches
+        self.fused_substep = FusedSubstep(self.constants)
+        self._art_bodies_t = torch.as_tensor(self.art_bodies, device=self.device)
+
+    def initial_state(self, batch: int) -> SimState:
+        sc, dev = self.scene, self.device
+        z = lambda *s: torch.zeros((batch,) + s, dtype=torch.float32, device=dev)
+        root = torch.as_tensor(sc.initial_root, device=dev).expand(batch, -1, -1).clone()
+        return SimState(root, z(sc.num_dofs), z(sc.num_dofs), z(sc.num_dofs),
+                        z(sc.num_bodies, 3), z(sc.num_bodies, 3))
+
+    def step(self, state: SimState, targets, efforts) -> SimState:
+        """One env step: ``substeps`` fused substeps, contact forces reset."""
+        dt_s = self.dt / self.substeps
+        state = state._replace(net_contact_force=torch.zeros_like(state.net_contact_force),
+                               net_contact_torque=torch.zeros_like(state.net_contact_torque))
+        for _ in range(self.substeps):
+            state = self._substep_fused(state, targets, efforts, dt_s)
+        return state
+
+    def step_dr(self, *args, **kwargs):
+        raise NotImplementedError("domain randomization is not ported yet "
+                                  "(ROADMAP, module 5 and kernel K2-dr)")
+
+    def _substep_fused(self, state: SimState, targets, efforts, dt_s) -> SimState:
+        slot, ba = self.slot, self.ball.actor_index
+        sl = slice(slot.dof_start, slot.dof_end)
+        root = state.root
+        out = self.fused_substep(
+            state.dof_pos[:, sl].contiguous(), state.dof_vel[:, sl].contiguous(),
+            targets[:, sl].contiguous(), efforts[:, sl].contiguous(),
+            root[:, ba, 0:3].contiguous(), root[:, ba, 7:10].contiguous(),
+            root[:, ba, 10:13].contiguous())
+        root = root.clone()
+        root[:, ba, 3:7] = _integrate_quat(root[:, ba, 3:7], out.ball_omega, dt_s)
+        root[:, ba, 0:3] = out.ball_pos
+        root[:, ba, 7:10] = out.ball_vel
+        root[:, ba, 10:13] = out.ball_omega
+        ng = len(self.art_bodies)
+        inv_dt = 1.0 / self.dt
+        ncf = state.net_contact_force.clone()
+        if ng:
+            ncf[:, self._art_bodies_t] += out.impulses[:, :ng] * inv_dt
+        # row ng is the ball's total contact impulse (plane + statics + art)
+        ncf[:, self.ball.body_start] += out.impulses[:, ng] * inv_dt
+        dof_pos, dof_vel, dof_force = (state.dof_pos.clone(), state.dof_vel.clone(),
+                                       state.dof_force.clone())
+        dof_pos[:, sl] = out.q_new
+        dof_vel[:, sl] = out.qd_new
+        dof_force[:, sl] = out.tau
+        return SimState(root, dof_pos, dof_vel, dof_force, ncf, state.net_contact_torque)
+
+    def make_body_state_fn(self, body_ids):
+        """``state -> (B, len(body_ids), 13)`` for env-level body indices
+        (``simulator.py:1589``); rows follow ``body_ids``."""
+        scene = self.scene
+        body_ids = np.asarray(body_ids)
+        art_by_actor = {s.actor_index: s for s in scene.articulations}
+        pieces, cursor = [], 0
+        for ai, actor in enumerate(scene.spec.actors):
+            nb = actor.tree.n_bodies
+            sel = np.nonzero((body_ids >= cursor) & (body_ids < cursor + nb))[0]
+            if len(sel):
+                pieces.append((ai, art_by_actor.get(ai), body_ids[sel] - cursor, sel))
+            cursor += nb
+        order = np.concatenate([p[3] for p in pieces])
+        inv_perm = np.argsort(order)
+        identity = bool(np.all(inv_perm == np.arange(len(inv_perm))))
+        inv_perm_t = torch.as_tensor(inv_perm, device=self.device)
+
+        def body_states(state: SimState) -> torch.Tensor:
+            parts = []
+            for ai, slot, local_ids, _ in pieces:
+                ra = state.root[:, ai]
+                if slot is not None:
+                    sl = slice(slot.dof_start, slot.dof_end)
+                    parts.append(fk_body_states(slot.model.tree, ra[:, 0:3], ra[:, 3:7],
+                                                state.dof_pos[:, sl], state.dof_vel[:, sl],
+                                                body_ids=local_ids))
+                else:
+                    parts.append(ra[:, None].expand(-1, len(local_ids), -1))
+            out = torch.cat(parts, dim=1)
+            return out if identity else out[:, inv_perm_t]
+
+        return body_states

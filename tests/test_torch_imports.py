@@ -1,0 +1,106 @@
+"""The port stands alone: no JAX, no YAML, nothing of the JAX package.
+
+A subprocess with those modules made unimportable imports every module of
+``isaacgym_tpu_torch`` and the top of ``chip_smoke.py`` and drives the env
+on the CPU; an AST scan of every file finds no such import.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "isaacgym_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "omegaconf", "isaacgym_tpu")
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in sorted(files) if f.endswith(".py")]
+    return sorted(out)
+
+
+def _module_names():
+    names = []
+    for path in _port_files():
+        rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        if rel.endswith(".__init__"):
+            rel = rel[:-len(".__init__")]
+        names.append(rel)
+    return names
+
+
+BLOCKER = f"""
+import importlib.abc, sys
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {FORBIDDEN!r}:
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, _Block())
+"""
+
+
+def test_port_imports_and_steps_with_jax_yaml_and_reference_blocked():
+    code = BLOCKER + f"""
+import importlib
+for name in {_module_names()!r}:
+    importlib.import_module(name)
+import torch, isaacgym_tpu_torch
+env = isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpongTiltNoEarlyStopG1",
+                              num_envs=2, device="cpu")
+state, obs = env.reset()
+state, obs, rew, done, info = env.step(state, torch.zeros(2, 7))
+assert obs.shape == (2, 80) and bool(torch.isfinite(obs).all())
+for bad in {FORBIDDEN!r}:
+    assert bad not in sys.modules, bad
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_forbidden_import(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        for m in mods:
+            assert m.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {m}"
+
+
+def test_make_on_cuda_without_a_gpu_raises(monkeypatch):
+    import isaacgym_tpu_torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpongTiltNoEarlyStopG1",
+                                num_envs=4)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    import isaacgym_tpu_torch
+    env = isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpongTiltNoEarlyStopG1",
+                                  num_envs=4, device="cpu")
+    k = env.sim.fused_substep
+    good = [torch.zeros(4, n) for n in (7, 7, 7, 7, 3, 3, 3)]
+    with pytest.raises(ValueError, match="float32"):
+        k(*[g.double() for g in good])
+    with pytest.raises(ValueError):
+        k(*good[:6], torch.zeros(4, 4))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        k(*[g.to("meta") for g in good])
+    with pytest.raises(ValueError, match="CUDA"):
+        k.launch(torch.zeros(37, 4))   # a CPU buffer never reaches the kernel
+    assert k.launches == 0
