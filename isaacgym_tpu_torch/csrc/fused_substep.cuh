@@ -1,7 +1,8 @@
 // K2, the fused physics substep of the flagship scene: the per-env body.
 //
 // Replaces isaacgym_tpu/ops/pallas_dynamics.py:754 (build_fused_substep,
-// built with with_dr=False, with_torque=False). One call computes one env's
+// with_torque=False): K2 with with_dr=False, K2-dr with with_dr=True (the
+// compile-time WITH_DR below). One call computes one env's
 // whole substep: PD -> FK -> world inertias -> mass matrix -> RNEA bias ->
 // Cholesky -> semi-implicit Euler with limits -> FK at the new q -> ball
 // gravity/damping -> plane, static-geom and articulated-geom contacts (swept
@@ -18,7 +19,14 @@
 //
 // Scene constants are read at run time from one float32 buffer (layout
 // below, mirrored by isaacgym_tpu_torch/ops/fused_substep.py); only the DOF
-// count ND is a compile-time parameter. Loops over DOFs are unrolled, so
+// count ND and WITH_DR are compile-time parameters.
+//
+// K2-dr reads a per-env domain-randomization channel of n_dr(ND) = 4 ND + 6
+// rows appended to the packed input, in the JAX package's order (kp scale,
+// kd scale, lower shift, upper shift per DOF, then mass scale, gravity
+// offset xyz, friction scale, restitution scale). Each value is read where it
+// is used, with __ldg on its coalesced row, so the K2-dr body holds no more
+// live registers than it must; WITH_DR = false compiles to K2 unchanged. Loops over DOFs are unrolled, so
 // per-DOF arrays stay in registers; a runtime parent or link index selects
 // among them with a compare per candidate instead of indexing.
 //
@@ -51,7 +59,8 @@ enum : int {
   C_BASE_P = 13, C_BASE_Q = 16,
   C_INV_MB = 20, C_MB, C_RB, C_E_BALL, C_MU_BALL, C_PLANE_E, C_PLANE_MU,
   C_MAX_LIN, C_MAX_ANG, C_LIN_DAMP, C_ANG_DAMP, C_KD_AERO, C_KM_AERO,
-  C_KAPPA, C_ONE_P_KAPPA, C_KAPPA_OVER_RB, C_WT0, C_KAPPA_INVMB_OVER_RB
+  C_KAPPA, C_ONE_P_KAPPA, C_KAPPA_OVER_RB, C_WT0, C_KAPPA_INVMB_OVER_RB,
+  C_NTRUE_STATIC = 38
 };
 constexpr int DOF_OFF = 48, DOF_STRIDE = 32;
 enum : int {
@@ -60,11 +69,16 @@ enum : int {
   D_HI = 27, D_EFFORT = 28, D_MAXVEL = 29, D_KP = 30, D_KD = 31
 };
 constexpr int STATIC_STRIDE = 20;
-enum : int { G_KIND = 0, G_POS = 1, G_ROT = 4, G_SIZE = 13, G_E = 16, G_MU = 17 };
+// G_E/G_MU: the ball-combined material; *_RAW: the geom's own, which K2-dr
+// scales per env before combining
+enum : int {
+  G_KIND = 0, G_POS = 1, G_ROT = 4, G_SIZE = 13, G_E = 16, G_MU = 17,
+  G_E_RAW = 18, G_MU_RAW = 19
+};
 constexpr int ART_STRIDE = 20;
 enum : int {
   A_KIND = 0, A_LINK = 1, A_OFF_POS = 2, A_OFF_QUAT = 5, A_SIZE = 9,
-  A_E = 12, A_MU = 13, A_RBOUND = 14
+  A_E = 12, A_MU = 13, A_RBOUND = 14, A_E_RAW = 15, A_MU_RAW = 16
 };
 constexpr int PAIR_STRIDE = 8;
 enum : int { P_ART = 0, P_STATIC = 1, P_EXACT = 2, P_E = 3, P_MU = 4 };
@@ -77,14 +91,18 @@ IGT_HD constexpr int pair_off(int nd) { return art_off(nd) + MAX_ART * ART_STRID
 IGT_HD constexpr int total_size(int nd) { return pair_off(nd) + MAX_PAIRS * PAIR_STRIDE; }
 IGT_HD constexpr int n_in(int nd) { return 4 * nd + 9; }
 IGT_HD constexpr int n_out(int nd, int ng) { return 3 * nd + 9 + 3 * (ng + 1); }
+IGT_HD constexpr int n_dr(int nd) { return 4 * nd + 6; }
 
 // Fills ``out`` with the layout (dof, mask, static, art, pair, total,
-// max_static, max_art, max_pairs) so the Python side can check it.
+// max_static, max_art, max_pairs, n_dr, and the slots K2-dr reads: true
+// static count, raw static restitution, raw art restitution) so the Python
+// side can check it.
 inline int fill_layout(int nd, int* out, int n) {
-  if (n < 9 || nd < 1) return 1;
+  if (n < 13 || nd < 1) return 1;
   out[0] = DOF_OFF; out[1] = mask_off(nd); out[2] = static_off(nd);
   out[3] = art_off(nd); out[4] = pair_off(nd); out[5] = total_size(nd);
   out[6] = MAX_STATIC; out[7] = MAX_ART; out[8] = MAX_PAIRS;
+  out[9] = n_dr(nd); out[10] = C_NTRUE_STATIC; out[11] = G_E_RAW; out[12] = A_E_RAW;
   return 0;
 }
 
@@ -315,9 +333,10 @@ IGT_HD V3<T> jac_col(const float* c, const float* mask, int link, int i, V3<T> p
 }
 
 // ------------------------------------------------------------- the body --
-// One env's substep. x: (n_in(ND), B) inputs, y: (n_out(ND, ng), B) outputs,
-// both channel-major; env b reads and writes column b.
-template <class T, int ND>
+// One env's substep. x: (n_in(ND) [+ n_dr(ND) with WITH_DR], B) inputs,
+// y: (n_out(ND, ng), B) outputs, both channel-major; env b reads and writes
+// column b.
+template <class T, int ND, bool WITH_DR = false>
 IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restrict__ x,
                               float* __restrict__ y, int b, int B) {
   const float* mask = c + mask_off(ND);
@@ -325,6 +344,10 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
   const size_t sB = (size_t)B;
 #define IGT_IN(ch) T(x[(size_t)(ch) * sB + b])
 #define IGT_OUT(ch, v) (y[(size_t)(ch) * sB + b] = to_f(v))
+  // DR channel k (only read when WITH_DR): kp scale 0..ND-1, kd scale ND..,
+  // lower shift 2ND.., upper shift 3ND.., mass 4ND, gravity offset 4ND+1..3,
+  // friction 4ND+4, restitution 4ND+5
+#define IGT_DR(k) T(ldc(x + (size_t)(n_in(ND) + (k)) * sB + b))
 
   T q[ND], qd[ND], tau[ND];
 #pragma unroll
@@ -332,8 +355,12 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
     const float* dc = c + DOF_OFF + d * DOF_STRIDE;
     q[d] = IGT_IN(d);
     qd[d] = IGT_IN(ND + d);
-    T t = T(ldc(dc + D_KP)) * (IGT_IN(2 * ND + d) - q[d]) - T(ldc(dc + D_KD)) * qd[d]
-          + IGT_IN(3 * ND + d);
+    T kp = T(ldc(dc + D_KP)), kd = T(ldc(dc + D_KD));
+    if constexpr (WITH_DR) {
+      kp = kp * IGT_DR(d);
+      kd = kd * IGT_DR(ND + d);
+    }
+    T t = kp * (IGT_IN(2 * ND + d) - q[d]) - kd * qd[d] + IGT_IN(3 * ND + d);
     const T eff = T(ldc(dc + D_EFFORT));
     tau[d] = clip_(t, -eff, eff);
   }
@@ -406,7 +433,15 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
     V3<T> rc = sub(com, fp[l]);
     V3<T> a_com = add(ao[l], add(cross(wd[l], rc), cross(w[l], cross(w[l], rc))));
     const T m = T(ldc(lc + D_MASS));
-    V3<T> f = scale(v3<T>(a_com.x - gx, a_com.y - gy, a_com.z - gz), m);
+    V3<T> f;
+    if constexpr (WITH_DR) {
+      // link forces (a_com - g_eff) m ms
+      f = scale(v3<T>(a_com.x - (gx + IGT_DR(4 * ND + 1)), a_com.y - (gy + IGT_DR(4 * ND + 2)),
+                      a_com.z - (gz + IGT_DR(4 * ND + 3))),
+                m * IGT_DR(4 * ND));
+    } else {
+      f = scale(v3<T>(a_com.x - gx, a_com.y - gy, a_com.z - gz), m);
+    }
     V3<T> Iwd = v3<T>(Iw[0][0] * wd[l].x + Iw[0][1] * wd[l].y + Iw[0][2] * wd[l].z,
                       Iw[1][0] * wd[l].x + Iw[1][1] * wd[l].y + Iw[1][2] * wd[l].z,
                       Iw[2][0] * wd[l].x + Iw[2][1] * wd[l].y + Iw[2][2] * wd[l].z);
@@ -414,6 +449,7 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
                       Iw[1][0] * w[l].x + Iw[1][1] * w[l].y + Iw[1][2] * w[l].z,
                       Iw[2][0] * w[l].x + Iw[2][1] * w[l].y + Iw[2][2] * w[l].z);
     V3<T> nn = add(Iwd, cross(w[l], Iww));
+    if constexpr (WITH_DR) nn = scale(nn, IGT_DR(4 * ND));   // gyroscopic term x ms
     V3<T> J[ND];
 #pragma unroll
     for (int i = 0; i < ND; ++i) {
@@ -444,6 +480,12 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
 
   // Cholesky (packed lower triangle, in place) and the solve for qdd
   T rhs[ND], qdd[ND], tmp[ND];
+  if constexpr (WITH_DR) {
+    // M x ms, before the armature is added
+    const T ms = IGT_DR(4 * ND);
+#pragma unroll
+    for (int i = 0; i < ND * (ND + 1) / 2; ++i) M[i] = M[i] * ms;
+  }
 #pragma unroll
   for (int i = 0; i < ND; ++i) {
     rhs[i] = tau[i] - acc[i];
@@ -479,7 +521,11 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
     const float mv = ldc(dc + D_MAXVEL);
     if (mv > 0.0f) v = clip_(v, T(-mv), T(mv));
     T p = q[d] + dt * v;
-    const T lo = T(ldc(dc + D_LO)), hi = T(ldc(dc + D_HI));
+    T lo = T(ldc(dc + D_LO)), hi = T(ldc(dc + D_HI));
+    if constexpr (WITH_DR) {
+      lo = lo + IGT_DR(2 * ND + d);
+      hi = hi + IGT_DR(3 * ND + d);
+    }
     bool at_lo = p < lo, at_hi = p > hi;
     p = clip_(p, lo, hi);
     if (at_lo) v = max_(v, T(0.0f));
@@ -496,7 +542,14 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
   const T bounce = T(ldc(c + C_BOUNCE));
   const int ib = 4 * ND;
   V3<T> pos = v3<T>(IGT_IN(ib), IGT_IN(ib + 1), IGT_IN(ib + 2));
-  V3<T> vel = v3<T>(IGT_IN(ib + 3) + gx * dt, IGT_IN(ib + 4) + gy * dt, IGT_IN(ib + 5) + gz * dt);
+  V3<T> vel;
+  if constexpr (WITH_DR) {   // the ball's free flight under g_eff too
+    vel = v3<T>(IGT_IN(ib + 3) + (gx + IGT_DR(4 * ND + 1)) * dt,
+                IGT_IN(ib + 4) + (gy + IGT_DR(4 * ND + 2)) * dt,
+                IGT_IN(ib + 5) + (gz + IGT_DR(4 * ND + 3)) * dt);
+  } else {
+    vel = v3<T>(IGT_IN(ib + 3) + gx * dt, IGT_IN(ib + 4) + gy * dt, IGT_IN(ib + 5) + gz * dt);
+  }
   vel = scale(vel, T(ldc(c + C_LIN_DAMP)));
   V3<T> omg = scale(v3<T>(IGT_IN(ib + 6), IGT_IN(ib + 7), IGT_IN(ib + 8)), T(ldc(c + C_ANG_DAMP)));
   if (ldc(c + C_KD_AERO) > 0.0f)
@@ -527,8 +580,15 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
     sphere_geom(kind, g + G_SIZE, c0, rb, dist, n_l);
     const T d0 = dist;
     sweep(kind, g + G_SIZE, rb, c0, dv_l, 2, dist, n_l);
-    V3<T> dv = resolve_static(c, vel, omg, pos, dist, mat(R, n_l), T(ldc(g + G_E)),
-                              T(ldc(g + G_MU)), d0);
+    T e = T(ldc(g + G_E)), mu = T(ldc(g + G_MU));
+    if constexpr (WITH_DR) {
+      // base-welded humanoid geoms (past the true statics) take the shape DR
+      if (si >= (int)ldc(c + C_NTRUE_STATIC)) {
+        e = T(0.5f) * (T(ldc(c + C_E_BALL)) + T(ldc(g + G_E_RAW)) * IGT_DR(4 * ND + 5));
+        mu = T(0.5f) * (T(ldc(c + C_MU_BALL)) + T(ldc(g + G_MU_RAW)) * IGT_DR(4 * ND + 4));
+      }
+    }
+    V3<T> dv = resolve_static(c, vel, omg, pos, dist, mat(R, n_l), e, mu, d0);
     imp = v3<T>(imp.x + dv.x / inv_mb, imp.y + dv.y / inv_mb, imp.z + dv.z / inv_mb);
   }
 
@@ -568,7 +628,10 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
     T vn = dot(v_rel, n);
     geom_imp[gi] = zero3;
     if (!((dist < T(0.0f)) && (vn < T(0.0f)))) continue;   // inactive: no impulse
-    T e_eff = sel(abs_(vn) > bounce, T(ldc(g + A_E)), T(0.0f));
+    T e_art = T(ldc(g + A_E));
+    if constexpr (WITH_DR)
+      e_art = T(0.5f) * (T(ldc(c + C_E_BALL)) + T(ldc(g + A_E_RAW)) * IGT_DR(4 * ND + 5));
+    T e_eff = sel(abs_(vn) > bounce, e_art, T(0.0f));
     T jv[ND], yn[ND], yt[ND], du[ND];
 #pragma unroll
     for (int i = 0; i < ND; ++i) jv[i] = on[i] ? dot(Jc[i], n) : T(0.0f);
@@ -589,7 +652,10 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
 #pragma unroll
     for (int i = 0; i < ND; ++i) sq = sq + yt[i] * yt[i];
     T w_t = T(ldc(c + C_WT0)) + sq;
-    T Pt = min_(T(ldc(g + A_MU)) * Pn, vt_n / w_t);
+    T mu_art = T(ldc(g + A_MU));
+    if constexpr (WITH_DR)
+      mu_art = T(0.5f) * (T(ldc(c + C_MU_BALL)) + T(ldc(g + A_MU_RAW)) * IGT_DR(4 * ND + 4));
+    T Pt = min_(mu_art * Pn, vt_n / w_t);
     V3<T> P = sub(scale(n, Pn), scale(t_hat, Pt));
     vel = add(vel, scale(P, inv_mb));
     omg = add(omg, scale(cross(n, t_hat), T(ldc(c + C_KAPPA_INVMB_OVER_RB)) * Pt));
@@ -712,6 +778,7 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
   IGT_OUT(3 * ND + 8, omg.z);
 #undef IGT_IN
 #undef IGT_OUT
+#undef IGT_DR
 }
 
 }  // namespace igt

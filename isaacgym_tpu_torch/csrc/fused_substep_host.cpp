@@ -37,21 +37,48 @@ inline float to_f(CountF a) { return a.v; }
 
 #include "fused_substep.cuh"
 
-extern "C" int igt_fused_substep_host(const float* consts, const float* x, float* y,
-                                      int B, int nd) {
+namespace {
+
+// Runs the body on every env in float; returns 0, or 1 on a bad shape.
+template <bool WITH_DR>
+int run(const float* consts, const float* x, float* y, int B, int nd) {
   if (nd != 7 || B < 1) return 1;
-  for (int b = 0; b < B; ++b) igt::fused_substep_env<float, 7>(consts, x, y, b, B);
+  for (int b = 0; b < B; ++b) igt::fused_substep_env<float, 7, WITH_DR>(consts, x, y, b, B);
   return 0;
 }
 
 // Runs the body on every env with the counting float; returns the total
-// number of operations (outputs are written as by igt_fused_substep_host).
-extern "C" long long igt_fused_substep_count_ops(const float* consts, const float* x,
-                                                 float* y, int B, int nd) {
+// number of operations, or -1 on a bad shape (outputs are written as by run).
+template <bool WITH_DR>
+long long count_ops(const float* consts, const float* x, float* y, int B, int nd) {
   if (nd != 7 || B < 1) return -1;
   igt::g_ops = 0;
-  for (int b = 0; b < B; ++b) igt::fused_substep_env<igt::CountF, 7>(consts, x, y, b, B);
+  for (int b = 0; b < B; ++b) igt::fused_substep_env<igt::CountF, 7, WITH_DR>(consts, x, y, b, B);
   return igt::g_ops;
+}
+
+}  // namespace
+
+// K2: x is (n_in(7), B)
+extern "C" int igt_fused_substep_host(const float* consts, const float* x, float* y,
+                                      int B, int nd) {
+  return run<false>(consts, x, y, B, nd);
+}
+
+extern "C" long long igt_fused_substep_count_ops(const float* consts, const float* x,
+                                                 float* y, int B, int nd) {
+  return count_ops<false>(consts, x, y, B, nd);
+}
+
+// K2-dr: x is (n_in(7) + n_dr(7), B), the randomization channel last
+extern "C" int igt_fused_substep_dr_host(const float* consts, const float* x, float* y,
+                                         int B, int nd) {
+  return run<true>(consts, x, y, B, nd);
+}
+
+extern "C" long long igt_fused_substep_dr_count_ops(const float* consts, const float* x,
+                                                    float* y, int B, int nd) {
+  return count_ops<true>(consts, x, y, B, nd);
 }
 
 extern "C" int igt_fused_layout(int nd, int* out, int n) {

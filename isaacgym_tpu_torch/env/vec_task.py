@@ -1,11 +1,15 @@
 """Vectorized-task base: the env step with its branch-free auto-reset.
 
 Counterpart of ``isaacgym_tpu/env/vec_task.py`` (``EnvState``, ``reset``,
-``_step_impl`` at ``:205-290``) without the domain-randomization branches:
-action clip -> PD targets -> physics -> body states -> reward -> auto-reset
-(every env's would-be reset state, merged with ``torch.where``, no host
-sync) -> observation. The JAX package's per-env PRNG keys become one
-``torch.Generator`` on the env's device.
+``_step_impl`` at ``:205-290``): action clip -> PD targets -> physics ->
+body states -> reward -> auto-reset (every env's would-be reset state,
+merged with ``torch.where``, no host sync) -> observation. With
+``task.randomize: true`` the step adds action noise before the clip, runs
+``Simulator.step`` with the state's per-env ``DRParams`` (K2-dr), re-samples
+them for resetting envs whose counter passed ``frequency``, adds observation
+noise and advances ``global_step`` (the DR schedules' clock) once per step.
+The JAX package's per-env PRNG keys become one ``torch.Generator`` on the
+env's device.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from isaacgym_tpu_torch.env.randomize import DomainRandomizer, DRParams
 from isaacgym_tpu_torch.sim.scene import SceneSpec, compile_scene
 from isaacgym_tpu_torch.sim.simulator import SimState, Simulator
 
@@ -25,6 +30,9 @@ class EnvState(NamedTuple):
     flags: Dict[str, torch.Tensor]  # task one-shot flags, each (B,) bool
     pre_ball_root: torch.Tensor    # (B, 13) ball root before the last physics step
     ep_return: torch.Tensor        # (B,) running episode return
+    dr: Optional[DRParams] = None  # batched DRParams when DR is on
+    randomize_buf: Optional[torch.Tensor] = None  # (B,) int32 steps since re-sampling
+    global_step: Optional[torch.Tensor] = None    # () int32, drives the DR schedules
 
 
 def _merge(do, a, b):
@@ -45,9 +53,6 @@ class TorchVecTask:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' asked for but no CUDA device is available")
-        if bool((cfg.get("task") or {}).get("randomize", False)):
-            raise NotImplementedError("domain randomization is not ported yet "
-                                      "(ROADMAP, module 5)")
         self.num_envs = int(env_cfg["numEnvs"])
         self.num_obs = int(env_cfg["numObservations"])
         self.num_actions = int(env_cfg["numActions"])
@@ -60,6 +65,13 @@ class TorchVecTask:
         self.scene_spec: SceneSpec = self.create_scene()
         self.scene = compile_scene(self.scene_spec)
         self.sim = Simulator(self.scene, device=self.device)
+
+        # domain randomization: spec-driven, off by default
+        task_cfg = cfg.get("task", {}) or {}
+        self.randomize = bool(task_cfg.get("randomize", False))
+        self.randomizer = (DomainRandomizer(task_cfg.get("randomization_params", {}),
+                                            self.scene.num_dofs)
+                           if self.randomize else None)
 
         lo, hi = self._action_dof_limits()
         self._pd_action_offset = torch.as_tensor(0.5 * (hi + lo), dtype=torch.float32,
@@ -104,9 +116,15 @@ class TorchVecTask:
         B = self.num_envs
         sim = self.reset_sim(self.sim.initial_state(B))
         flags = self._flags0(B)
+        dr = randomize_buf = global_step = None
+        if self.randomize:
+            global_step = torch.zeros((), dtype=torch.int32, device=self.device)
+            dr = self.randomizer.sample(self.generator, global_step, B)
+            randomize_buf = torch.zeros(B, dtype=torch.int32, device=self.device)
         state = EnvState(sim=sim, progress=torch.zeros(B, dtype=torch.int32, device=self.device),
                          flags=flags, pre_ball_root=sim.root[:, self.ball_actor].clone(),
-                         ep_return=torch.zeros(B, dtype=torch.float32, device=self.device))
+                         ep_return=torch.zeros(B, dtype=torch.float32, device=self.device),
+                         dr=dr, randomize_buf=randomize_buf, global_step=global_step)
         return state, self.observe(sim, self._rb_fn(sim), flags)
 
     def action_to_drive(self, actions):
@@ -115,10 +133,12 @@ class TorchVecTask:
 
     def step(self, state: EnvState, actions):
         """One vectorized env step: (state', obs, reward, done, info)."""
+        if self.randomize:
+            actions = self.randomizer.action_noise(self.generator, actions)
         actions = torch.clamp(actions, -self.clip_actions, self.clip_actions)
         targets, efforts = self.action_to_drive(actions)
         pre_ball = state.sim.root[:, self.ball_actor]
-        sim = self.sim.step(state.sim, targets, efforts)
+        sim = self.sim.step(state.sim, targets, efforts, state.dr if self.randomize else None)
         progress = state.progress + 1
 
         rew, reset, flags = self.reward(pre_ball, sim, self._rb_fn(sim), state.flags, progress)
@@ -137,10 +157,24 @@ class TorchVecTask:
                  for k, v in flags.items()}
         obs = self.observe(sim, self._rb_fn(sim), flags)
 
+        dr, randomize_buf, global_step = state.dr, state.randomize_buf, state.global_step
+        if self.randomize:
+            # re-sample resetting envs whose counter passed ``frequency``
+            # (the reference's randomize_buf semantics)
+            global_step = state.global_step + 1
+            randomize_buf = state.randomize_buf + 1
+            resample = do & (randomize_buf >= self.randomizer.frequency)
+            dr_new = self.randomizer.sample(self.generator, global_step, self.num_envs)
+            dr = DRParams(*[_merge(resample, a, b) for a, b in zip(dr_new, state.dr)])
+            randomize_buf = torch.where(resample, torch.zeros_like(randomize_buf),
+                                        randomize_buf)
+            obs = self.randomizer.observation_noise(self.generator, obs)
+
         finished_return = state.ep_return + rew
         ep_return = torch.where(do, torch.zeros_like(finished_return), finished_return)
         new_state = EnvState(sim=sim, progress=progress, flags=flags,
-                             pre_ball_root=pre_ball, ep_return=ep_return)
+                             pre_ball_root=pre_ball, ep_return=ep_return, dr=dr,
+                             randomize_buf=randomize_buf, global_step=global_step)
         time_outs = state.progress + 1 >= self.max_episode_length - 1
         info = {
             "time_outs": time_outs & do,

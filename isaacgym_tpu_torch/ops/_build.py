@@ -4,13 +4,15 @@ with a plain C interface, loaded with ``ctypes``.
 The CUDA library is built at first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o <dir>/libigt_kernels.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -o <dir>/libigt_kernels.so csrc/*.cu
 
 into ``build/kernels/<hash>/`` beside the package (listed in ``.gitignore``),
 keyed by a hash of the sources and flags, so a fresh checkout builds it once
 and every scene reuses it. ``build_host_library`` compiles the host loop
 ``csrc/fused_substep_host.cpp`` (the kernel's own per-env body, for the CPU
-test and the operation count) with g++ the same way.
+test and the operation count) with g++ the same way. ``build_logs`` keeps
+the compiler's output of the builds this process ran (``ptxas -v``: each
+kernel's registers, stack and spills).
 
 A failed build raises with the compiler's output. Nothing here falls back.
 """
@@ -28,12 +30,14 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "kernels")
 
 CUDA_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
 _loaded = {}
 #: wall seconds of the builds this process ran, by library name
 build_seconds = {}
+#: compiler output (stdout + stderr) of the builds this process ran
+build_logs = {}
 
 
 def _nvcc() -> str:
@@ -65,6 +69,7 @@ def _build(name: str, compiler: str, flags, sources, extra_deps) -> str:
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)   # atomic: a concurrent build never sees a partial file
     build_seconds[name] = time.perf_counter() - t0
+    build_logs[name] = proc.stdout + proc.stderr
     return out
 
 
@@ -84,8 +89,9 @@ def build_cuda_library() -> ctypes.CDLL:
                   sorted(glob.glob(os.path.join(CSRC, "*.cu"))), _headers())
     lib = _load(path)
     vp, ip = ctypes.c_void_p, ctypes.c_int
-    lib.igt_fused_substep_launch.argtypes = [vp, vp, vp, ip, ip, ip, vp]
-    lib.igt_fused_substep_launch.restype = ip
+    for fn in (lib.igt_fused_substep_launch, lib.igt_fused_substep_dr_launch):
+        fn.argtypes = [vp, vp, vp, ip, ip, ip, vp]
+        fn.restype = ip
     lib.igt_fused_layout.argtypes = [ip, vp, ip]
     lib.igt_fused_layout.restype = ip
     return lib
@@ -97,10 +103,12 @@ def build_host_library() -> ctypes.CDLL:
                   [os.path.join(CSRC, "fused_substep_host.cpp")], _headers())
     lib = _load(path)
     vp, ip = ctypes.c_void_p, ctypes.c_int
-    lib.igt_fused_substep_host.argtypes = [vp, vp, vp, ip, ip]
-    lib.igt_fused_substep_host.restype = ip
-    lib.igt_fused_substep_count_ops.argtypes = [vp, vp, vp, ip, ip]
-    lib.igt_fused_substep_count_ops.restype = ctypes.c_longlong
+    for fn in (lib.igt_fused_substep_host, lib.igt_fused_substep_dr_host):
+        fn.argtypes = [vp, vp, vp, ip, ip]
+        fn.restype = ip
+    for fn in (lib.igt_fused_substep_count_ops, lib.igt_fused_substep_dr_count_ops):
+        fn.argtypes = [vp, vp, vp, ip, ip]
+        fn.restype = ctypes.c_longlong
     lib.igt_fused_layout.argtypes = [ip, vp, ip]
     lib.igt_fused_layout.restype = ip
     return lib

@@ -1,10 +1,10 @@
-"""K2, the fused substep of the flagship scene: wrapper, plain version and
-the constant pack.
+"""K2 and K2-dr, the fused substep of the flagship scene: wrapper, plain
+version and the constant pack.
 
 One launch computes the whole substep of a single fixed-base humanoid with
 one ball, as ``isaacgym_tpu/ops/pallas_dynamics.py:754``
-(``build_fused_substep``, built with ``with_dr=False``, ``with_torque=False``)
-does: PD -> FK -> world inertias -> mass matrix -> RNEA bias -> Cholesky ->
+(``build_fused_substep``, ``with_torque=False``; K2 with ``with_dr=False``,
+K2-dr with ``with_dr=True``) does: PD -> FK -> world inertias -> mass matrix -> RNEA bias -> Cholesky ->
 semi-implicit Euler with limits -> FK at the new q -> ball gravity and
 damping -> plane, static-geom and articulated-geom contacts (swept CCD,
 gated restitution, spin friction, joint-space reactions through the factor)
@@ -17,6 +17,16 @@ the CUDA kernel (``csrc/fused_substep.cu``) reads it from device memory, so
 one nvcc build serves every scene. The layout below mirrors the ``C_*``,
 ``D_*``, ``G_*``, ``A_*`` and ``P_*`` slots of ``csrc/fused_substep.cuh``;
 the loaded library reports its own layout and the wrapper checks the two.
+
+K2-dr takes one more input, the per-env randomization channel
+``dr_chan`` (B, ``n_dr(nd)`` = 4 nd + 6) in the JAX package's order: kp
+scale, kd scale, lower shift, upper shift (nd each), mass scale, gravity
+offset (3), friction scale, restitution scale. It scales the PD gains, the
+link masses (forces, gyroscopic terms and the mass matrix before the
+armature), shifts the joint limits, adds the gravity offset to the links and
+the ball's free flight, and scales the restitution and friction of the
+articulated geoms and the base-welded humanoid geoms (not of the table, the
+net or the plane).
 
 ``fused_substep_reference`` is the plain PyTorch version, batched over B in
 the Pallas kernel's formulation and contact order. ``FusedSubstep`` takes
@@ -51,6 +61,7 @@ C_BASE_Q = 16
 (C_INV_MB, C_MB, C_RB, C_E_BALL, C_MU_BALL, C_PLANE_E, C_PLANE_MU, C_MAX_LIN,
  C_MAX_ANG, C_LIN_DAMP, C_ANG_DAMP, C_KD_AERO, C_KM_AERO, C_KAPPA,
  C_ONE_P_KAPPA, C_KAPPA_OVER_RB, C_WT0, C_KAPPA_INVMB_OVER_RB) = range(20, 38)
+C_NTRUE_STATIC = 38
 
 DOF_OFF = 48
 DOF_STRIDE = 32
@@ -59,10 +70,11 @@ D_MASS, D_COM, D_INERTIA, D_ARMATURE = 12, 13, 16, 25
 D_LO, D_HI, D_EFFORT, D_MAXVEL, D_KP, D_KD = 26, 27, 28, 29, 30, 31
 
 STATIC_STRIDE = 20
-G_KIND, G_POS, G_ROT, G_SIZE, G_E, G_MU = 0, 1, 4, 13, 16, 17
+# G_E/G_MU: combined with the ball's material; *_RAW: the geom's own (K2-dr)
+G_KIND, G_POS, G_ROT, G_SIZE, G_E, G_MU, G_E_RAW, G_MU_RAW = 0, 1, 4, 13, 16, 17, 18, 19
 ART_STRIDE = 20
-A_KIND, A_LINK, A_OFF_POS, A_OFF_QUAT, A_SIZE, A_E, A_MU, A_RBOUND = (
-    0, 1, 2, 5, 9, 12, 13, 14)
+A_KIND, A_LINK, A_OFF_POS, A_OFF_QUAT, A_SIZE, A_E, A_MU, A_RBOUND, A_E_RAW, A_MU_RAW = (
+    0, 1, 2, 5, 9, 12, 13, 14, 15, 16)
 PAIR_STRIDE = 8
 P_ART, P_STATIC, P_EXACT, P_E, P_MU = 0, 1, 2, 3, 4
 
@@ -87,6 +99,12 @@ def n_in(nd: int) -> int:
 def n_out(nd: int, ng: int) -> int:
     """Output channels: q, qd, tau, ball pos/vel/omega, impulse rows."""
     return 3 * nd + 9 + 3 * (ng + 1)
+
+
+def n_dr(nd: int) -> int:
+    """K2-dr's randomization channel: kp, kd, lower, upper (nd each), mass,
+    gravity offset (3), friction, restitution."""
+    return 4 * nd + 6
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +245,7 @@ def build_constants(model: ArticulationModel, base_pos, base_quat, kp, kd,
     c[C_KAPPA_OVER_RB] = kappa / rb
     c[C_WT0] = (1.0 + kappa) * inv_mb
     c[C_KAPPA_INVMB_OVER_RB] = kappa * inv_mb / rb
+    c[C_NTRUE_STATIC] = n_true_static
 
     kp = np.asarray(kp, np.float32)
     kd = np.asarray(kd, np.float32)
@@ -254,6 +273,7 @@ def build_constants(model: ArticulationModel, base_pos, base_quat, kp, kd,
         c[o + G_SIZE:o + G_SIZE + 3] = [float(v) for v in g["size"]]
         c[o + G_E] = 0.5 * (e_ball + float(g["e"]))
         c[o + G_MU] = 0.5 * (mu_ball + float(g["mu"]))
+        c[o + G_E_RAW], c[o + G_MU_RAW] = float(g["e"]), float(g["mu"])
     f32 = np.float32
     for gi, g in enumerate(art_geoms):
         o = lay["art"] + gi * ART_STRIDE
@@ -266,6 +286,7 @@ def build_constants(model: ArticulationModel, base_pos, base_quat, kp, kd,
         c[o + A_E] = f32(0.5) * (f32(e_ball) + f32(g["e"]))
         c[o + A_MU] = f32(0.5) * (f32(mu_ball) + f32(g["mu"]))
         c[o + A_RBOUND] = float(g["radius_bound"])
+        c[o + A_E_RAW], c[o + A_MU_RAW] = float(g["e"]), float(g["mu"])
     for pi, (gi, si) in enumerate(pairs):
         o = lay["pair"] + pi * PAIR_STRIDE
         g, sg = art_geoms[gi], static_geoms[si]
@@ -524,8 +545,9 @@ def _sym_mat_vec(Iw, v):
 
 
 def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
-                            ball_vel, ball_omega) -> FusedStepOutputs:
-    """Plain PyTorch version of K2 over (B, n) float32 inputs.
+                            ball_vel, ball_omega, dr_chan=None) -> FusedStepOutputs:
+    """Plain PyTorch version of K2 over (B, n) float32 inputs, and of K2-dr
+    when ``dr_chan`` (B, ``n_dr(nd)``) is given.
 
     ``consts`` is the pack of :func:`build_constants` (numpy or a tensor).
     Every per-env value is a (B,) channel; the arithmetic and the order of
@@ -542,16 +564,30 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
     qv = [q[:, d] for d in range(nd)]
     qdv = [qd[:, d] for d in range(nd)]
     zero = torch.zeros_like(qv[0])
+    g = (k[C_GX], k[C_GY], k[C_GZ])
+    dr = dr_chan is not None
+    if dr:   # the Pallas kernel's kps, kds, losh, hish, ms, g_eff, fric_s, rest_s
+        kps = [dr_chan[:, d] for d in range(nd)]
+        kds = [dr_chan[:, nd + d] for d in range(nd)]
+        losh = [dr_chan[:, 2 * nd + d] for d in range(nd)]
+        hish = [dr_chan[:, 3 * nd + d] for d in range(nd)]
+        ms = dr_chan[:, 4 * nd]
+        g_eff = tuple(g[i] + dr_chan[:, 4 * nd + 1 + i] for i in range(3))
+        fric_s, rest_s = dr_chan[:, 4 * nd + 4], dr_chan[:, 4 * nd + 5]
+    else:
+        g_eff = g
 
     # PD drive + effort clamp
     tau = []
     for d, o in enumerate(dofs):
-        t = k[o + D_KP] * (targets[:, d] - qv[d]) - k[o + D_KD] * qdv[d] + efforts[:, d]
+        kp, kd = k[o + D_KP], k[o + D_KD]
+        if dr:
+            kp, kd = kp * kps[d], kd * kds[d]
+        t = kp * (targets[:, d] - qv[d]) - kd * qdv[d] + efforts[:, d]
         tau.append(torch.clamp(t, -k[o + D_EFFORT], k[o + D_EFFORT]))
 
     fp, fq, axes = _fk(k, nd, qv, zero)
     bp = tuple(zero + k[C_BASE_P + i] for i in range(3))
-    g = (k[C_GX], k[C_GY], k[C_GZ])
 
     # velocity / bias propagation (RNEA with qdd = 0, world frame)
     w_l, wd_l, ao_l = [], [], []
@@ -586,8 +622,11 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
         a_com = _add(ao_l[l], _add(_cross(wd_l[l], rc),
                                    _cross(w_l[l], _cross(w_l[l], rc))))
         m = k[o + D_MASS]
-        f = _scale((a_com[0] - g[0], a_com[1] - g[1], a_com[2] - g[2]), m)
+        f = _scale((a_com[0] - g_eff[0], a_com[1] - g_eff[1], a_com[2] - g_eff[2]),
+                   m * ms if dr else m)
         n = _add(_sym_mat_vec(Iw, wd_l[l]), _cross(w_l[l], _sym_mat_vec(Iw, w_l[l])))
+        if dr:
+            n = _scale(n, ms)
         J = [None] * nd
         for i in range(nd):
             if mask[l][i]:
@@ -607,6 +646,8 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
                     M[i][j] = M[i][j] + _dot(axes[i], _sym_mat_vec(Iw, axes[j]))
                 M[i][j] = M[i][j] + m * _dot(J[i], J[j])
     rhs = [tau[i] - acc_rhs[i] for i in range(nd)]
+    if dr:   # M x ms before the armature
+        M = [[M[i][j] * ms for j in range(i + 1)] for i in range(nd)]
     for i, o in enumerate(dofs):
         M[i][i] = M[i][i] + k[o + D_ARMATURE]
     L = _chol(M, nd)
@@ -619,8 +660,11 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
         if k[o + D_MAXVEL] > 0.0:
             v = torch.clamp(v, -k[o + D_MAXVEL], k[o + D_MAXVEL])
         p = qv[d] + dt * v
-        at_lo, at_hi = p < k[o + D_LO], p > k[o + D_HI]
-        p = torch.clamp(p, k[o + D_LO], k[o + D_HI])
+        lo, hi = k[o + D_LO], k[o + D_HI]
+        if dr:
+            lo, hi = lo + losh[d], hi + hish[d]
+        at_lo, at_hi = p < lo, p > hi
+        p = torch.clamp(p, lo, hi)
         v = torch.where(at_lo, torch.clamp(v, min=0.0), v)
         v = torch.where(at_hi, torch.clamp(v, max=0.0), v)
         q_new.append(p)
@@ -630,7 +674,7 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
     # ------------------------------- ball ---------------------------------
     rb, inv_mb = k[C_RB], k[C_INV_MB]
     pos = tuple(ball_pos[:, i] for i in range(3))
-    vel = tuple(ball_vel[:, i] + g[i] * dt for i in range(3))
+    vel = tuple(ball_vel[:, i] + g_eff[i] * dt for i in range(3))
     vel = _scale(vel, k[C_LIN_DAMP])
     omg = _scale(tuple(ball_omega[:, i] for i in range(3)), k[C_ANG_DAMP])
     if k[C_KD_AERO] > 0.0:
@@ -655,8 +699,11 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
         dv_l = _mat_t(R, _scale(vel, k[C_DT_HALF]))
         d0, n0 = _sphere_geom(kind, size, c0, rb)
         dist, n_l = _sweep(kind, size, rb, c0, d0, n0, dv_l, 2)
-        vel, omg, push, dv = _resolve_static(k, vel, omg, dist, _mat(R, n_l),
-                                             k[o + G_E], k[o + G_MU], d0)
+        e, mu = k[o + G_E], k[o + G_MU]
+        if dr and si >= int(k[C_NTRUE_STATIC]):   # base-welded humanoid geoms
+            e = 0.5 * (k[C_E_BALL] + k[o + G_E_RAW] * rest_s)
+            mu = 0.5 * (k[C_MU_BALL] + k[o + G_MU_RAW] * fric_s)
+        vel, omg, push, dv = _resolve_static(k, vel, omg, dist, _mat(R, n_l), e, mu, d0)
         pos = _add(pos, push)
         imp = tuple(imp[i] + dv[i] / inv_mb for i in range(3))
 
@@ -706,7 +753,11 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
         n = _qrot(gq, n_l)
         vn = _dot(v_rel, n)
         active = (dist < 0.0) & (vn < 0.0)
-        e_eff = torch.where(torch.abs(vn) > k[C_BOUNCE], k[o + A_E], 0.0)
+        e_art, mu_art = k[o + A_E], k[o + A_MU]
+        if dr:
+            e_art = 0.5 * (k[C_E_BALL] + k[o + A_E_RAW] * rest_s)
+            mu_art = 0.5 * (k[C_MU_BALL] + k[o + A_MU_RAW] * fric_s)
+        e_eff = torch.where(torch.abs(vn) > k[C_BOUNCE], e_art, 0.0)
         yn = _fwd_sub(L, jt_dot(cols, n))
         w_n = inv_mb + sum_sq(yn)
         Pn = torch.where(active, -(1.0 + e_eff) * vn / w_n, 0.0)
@@ -716,7 +767,7 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
         t_hat = _scale(vt, 1.0 / vt_n)
         yt = _fwd_sub(L, jt_dot(cols, t_hat))
         w_t = k[C_WT0] + sum_sq(yt)
-        Pt = torch.where(active, torch.minimum(k[o + A_MU] * Pn, vt_n / w_t), 0.0)
+        Pt = torch.where(active, torch.minimum(mu_art * Pn, vt_n / w_t), 0.0)
         P = _sub(_scale(n, Pn), _scale(t_hat, Pt))
         vel = _add(vel, _scale(P, inv_mb))
         omg = _add(omg, _scale(_cross(n, t_hat), k[C_KAPPA_INVMB_OVER_RB] * Pt))
@@ -794,7 +845,8 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
 # the wrapper
 # ---------------------------------------------------------------------------
 
-_LAYOUT_KEYS = ("dof", "mask", "static", "art", "pair", "total")
+_LAYOUT_KEYS = ("dof", "mask", "static", "art", "pair", "total", "max_static", "max_art",
+                "max_pairs", "n_dr", "ntrue_static_slot", "static_e_raw", "art_e_raw")
 
 
 def check_library_layout(lib, nd: int) -> None:
@@ -802,16 +854,20 @@ def check_library_layout(lib, nd: int) -> None:
     out = (ctypes.c_int * 16)()
     if lib.igt_fused_layout(nd, ctypes.addressof(out), 16) != 0:
         raise RuntimeError(f"fused substep library rejects nd={nd}")
-    theirs = dict(zip(_LAYOUT_KEYS + ("max_static", "max_art", "max_pairs"), out[:9]))
-    ours = dict(layout(nd), max_static=MAX_STATIC, max_art=MAX_ART, max_pairs=MAX_PAIRS)
+    theirs = dict(zip(_LAYOUT_KEYS, out[:len(_LAYOUT_KEYS)]))
+    ours = dict(layout(nd), max_static=MAX_STATIC, max_art=MAX_ART, max_pairs=MAX_PAIRS,
+                n_dr=n_dr(nd), ntrue_static_slot=C_NTRUE_STATIC, static_e_raw=G_E_RAW,
+                art_e_raw=A_E_RAW)
     if theirs != ours:
         raise RuntimeError(f"constant-pack layout mismatch: C {theirs} vs Python {ours}")
 
 
-def pack_inputs(q, qd, targets, efforts, ball_pos, ball_vel, ball_omega):
-    """(B, n) inputs -> one (n_in, B) SoA buffer, channel-major."""
-    return torch.cat([q, qd, targets, efforts, ball_pos, ball_vel, ball_omega],
-                     dim=1).t().contiguous()
+def pack_inputs(q, qd, targets, efforts, ball_pos, ball_vel, ball_omega, dr_chan=None):
+    """(B, n) inputs -> one (n_in [+ n_dr], B) SoA buffer, channel-major."""
+    parts = [q, qd, targets, efforts, ball_pos, ball_vel, ball_omega]
+    if dr_chan is not None:
+        parts.append(dr_chan)
+    return torch.cat(parts, dim=1).t().contiguous()
 
 
 def unpack_outputs(y, nd: int, ng: int) -> FusedStepOutputs:
@@ -824,18 +880,21 @@ def unpack_outputs(y, nd: int, ng: int) -> FusedStepOutputs:
 
 
 class FusedSubstep:
-    """K2 for one scene: holds the constant pack and counts kernel launches.
+    """K2 (or K2-dr, ``with_dr=True``) for one scene: holds the constant pack
+    and counts kernel launches.
 
-    ``__call__`` takes the Pallas wrapper's (B, n) float32 inputs. On CPU
-    tensors it runs :func:`fused_substep_reference`; on CUDA tensors it
-    launches ``csrc/fused_substep.cu`` on the current stream (building the
-    library at first use) and adds one to ``launches``; anything else raises.
+    ``__call__`` takes the Pallas wrapper's (B, n) float32 inputs, plus the
+    (B, ``n_dr``) randomization channel for K2-dr. On CPU tensors it runs
+    :func:`fused_substep_reference`; on CUDA tensors it launches
+    ``csrc/fused_substep.cu`` on the current stream (building the library at
+    first use) and adds one to ``launches``; anything else raises.
     """
 
-    def __init__(self, consts: np.ndarray):
+    def __init__(self, consts: np.ndarray, with_dr: bool = False):
         self.consts = np.asarray(consts, np.float32)
         self.nd = int(self.consts[C_ND])
         self.ng = int(self.consts[C_NART])
+        self.with_dr = bool(with_dr)
         self.launches = 0
         self._dev_consts = {}
         self._lib = None
@@ -846,11 +905,19 @@ class FusedSubstep:
             self._dev_consts[key] = torch.as_tensor(self.consts, device=device)
         return self._dev_consts[key]
 
+    def n_in(self) -> int:
+        """Rows of the packed input the kernel takes."""
+        return n_in(self.nd) + (n_dr(self.nd) if self.with_dr else 0)
+
     def __call__(self, q, qd, targets, efforts, ball_pos, ball_vel,
-                 ball_omega) -> FusedStepOutputs:
+                 ball_omega, dr_chan=None) -> FusedStepOutputs:
+        if (dr_chan is not None) != self.with_dr:
+            raise ValueError("fused substep: dr_chan is required by K2-dr and refused by K2")
         ins = (q, qd, targets, efforts, ball_pos, ball_vel, ball_omega)
         B, nd = q.shape[0], self.nd
         widths = (nd, nd, nd, nd, 3, 3, 3)
+        if self.with_dr:
+            ins, widths = ins + (dr_chan,), widths + (n_dr(nd),)
         for t, w in zip(ins, widths):
             if t.dtype != torch.float32 or t.dim() != 2 or tuple(t.shape) != (B, w):
                 raise ValueError(f"fused substep: expected float32 ({B}, {w}), got "
@@ -864,16 +931,17 @@ class FusedSubstep:
         return self.launch(pack_inputs(*ins))
 
     def launch(self, x: torch.Tensor) -> FusedStepOutputs:
-        """Launch the kernel on a packed (n_in, B) CUDA buffer."""
+        """Launch the kernel on a packed (n_in [+ n_dr], B) CUDA buffer."""
         from isaacgym_tpu_torch.ops import _build
         nd, ng = self.nd, self.ng
         if nd != KERNEL_ND:
             raise NotImplementedError(f"fused substep kernel is built for "
                                       f"{KERNEL_ND} DOFs, scene has {nd}")
+        rows = self.n_in()
         if (x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() != 2
-                or x.shape[0] != n_in(nd) or x.shape[1] < 1 or not x.is_contiguous()):
+                or x.shape[0] != rows or x.shape[1] < 1 or not x.is_contiguous()):
             raise ValueError(f"fused substep: expected a contiguous float32 CUDA "
-                             f"({n_in(nd)}, B) buffer, got {x.dtype} {tuple(x.shape)} "
+                             f"({rows}, B) buffer, got {x.dtype} {tuple(x.shape)} "
                              f"on {x.device}")
         if self._lib is None:
             lib = _build.build_cuda_library()
@@ -883,8 +951,9 @@ class FusedSubstep:
         c = self.device_consts(x.device)
         y = torch.empty((n_out(nd, ng), B), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = self._lib.igt_fused_substep_launch(c.data_ptr(), x.data_ptr(), y.data_ptr(),
-                                           B, nd, ng, stream)
+        fn = (self._lib.igt_fused_substep_dr_launch if self.with_dr
+              else self._lib.igt_fused_substep_launch)
+        err = fn(c.data_ptr(), x.data_ptr(), y.data_ptr(), B, nd, ng, stream)
         if err != 0:
             raise RuntimeError(f"fused substep launch failed: cudaError {err}")
         self.launches += 1

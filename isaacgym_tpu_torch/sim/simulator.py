@@ -3,7 +3,9 @@
 Counterpart of ``isaacgym_tpu/sim/simulator.py``'s fused single-humanoid
 path: ``step`` -> ``_step_batched_pallas`` (``:626``) -> ``_substep_fused``
 (``:686-734``), run ``substeps`` times, with the ball-quaternion integration
-and the net-contact-force writeback. One kernel launch (K2) per substep.
+and the net-contact-force writeback. One kernel launch (K2) per substep;
+given ``DRParams`` (``step_dr``, ``:594-624``), K2-dr, the domain-randomized
+build, instead.
 
 State layout (the reference tensor-API contract), batched over B envs:
   root (B, num_actors, 13) = pos(3) + quat(4, xyzw) + linvel(3) + angvel(3),
@@ -11,11 +13,11 @@ State layout (the reference tensor-API contract), batched over B envs:
   (B, num_bodies, 3).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the non-kernel path for other scene classes, domain randomization,
-link-vs-link contacts, terrain. The JAX package also guards the kernels'
-folded base and static poses (``_baked_roots_moved``, ``:568``) and falls
-back to its XLA path when a root is rewritten at run time; the port has no
-such path yet, and nothing in this slice moves a baked root (the reset
+item): the non-kernel path for other scene classes, link-vs-link contacts,
+terrain. The JAX package also guards the kernels' folded base and static
+poses (``_baked_roots_moved``, ``:568``) in ``step`` and ``step_dr`` and
+falls back to its XLA path when a root is rewritten at run time; the port
+has no such path yet, and nothing in the port moves a baked root (the reset
 writes ``initial_root``), so the guard is left out (ROADMAP, modules).
 """
 
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from isaacgym_tpu_torch.models import urdf as U
+from isaacgym_tpu_torch.env.randomize import DRParams
 from isaacgym_tpu_torch.models.kinematics import _qmul, _qrot, fk_body_states
 from isaacgym_tpu_torch.ops.fused_substep import FusedSubstep, build_constants
 from isaacgym_tpu_torch.sim.scene import DRIVE_POS, CompiledScene
@@ -142,6 +145,8 @@ class Simulator:
             exact_support=bool(spec.exact_link_support))
         #: K2 for this scene; ``fused_substep.launches`` counts its launches
         self.fused_substep = FusedSubstep(self.constants)
+        #: K2-dr, the same constants plus a per-env randomization channel
+        self.fused_substep_dr = FusedSubstep(self.constants, with_dr=True)
         self._art_bodies_t = torch.as_tensor(self.art_bodies, device=self.device)
 
     def initial_state(self, batch: int) -> SimState:
@@ -151,28 +156,46 @@ class Simulator:
         return SimState(root, z(sc.num_dofs), z(sc.num_dofs), z(sc.num_dofs),
                         z(sc.num_bodies, 3), z(sc.num_bodies, 3))
 
-    def step(self, state: SimState, targets, efforts) -> SimState:
-        """One env step: ``substeps`` fused substeps, contact forces reset."""
+    def step(self, state: SimState, targets, efforts, dr: DRParams = None) -> SimState:
+        """One env step: ``substeps`` fused substeps, contact forces reset.
+        With ``dr``, every substep runs K2-dr on the per-env channel packed
+        in the JAX package's order (kp, kd, lower, upper, mass, gravity
+        offset, friction, restitution); without, K2. The baked-root guard is
+        left out (module docstring)."""
         dt_s = self.dt / self.substeps
         state = state._replace(net_contact_force=torch.zeros_like(state.net_contact_force),
                                net_contact_torque=torch.zeros_like(state.net_contact_torque))
+        dr_chan = None if dr is None else self.dr_channel(dr)
         for _ in range(self.substeps):
-            state = self._substep_fused(state, targets, efforts, dt_s)
+            state = self._substep_fused(state, targets, efforts, dt_s, dr_chan=dr_chan)
         return state
 
-    def step_dr(self, *args, **kwargs):
-        raise NotImplementedError("domain randomization is not ported yet "
-                                  "(ROADMAP, module 5 and kernel K2-dr)")
+    def step_dr(self, state: SimState, targets, efforts, dr: DRParams) -> SimState:
+        """The JAX package's name for the domain-randomized step
+        (``:594-624``): ``step`` with ``dr``."""
+        return self.step(state, targets, efforts, dr)
 
-    def _substep_fused(self, state: SimState, targets, efforts, dt_s) -> SimState:
+    def dr_channel(self, dr: DRParams) -> torch.Tensor:
+        """K2-dr's (B, 4 nd + 6) randomization channel of the articulation's
+        DOFs, in the JAX package's order (``simulator.py:608-613``)."""
+        sl = slice(self.slot.dof_start, self.slot.dof_end)
+        return torch.cat([
+            dr.kp_scale[:, sl], dr.kd_scale[:, sl], dr.lower_shift[:, sl],
+            dr.upper_shift[:, sl], dr.mass_scale[:, None], dr.gravity_offset,
+            dr.friction_scale[:, None], dr.restitution_scale[:, None]], dim=1)
+
+    def _substep_fused(self, state: SimState, targets, efforts, dt_s,
+                       dr_chan=None) -> SimState:
         slot, ba = self.slot, self.ball.actor_index
         sl = slice(slot.dof_start, slot.dof_end)
         root = state.root
-        out = self.fused_substep(
+        kernel, extra = ((self.fused_substep, ()) if dr_chan is None
+                         else (self.fused_substep_dr, (dr_chan,)))
+        out = kernel(
             state.dof_pos[:, sl].contiguous(), state.dof_vel[:, sl].contiguous(),
             targets[:, sl].contiguous(), efforts[:, sl].contiguous(),
             root[:, ba, 0:3].contiguous(), root[:, ba, 7:10].contiguous(),
-            root[:, ba, 10:13].contiguous())
+            root[:, ba, 10:13].contiguous(), *extra)
         root = root.clone()
         root[:, ba, 3:7] = _integrate_quat(root[:, ba, 3:7], out.ball_omega, dt_s)
         root[:, ba, 0:3] = out.ball_pos

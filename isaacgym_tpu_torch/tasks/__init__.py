@@ -1,4 +1,4 @@
-"""Task registry of the port: the flagship only, so far (ROADMAP, module 6
+"""Task registry of the port: the flagship only, so far (ROADMAP, module 5
 queues the other single-humanoid tasks)."""
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
 """The port stands alone: no JAX, no YAML, nothing of the JAX package.
 
 A subprocess with those modules made unimportable imports every module of
-``isaacgym_tpu_torch`` and the top of ``chip_smoke.py`` and drives the env
-on the CPU; an AST scan of every file finds no such import.
+``isaacgym_tpu_torch`` and the top of ``chip_smoke.py`` and drives the env,
+the DR env and one PPO epoch with a checkpoint on the CPU; an AST scan of
+every file finds no such import. The entry points default to the card and
+raise without one.
 """
 
 import ast
@@ -57,6 +59,24 @@ env = isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpongTiltNoEarlyStopG1",
 state, obs = env.reset()
 state, obs, rew, done, info = env.step(state, torch.zeros(2, 7))
 assert obs.shape == (2, 80) and bool(torch.isfinite(obs).all())
+import os, tempfile
+from isaacgym_tpu_torch.rl import checkpoint
+from isaacgym_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
+from isaacgym_tpu_torch.utils.config import compose
+cfg = compose("HumanoidPingpongTiltNoEarlyStopG1", ["task.randomize=true", "num_envs=4",
+              "train.params.network.mlp.units=[16]", "train.params.config.horizon_length=2",
+              "train.params.config.minibatch_size=4"])
+env = isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpongTiltNoEarlyStopG1",
+                              device="cpu", cfg=cfg["task"])
+trainer = PPOTrainer(env, PPOConfig.from_train_cfg(cfg["train"]), seed=0)
+ts = trainer.init_state()
+state, obs = env.reset()
+ts, state, obs, metrics = trainer.train_epoch(ts, state, obs)
+assert state.dr is not None and int(state.global_step) == 2
+assert all(bool(torch.isfinite(v)) for v in metrics.values())
+with tempfile.TemporaryDirectory() as d:
+    checkpoint.save(os.path.join(d, "c.pt"), ts)
+    checkpoint.restore(os.path.join(d, "c.pt"), trainer.init_state())
 for bad in {FORBIDDEN!r}:
     assert bad not in sys.modules, bad
 print("ok")
@@ -89,6 +109,17 @@ def test_make_on_cuda_without_a_gpu_raises(monkeypatch):
                                 num_envs=4)
 
 
+def test_launcher_defaults_to_the_card_and_raises_without_one(monkeypatch, tmp_path):
+    """The launcher (and so the trainer on its env) runs on the card unless
+    ``device=cpu`` is passed."""
+    from isaacgym_tpu_torch.train import main
+    from isaacgym_tpu_torch.utils.config import compose
+    assert compose("HumanoidPingpongTiltNoEarlyStopG1")["device"] == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["num_envs=4", "max_iterations=1"], run_root=str(tmp_path))
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     import isaacgym_tpu_torch
     env = isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpongTiltNoEarlyStopG1",
@@ -104,3 +135,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         k.launch(torch.zeros(37, 4))   # a CPU buffer never reaches the kernel
     assert k.launches == 0
+    kdr = env.sim.fused_substep_dr
+    with pytest.raises(ValueError, match="dr_chan"):
+        kdr(*good)                      # K2-dr needs its channel
+    with pytest.raises(ValueError, match="dr_chan"):
+        k(*good, torch.ones(4, 34))     # K2 refuses one
+    with pytest.raises(ValueError, match="34"):
+        kdr(*good, torch.ones(4, 33))
+    with pytest.raises(ValueError, match=r"\(71, B\)"):
+        kdr.launch(torch.zeros(37, 4))
+    assert kdr.launches == 0
