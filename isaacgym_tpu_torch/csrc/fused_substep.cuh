@@ -60,7 +60,8 @@ enum : int {
   C_INV_MB = 20, C_MB, C_RB, C_E_BALL, C_MU_BALL, C_PLANE_E, C_PLANE_MU,
   C_MAX_LIN, C_MAX_ANG, C_LIN_DAMP, C_ANG_DAMP, C_KD_AERO, C_KM_AERO,
   C_KAPPA, C_ONE_P_KAPPA, C_KAPPA_OVER_RB, C_WT0, C_KAPPA_INVMB_OVER_RB,
-  C_NTRUE_STATIC = 38
+  C_NTRUE_STATIC = 38,
+  C_DRIVE = 39   // 0: PD position drive, 1: effort drive (K3's articulations)
 };
 constexpr int DOF_OFF = 48, DOF_STRIDE = 32;
 enum : int {
@@ -332,41 +333,53 @@ IGT_HD V3<T> jac_col(const float* c, const float* mask, int link, int i, V3<T> p
   return axw[i];
 }
 
-// ------------------------------------------------------------- the body --
-// One env's substep. x: (n_in(ND) [+ n_dr(ND) with WITH_DR], B) inputs,
-// y: (n_out(ND, ng), B) outputs, both channel-major; env b reads and writes
-// column b.
-template <class T, int ND, bool WITH_DR = false>
-IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restrict__ x,
-                              float* __restrict__ y, int b, int B) {
+// ------------------------------------------------- the phases of a substep --
+// Each phase works on one articulation's or one ball's constant block: K2's
+// whole pack, or one of K3's articulation or ball blocks, which keep K2's
+// slots (fused_substep_multi.cuh). ``sB`` is the batch stride of the
+// channel-major buffers.
+
+// One articulation's dynamics: drive (PD, or the effort input when the
+// block's C_DRIVE is 1) with the effort clamp -> FK -> RNEA bias -> mass
+// matrix -> Cholesky -> semi-implicit Euler with limits -> FK at the new q.
+// Its DOFs are rows row0.. of the q, qd, target and effort blocks of x (each
+// nd_tot rows); q and tau are written to the same rows of y's q and tau
+// blocks. Leaves the packed lower factor in L, the joint velocities in u and
+// the post-step frames. ``dr``: env b's first K2-dr channel row (WITH_DR).
+template <class T, int ND, bool WITH_DR>
+IGT_HD void art_dynamics(const float* __restrict__ c, const float* __restrict__ x,
+                         float* __restrict__ y, int b, size_t sB, int row0, int nd_tot,
+                         const float* dr, T* L, T* u, V3<T>* fp, Q4<T>* fq, V3<T>* axw) {
   const float* mask = c + mask_off(ND);
   const T dt = T(ldc(c + C_DT));
-  const size_t sB = (size_t)B;
-#define IGT_IN(ch) T(x[(size_t)(ch) * sB + b])
-#define IGT_OUT(ch, v) (y[(size_t)(ch) * sB + b] = to_f(v))
-  // DR channel k (only read when WITH_DR): kp scale 0..ND-1, kd scale ND..,
-  // lower shift 2ND.., upper shift 3ND.., mass 4ND, gravity offset 4ND+1..3,
-  // friction 4ND+4, restitution 4ND+5
-#define IGT_DR(k) T(ldc(x + (size_t)(n_in(ND) + (k)) * sB + b))
+#define IGT_IN(blk, d) T(x[(size_t)((blk) * nd_tot + row0 + (d)) * sB + b])
+#define IGT_OUT(blk, d, v) (y[(size_t)((blk) * nd_tot + row0 + (d)) * sB + b] = to_f(v))
+  // DR channel k: kp scale 0..ND-1, kd scale ND.., lower shift 2ND.., upper
+  // shift 3ND.., mass 4ND, gravity offset 4ND+1..3
+#define IGT_DR(k) T(ldc(dr + (size_t)(k) * sB))
+  const bool effort_drive = ldc(c + C_DRIVE) != 0.0f;
 
   T q[ND], qd[ND], tau[ND];
 #pragma unroll
   for (int d = 0; d < ND; ++d) {
     const float* dc = c + DOF_OFF + d * DOF_STRIDE;
-    q[d] = IGT_IN(d);
-    qd[d] = IGT_IN(ND + d);
-    T kp = T(ldc(dc + D_KP)), kd = T(ldc(dc + D_KD));
-    if constexpr (WITH_DR) {
-      kp = kp * IGT_DR(d);
-      kd = kd * IGT_DR(ND + d);
+    q[d] = IGT_IN(0, d);
+    qd[d] = IGT_IN(1, d);
+    T t;
+    if (effort_drive) {
+      t = IGT_IN(3, d);
+    } else {
+      T kp = T(ldc(dc + D_KP)), kd = T(ldc(dc + D_KD));
+      if constexpr (WITH_DR) {
+        kp = kp * IGT_DR(d);
+        kd = kd * IGT_DR(ND + d);
+      }
+      t = kp * (IGT_IN(2, d) - q[d]) - kd * qd[d] + IGT_IN(3, d);
     }
-    T t = kp * (IGT_IN(2 * ND + d) - q[d]) - kd * qd[d] + IGT_IN(3 * ND + d);
     const T eff = T(ldc(dc + D_EFFORT));
     tau[d] = clip_(t, -eff, eff);
   }
 
-  V3<T> fp[ND], axw[ND];
-  Q4<T> fq[ND];
   fk<T, ND>(c, q, fp, fq, axw);
 
   // velocity / bias propagation, RNEA with qdd = 0 in the world frame
@@ -395,7 +408,8 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
 
   // per link: world COM and inertia, wrench, Jacobian columns; the bias and
   // the mass matrix accumulate link by link (ascending l per entry)
-  T acc[ND], M[ND * (ND + 1) / 2];
+  T acc[ND];
+  T* M = L;   // factored in place below
 #pragma unroll
   for (int i = 0; i < ND; ++i) acc[i] = T(0.0f);
 #pragma unroll
@@ -492,7 +506,6 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
     M[i * (i + 1) / 2 + i] = M[i * (i + 1) / 2 + i]
         + T(ldc(c + DOF_OFF + i * DOF_STRIDE + D_ARMATURE));
   }
-  T* L = M;
 #pragma unroll
   for (int j = 0; j < ND; ++j) {
     T s = M[j * (j + 1) / 2 + j];
@@ -513,7 +526,6 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
   back_sub<T, ND>(L, tmp, qdd);
 
   // semi-implicit Euler, velocity clamp, joint limits
-  T u[ND];
 #pragma unroll
   for (int d = 0; d < ND; ++d) {
     const float* dc = c + DOF_OFF + d * DOF_STRIDE;
@@ -532,54 +544,281 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
     if (at_hi) v = min_(v, T(0.0f));
     q[d] = p;
     u[d] = v;
-    IGT_OUT(d, p);
-    IGT_OUT(2 * ND + d, tau[d]);
+    IGT_OUT(0, d, p);
+    IGT_OUT(2, d, tau[d]);
   }
   fk<T, ND>(c, q, fp, fq, axw);
+#undef IGT_IN
+#undef IGT_OUT
+#undef IGT_DR
+}
+
+// A ball's free flight over one substep: gravity (gx, gy, gz), velocity
+// damping, the optional drag and Magnus terms. ``cb``: the ball's block.
+template <class T>
+IGT_HD void ball_flight(const float* cb, T gx, T gy, T gz, V3<T>& vel, V3<T>& omg) {
+  const T dt = T(ldc(cb + C_DT));
+  vel = v3<T>(vel.x + gx * dt, vel.y + gy * dt, vel.z + gz * dt);
+  vel = scale(vel, T(ldc(cb + C_LIN_DAMP)));
+  omg = scale(omg, T(ldc(cb + C_ANG_DAMP)));
+  if (ldc(cb + C_KD_AERO) > 0.0f)
+    vel = sub(vel, scale(vel, dt * T(ldc(cb + C_KD_AERO)) * sqrt_floor(dot(vel, vel), 1e-18f)));
+  if (ldc(cb + C_KM_AERO) > 0.0f)
+    vel = add(vel, scale(cross(omg, vel), dt * T(ldc(cb + C_KM_AERO))));
+}
+
+// The ground plane z = 0: the swept minimum along a plane is monotone.
+// Returns the velocity change.
+template <class T>
+IGT_HD V3<T> ball_plane(const float* cb, V3<T>& pos, V3<T>& vel, V3<T>& omg) {
+  T dist0 = pos.z - T(ldc(cb + C_RB));
+  T dist = min_(dist0, dist0 + vel.z * T(ldc(cb + C_DT)));
+  return resolve_static(cb, vel, omg, pos, dist, v3<T>(T(0.0f), T(0.0f), T(1.0f)),
+                        T(ldc(cb + C_PLANE_E)), T(ldc(cb + C_PLANE_MU)), dist0);
+}
+
+// A ball against one static geom (entry g), 2 sweep samples, combined
+// materials e and mu. Returns the velocity change.
+template <class T>
+IGT_HD V3<T> ball_static(const float* cb, const float* g, T e, T mu, V3<T>& pos, V3<T>& vel,
+                         V3<T>& omg) {
+  const int kind = (int)ldc(g + G_KIND);
+  const float* R = g + G_ROT;
+  const T rb = T(ldc(cb + C_RB));
+  V3<T> c0 = mat_t(R, sub(pos, cv3<T>(g + G_POS)));
+  V3<T> dv_l = mat_t(R, scale(vel, T(ldc(cb + C_DT_HALF))));
+  T dist;
+  V3<T> n_l;
+  sphere_geom(kind, g + G_SIZE, c0, rb, dist, n_l);
+  const T d0 = dist;
+  sweep(kind, g + G_SIZE, rb, c0, dv_l, 2, dist, n_l);
+  return resolve_static(cb, vel, omg, pos, dist, mat(R, n_l), e, mu, d0);
+}
+
+// A ball (block cb) against one articulated geom (entry g) of the
+// articulation with block ca, factor L, velocities u and post-step frames:
+// swept CCD along the relative motion, gated restitution, spin friction and
+// the joint-space reaction through L, which changes u. The materials are
+// read only when the contact acts: g[e_off] and g[mu_off], or with WITH_DR
+// the geom's own scaled by env b's DR channel (dr, K2-dr's rows) and
+// combined with the ball's. Returns whether it acted; P is the impulse on
+// the ball.
+template <class T, int ND, bool WITH_DR>
+IGT_HD bool ball_art(const float* ca, const float* cb, const float* g, int e_off, int mu_off,
+                     const float* dr, size_t sB, V3<T>& pos, V3<T>& vel, V3<T>& omg, T* u,
+                     const T* L, const V3<T>* fp, const Q4<T>* fq, const V3<T>* axw, V3<T>& P) {
+  const float* mask = ca + mask_off(ND);
+  const V3<T> zero3 = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+  const T rb = T(ldc(cb + C_RB)), inv_mb = T(ldc(cb + C_INV_MB));
+  const int kind = (int)ldc(g + A_KIND), link = (int)ldc(g + A_LINK);
+  V3<T> lp = zero3;
+  Q4<T> lq = cq4<T>(ca + C_BASE_Q);
+#pragma unroll
+  for (int k = 0; k < ND; ++k)
+    if (k == link) { lp = fp[k]; lq = fq[k]; }
+  V3<T> gp = add(lp, qrot(lq, cv3<T>(g + A_OFF_POS)));
+  Q4<T> gq = qmul(lq, cq4<T>(g + A_OFF_QUAT));
+  Q4<T> gqi = conj(gq);
+  V3<T> c0 = qrot(gqi, sub(pos, gp));
+  T d_now;
+  V3<T> n_now_l;
+  sphere_geom(kind, g + A_SIZE, c0, rb, d_now, n_now_l);
+  V3<T> cp = sub(pos, scale(qrot(gq, n_now_l), rb));
+  V3<T> Jc[ND];
+  bool on[ND];
+  V3<T> v_point = zero3;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) {
+    Jc[i] = jac_col<T, ND>(ca, mask, link, i, cp, fp, axw, on[i]);
+    if (on[i]) v_point = add(v_point, scale(Jc[i], u[i]));
+  }
+  V3<T> v_rel = sub(vel, v_point);
+  V3<T> dv_l = qrot(gqi, scale(v_rel, T(ldc(cb + C_DT_QUARTER))));
+  T dist = d_now;
+  V3<T> n_l = n_now_l;
+  sweep(kind, g + A_SIZE, rb, c0, dv_l, 4, dist, n_l);
+  V3<T> n = qrot(gq, n_l);
+  T vn = dot(v_rel, n);
+  if (!((dist < T(0.0f)) && (vn < T(0.0f)))) return false;   // inactive: no impulse
+  T e_art;
+  if constexpr (WITH_DR)   // restitution scale: DR row 4ND+5
+    e_art = T(0.5f) * (T(ldc(cb + C_E_BALL)) + T(ldc(g + A_E_RAW)) * T(ldc(dr + (size_t)(4 * ND + 5) * sB)));
+  else
+    e_art = T(ldc(g + e_off));
+  T e_eff = sel(abs_(vn) > T(ldc(cb + C_BOUNCE)), e_art, T(0.0f));
+  T jv[ND], yn[ND], yt[ND], du[ND];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) jv[i] = on[i] ? dot(Jc[i], n) : T(0.0f);
+  fwd_sub<T, ND>(L, jv, yn);
+  T sq = T(0.0f);
+#pragma unroll
+  for (int i = 0; i < ND; ++i) sq = sq + yn[i] * yn[i];
+  T w_n = inv_mb + sq;
+  T Pn = -(T(1.0f) + e_eff) * vn / w_n;
+  V3<T> slip = ldc(cb + C_KAPPA) > 0.0f ? sub(v_rel, scale(cross(omg, n), rb)) : v_rel;
+  V3<T> vt = sub(slip, scale(n, dot(slip, n)));
+  T vt_n = sqrt_floor(dot(vt, vt), 1e-18f);
+  V3<T> t_hat = scale(vt, T(1.0f) / vt_n);
+#pragma unroll
+  for (int i = 0; i < ND; ++i) jv[i] = on[i] ? dot(Jc[i], t_hat) : T(0.0f);
+  fwd_sub<T, ND>(L, jv, yt);
+  sq = T(0.0f);
+#pragma unroll
+  for (int i = 0; i < ND; ++i) sq = sq + yt[i] * yt[i];
+  T w_t = T(ldc(cb + C_WT0)) + sq;
+  T mu_art;
+  if constexpr (WITH_DR)   // friction scale: DR row 4ND+4
+    mu_art = T(0.5f) * (T(ldc(cb + C_MU_BALL)) + T(ldc(g + A_MU_RAW)) * T(ldc(dr + (size_t)(4 * ND + 4) * sB)));
+  else
+    mu_art = T(ldc(g + mu_off));
+  T Pt = min_(mu_art * Pn, vt_n / w_t);
+  P = sub(scale(n, Pn), scale(t_hat, Pt));
+  vel = add(vel, scale(P, inv_mb));
+  omg = add(omg, scale(cross(n, t_hat), T(ldc(cb + C_KAPPA_INVMB_OVER_RB)) * Pt));
+#pragma unroll
+  for (int i = 0; i < ND; ++i) jv[i] = yn[i] * (-Pn) + yt[i] * Pt;
+  back_sub<T, ND>(L, jv, du);
+#pragma unroll
+  for (int i = 0; i < ND; ++i) u[i] = u[i] + du[i];
+  pos = add(pos, scale(n, max_(-d_now, T(0.0f))));
+  return true;
+}
+
+// One articulated geom (entry g) of the articulation with block ca against
+// one true static (entry sg), pair entry pr: Baumgarte impulse on the
+// generalized velocity u, exact support of a cylinder or box along the
+// normal, the 2 mm resting band. Returns whether it acted; P is the impulse
+// on the geom's body.
+template <class T, int ND>
+IGT_HD bool art_static(const float* ca, const float* pr, const float* g, const float* sg, T* u,
+                       const T* L, const V3<T>* fp, const Q4<T>* fq, const V3<T>* axw, V3<T>& P) {
+  const float* mask = ca + mask_off(ND);
+  const V3<T> zero3 = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+  const int link = (int)ldc(g + A_LINK);
+  const T rbound = T(ldc(g + A_RBOUND));
+  V3<T> lp = zero3;
+  Q4<T> lq = cq4<T>(ca + C_BASE_Q);
+#pragma unroll
+  for (int k = 0; k < ND; ++k)
+    if (k == link) { lp = fp[k]; lq = fq[k]; }
+  V3<T> center = add(lp, qrot(lq, cv3<T>(g + A_OFF_POS)));
+  const float* R = sg + G_ROT;
+  V3<T> c_local = mat_t(R, sub(center, cv3<T>(sg + G_POS)));
+  T dist;
+  V3<T> n_local;
+  sphere_geom((int)ldc(sg + G_KIND), sg + G_SIZE, c_local, rbound, dist, n_local);
+  V3<T> n = mat(R, n_local);
+  V3<T> point;
+  if (ldc(pr + P_EXACT) != 0.0f) {
+    // exact support of the cylinder/box along the normal
+    V3<T> n_g = qrot(conj(qmul(lq, cq4<T>(g + A_OFF_QUAT))), n);
+    const float* gs = g + A_SIZE;
+    T sup;
+    if ((int)ldc(g + A_KIND) == GEOM_CYLINDER) {
+      T na = abs_(n_g.z);
+      sup = na * T(ldc(gs + 1)) + sqrt_floor(T(1.0f) - na * na, 0.0f) * T(ldc(gs));
+    } else {
+      sup = abs_(n_g.x) * T(ldc(gs)) + abs_(n_g.y) * T(ldc(gs + 1))
+            + abs_(n_g.z) * T(ldc(gs + 2));
+    }
+    dist = dist + rbound - sup;
+    point = sub(center, scale(n, sup));
+  } else {
+    point = sub(center, scale(n, rbound));
+  }
+  if (!(dist < T(0.0f))) return false;   // inactive: no impulse
+  V3<T> Jc[ND];
+  bool on[ND];
+  V3<T> v_point = zero3;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) {
+    Jc[i] = jac_col<T, ND>(ca, mask, link, i, point, fp, axw, on[i]);
+    if (on[i]) v_point = add(v_point, scale(Jc[i], u[i]));
+  }
+  T vn = dot(v_point, n);
+  if (!(vn < T(0.1f))) return false;
+  const T bounce = T(ldc(ca + C_BOUNCE));
+  T bias = min_(T(ldc(ca + C_BIAS_K)) * max_(-dist - T(0.005f), T(0.0f)),
+                T(ldc(ca + C_MAX_DEPEN)));
+  T e_eff = sel(abs_(vn) > bounce, T(ldc(pr + P_E)), T(0.0f));
+  T jv[ND], yn[ND], yt[ND], du[ND];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) jv[i] = on[i] ? dot(Jc[i], n) : T(0.0f);
+  fwd_sub<T, ND>(L, jv, yn);
+  T w_n = T(0.0f);
+#pragma unroll
+  for (int i = 0; i < ND; ++i) w_n = w_n + yn[i] * yn[i];
+  T Pn = (-(T(1.0f) + e_eff) * min_(vn, T(0.0f)) + bias) / max_(w_n, T(1e-9f));
+  V3<T> vt = sub(v_point, scale(n, vn));
+  T vt_n = sqrt_floor(dot(vt, vt), 1e-18f);
+  V3<T> t_hat = scale(vt, T(1.0f) / vt_n);
+#pragma unroll
+  for (int i = 0; i < ND; ++i) jv[i] = on[i] ? dot(Jc[i], t_hat) : T(0.0f);
+  fwd_sub<T, ND>(L, jv, yt);
+  T w_t = T(0.0f);
+#pragma unroll
+  for (int i = 0; i < ND; ++i) w_t = w_t + yt[i] * yt[i];
+  T Pt = min_(T(ldc(pr + P_MU)) * Pn, vt_n / max_(w_t, T(1e-9f)));
+  // resting-contact band: ramp the impulse over the first 2 mm
+  T s_r = sel(abs_(vn) > bounce, T(1.0f), clip_(-dist / T(0.002f), T(0.0f), T(1.0f)));
+  Pn = Pn * s_r;
+  Pt = Pt * s_r;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) jv[i] = yn[i] * Pn - yt[i] * Pt;
+  back_sub<T, ND>(L, jv, du);
+#pragma unroll
+  for (int i = 0; i < ND; ++i) u[i] = u[i] + du[i];
+  P = sub(scale(n, Pn), scale(t_hat, Pt));
+  return true;
+}
+
+// The ball's velocity caps (PhysX caps the magnitude) and position update.
+template <class T>
+IGT_HD void ball_finish(const float* cb, V3<T>& pos, V3<T>& vel, V3<T>& omg) {
+  vel = scale(vel, min_(T(ldc(cb + C_MAX_LIN)) / sqrt_floor(dot(vel, vel), 1e-18f), T(1.0f)));
+  omg = scale(omg, min_(T(ldc(cb + C_MAX_ANG)) / sqrt_floor(dot(omg, omg), 1e-18f), T(1.0f)));
+  const T dt = T(ldc(cb + C_DT));
+  pos = v3<T>(pos.x + vel.x * dt, pos.y + vel.y * dt, pos.z + vel.z * dt);
+}
+
+// ------------------------------------------------------------- the body --
+// One env's K2 substep. x: (n_in(ND) [+ n_dr(ND) with WITH_DR], B) inputs,
+// y: (n_out(ND, ng), B) outputs, both channel-major; env b reads and writes
+// column b.
+template <class T, int ND, bool WITH_DR = false>
+IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restrict__ x,
+                              float* __restrict__ y, int b, int B) {
+  const size_t sB = (size_t)B;
+#define IGT_IN(ch) T(x[(size_t)(ch) * sB + b])
+#define IGT_OUT(ch, v) (y[(size_t)(ch) * sB + b] = to_f(v))
+  // DR channel k (only read when WITH_DR): gravity offset 4ND+1..3,
+  // friction 4ND+4, restitution 4ND+5
+  const float* dr = x + (size_t)n_in(ND) * sB + b;
+#define IGT_DR(k) T(ldc(dr + (size_t)(k) * sB))
+
+  T L[ND * (ND + 1) / 2], u[ND];
+  V3<T> fp[ND], axw[ND];
+  Q4<T> fq[ND];
+  art_dynamics<T, ND, WITH_DR>(c, x, y, b, sB, 0, ND, dr, L, u, fp, fq, axw);
 
   // ------------------------------------------------------------- ball --
-  const T rb = T(ldc(c + C_RB)), inv_mb = T(ldc(c + C_INV_MB));
-  const T bounce = T(ldc(c + C_BOUNCE));
+  const T inv_mb = T(ldc(c + C_INV_MB));
   const int ib = 4 * ND;
   V3<T> pos = v3<T>(IGT_IN(ib), IGT_IN(ib + 1), IGT_IN(ib + 2));
-  V3<T> vel;
-  if constexpr (WITH_DR) {   // the ball's free flight under g_eff too
-    vel = v3<T>(IGT_IN(ib + 3) + (gx + IGT_DR(4 * ND + 1)) * dt,
-                IGT_IN(ib + 4) + (gy + IGT_DR(4 * ND + 2)) * dt,
-                IGT_IN(ib + 5) + (gz + IGT_DR(4 * ND + 3)) * dt);
-  } else {
-    vel = v3<T>(IGT_IN(ib + 3) + gx * dt, IGT_IN(ib + 4) + gy * dt, IGT_IN(ib + 5) + gz * dt);
-  }
-  vel = scale(vel, T(ldc(c + C_LIN_DAMP)));
-  V3<T> omg = scale(v3<T>(IGT_IN(ib + 6), IGT_IN(ib + 7), IGT_IN(ib + 8)), T(ldc(c + C_ANG_DAMP)));
-  if (ldc(c + C_KD_AERO) > 0.0f)
-    vel = sub(vel, scale(vel, dt * T(ldc(c + C_KD_AERO)) * sqrt_floor(dot(vel, vel), 1e-18f)));
-  if (ldc(c + C_KM_AERO) > 0.0f)
-    vel = add(vel, scale(cross(omg, vel), dt * T(ldc(c + C_KM_AERO))));
+  V3<T> vel = v3<T>(IGT_IN(ib + 3), IGT_IN(ib + 4), IGT_IN(ib + 5));
+  V3<T> omg = v3<T>(IGT_IN(ib + 6), IGT_IN(ib + 7), IGT_IN(ib + 8));
+  const T gx = T(ldc(c + C_GX)), gy = T(ldc(c + C_GY)), gz = T(ldc(c + C_GZ));
+  if constexpr (WITH_DR)   // the ball's free flight under g_eff too
+    ball_flight(c, gx + IGT_DR(4 * ND + 1), gy + IGT_DR(4 * ND + 2), gz + IGT_DR(4 * ND + 3),
+                vel, omg);
+  else
+    ball_flight(c, gx, gy, gz, vel, omg);
+  V3<T> imp = scale(ball_plane(c, pos, vel, omg), T(ldc(c + C_MB)));
 
-  // ground plane z = 0: the swept minimum along a plane is monotone
-  V3<T> imp;
-  {
-    T dist0 = pos.z - rb;
-    T dist = min_(dist0, dist0 + vel.z * dt);
-    V3<T> dv = resolve_static(c, vel, omg, pos, dist, v3<T>(T(0.0f), T(0.0f), T(1.0f)),
-                              T(ldc(c + C_PLANE_E)), T(ldc(c + C_PLANE_MU)), dist0);
-    imp = scale(dv, T(ldc(c + C_MB)));
-  }
-
-  // static geoms (table, net, base-welded humanoid geoms), 2 sweep samples
+  // static geoms (table, net, base-welded humanoid geoms)
   const int n_static = (int)ldc(c + C_NSTATIC);
   for (int si = 0; si < n_static; ++si) {
     const float* g = c + static_off(ND) + si * STATIC_STRIDE;
-    const int kind = (int)ldc(g + G_KIND);
-    const float* R = g + G_ROT;
-    V3<T> c0 = mat_t(R, sub(pos, cv3<T>(g + G_POS)));
-    V3<T> dv_l = mat_t(R, scale(vel, T(ldc(c + C_DT_HALF))));
-    T dist;
-    V3<T> n_l;
-    sphere_geom(kind, g + G_SIZE, c0, rb, dist, n_l);
-    const T d0 = dist;
-    sweep(kind, g + G_SIZE, rb, c0, dv_l, 2, dist, n_l);
     T e = T(ldc(g + G_E)), mu = T(ldc(g + G_MU));
     if constexpr (WITH_DR) {
       // base-welded humanoid geoms (past the true statics) take the shape DR
@@ -588,7 +827,7 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
         mu = T(0.5f) * (T(ldc(c + C_MU_BALL)) + T(ldc(g + G_MU_RAW)) * IGT_DR(4 * ND + 4));
       }
     }
-    V3<T> dv = resolve_static(c, vel, omg, pos, dist, mat(R, n_l), e, mu, d0);
+    V3<T> dv = ball_static(c, g, e, mu, pos, vel, omg);
     imp = v3<T>(imp.x + dv.x / inv_mb, imp.y + dv.y / inv_mb, imp.z + dv.z / inv_mb);
   }
 
@@ -597,160 +836,25 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
   V3<T> geom_imp[MAX_ART];
   for (int gi = 0; gi < n_art; ++gi) {
     const float* g = c + art_off(ND) + gi * ART_STRIDE;
-    const int kind = (int)ldc(g + A_KIND), link = (int)ldc(g + A_LINK);
-    V3<T> lp = zero3;
-    Q4<T> lq = cq4<T>(c + C_BASE_Q);
-#pragma unroll
-    for (int k = 0; k < ND; ++k)
-      if (k == link) { lp = fp[k]; lq = fq[k]; }
-    V3<T> gp = add(lp, qrot(lq, cv3<T>(g + A_OFF_POS)));
-    Q4<T> gq = qmul(lq, cq4<T>(g + A_OFF_QUAT));
-    Q4<T> gqi = conj(gq);
-    V3<T> c0 = qrot(gqi, sub(pos, gp));
-    T d_now;
-    V3<T> n_now_l;
-    sphere_geom(kind, g + A_SIZE, c0, rb, d_now, n_now_l);
-    V3<T> cp = sub(pos, scale(qrot(gq, n_now_l), rb));
-    V3<T> Jc[ND];
-    bool on[ND];
-    V3<T> v_point = zero3;
-#pragma unroll
-    for (int i = 0; i < ND; ++i) {
-      Jc[i] = jac_col<T, ND>(c, mask, link, i, cp, fp, axw, on[i]);
-      if (on[i]) v_point = add(v_point, scale(Jc[i], u[i]));
-    }
-    V3<T> v_rel = sub(vel, v_point);
-    V3<T> dv_l = qrot(gqi, scale(v_rel, T(ldc(c + C_DT_QUARTER))));
-    T dist = d_now;
-    V3<T> n_l = n_now_l;
-    sweep(kind, g + A_SIZE, rb, c0, dv_l, 4, dist, n_l);
-    V3<T> n = qrot(gq, n_l);
-    T vn = dot(v_rel, n);
-    geom_imp[gi] = zero3;
-    if (!((dist < T(0.0f)) && (vn < T(0.0f)))) continue;   // inactive: no impulse
-    T e_art = T(ldc(g + A_E));
-    if constexpr (WITH_DR)
-      e_art = T(0.5f) * (T(ldc(c + C_E_BALL)) + T(ldc(g + A_E_RAW)) * IGT_DR(4 * ND + 5));
-    T e_eff = sel(abs_(vn) > bounce, e_art, T(0.0f));
-    T jv[ND], yn[ND], yt[ND], du[ND];
-#pragma unroll
-    for (int i = 0; i < ND; ++i) jv[i] = on[i] ? dot(Jc[i], n) : T(0.0f);
-    fwd_sub<T, ND>(L, jv, yn);
-    T sq = T(0.0f);
-#pragma unroll
-    for (int i = 0; i < ND; ++i) sq = sq + yn[i] * yn[i];
-    T w_n = inv_mb + sq;
-    T Pn = -(T(1.0f) + e_eff) * vn / w_n;
-    V3<T> slip = ldc(c + C_KAPPA) > 0.0f ? sub(v_rel, scale(cross(omg, n), rb)) : v_rel;
-    V3<T> vt = sub(slip, scale(n, dot(slip, n)));
-    T vt_n = sqrt_floor(dot(vt, vt), 1e-18f);
-    V3<T> t_hat = scale(vt, T(1.0f) / vt_n);
-#pragma unroll
-    for (int i = 0; i < ND; ++i) jv[i] = on[i] ? dot(Jc[i], t_hat) : T(0.0f);
-    fwd_sub<T, ND>(L, jv, yt);
-    sq = T(0.0f);
-#pragma unroll
-    for (int i = 0; i < ND; ++i) sq = sq + yt[i] * yt[i];
-    T w_t = T(ldc(c + C_WT0)) + sq;
-    T mu_art = T(ldc(g + A_MU));
-    if constexpr (WITH_DR)
-      mu_art = T(0.5f) * (T(ldc(c + C_MU_BALL)) + T(ldc(g + A_MU_RAW)) * IGT_DR(4 * ND + 4));
-    T Pt = min_(mu_art * Pn, vt_n / w_t);
-    V3<T> P = sub(scale(n, Pn), scale(t_hat, Pt));
-    vel = add(vel, scale(P, inv_mb));
-    omg = add(omg, scale(cross(n, t_hat), T(ldc(c + C_KAPPA_INVMB_OVER_RB)) * Pt));
-#pragma unroll
-    for (int i = 0; i < ND; ++i) jv[i] = yn[i] * (-Pn) + yt[i] * Pt;
-    back_sub<T, ND>(L, jv, du);
-#pragma unroll
-    for (int i = 0; i < ND; ++i) u[i] = u[i] + du[i];
-    pos = add(pos, scale(n, max_(-d_now, T(0.0f))));
+    V3<T> P;
+    geom_imp[gi] = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+    if (!ball_art<T, ND, WITH_DR>(c, c, g, A_E, A_MU, dr, sB, pos, vel, omg, u, L, fp, fq,
+                                  axw, P))
+      continue;
     imp = add(imp, P);
     geom_imp[gi] = v3<T>(-P.x, -P.y, -P.z);
   }
 
-  // art geoms vs the true statics (table slab, net): Baumgarte impulses on
-  // the generalized velocity; unreachable pairs were pruned at pack time
+  // art geoms vs the true statics (table slab, net): pairs pruned at pack time
   const int n_pair = (int)ldc(c + C_NPAIR);
   for (int pi = 0; pi < n_pair; ++pi) {
     const float* pr = c + pair_off(ND) + pi * PAIR_STRIDE;
     const int gi = (int)ldc(pr + P_ART);
-    const float* g = c + art_off(ND) + gi * ART_STRIDE;
-    const float* sg = c + static_off(ND) + (int)ldc(pr + P_STATIC) * STATIC_STRIDE;
-    const int link = (int)ldc(g + A_LINK);
-    const T rbound = T(ldc(g + A_RBOUND));
-    V3<T> lp = zero3;
-    Q4<T> lq = cq4<T>(c + C_BASE_Q);
-#pragma unroll
-    for (int k = 0; k < ND; ++k)
-      if (k == link) { lp = fp[k]; lq = fq[k]; }
-    V3<T> center = add(lp, qrot(lq, cv3<T>(g + A_OFF_POS)));
-    const float* R = sg + G_ROT;
-    V3<T> c_local = mat_t(R, sub(center, cv3<T>(sg + G_POS)));
-    T dist;
-    V3<T> n_local;
-    sphere_geom((int)ldc(sg + G_KIND), sg + G_SIZE, c_local, rbound, dist, n_local);
-    V3<T> n = mat(R, n_local);
-    V3<T> point;
-    if (ldc(pr + P_EXACT) != 0.0f) {
-      // exact support of the cylinder/box along the normal
-      V3<T> n_g = qrot(conj(qmul(lq, cq4<T>(g + A_OFF_QUAT))), n);
-      const float* gs = g + A_SIZE;
-      T sup;
-      if ((int)ldc(g + A_KIND) == GEOM_CYLINDER) {
-        T na = abs_(n_g.z);
-        sup = na * T(ldc(gs + 1)) + sqrt_floor(T(1.0f) - na * na, 0.0f) * T(ldc(gs));
-      } else {
-        sup = abs_(n_g.x) * T(ldc(gs)) + abs_(n_g.y) * T(ldc(gs + 1))
-              + abs_(n_g.z) * T(ldc(gs + 2));
-      }
-      dist = dist + rbound - sup;
-      point = sub(center, scale(n, sup));
-    } else {
-      point = sub(center, scale(n, rbound));
-    }
-    if (!(dist < T(0.0f))) continue;   // inactive: no impulse
-    V3<T> Jc[ND];
-    bool on[ND];
-    V3<T> v_point = zero3;
-#pragma unroll
-    for (int i = 0; i < ND; ++i) {
-      Jc[i] = jac_col<T, ND>(c, mask, link, i, point, fp, axw, on[i]);
-      if (on[i]) v_point = add(v_point, scale(Jc[i], u[i]));
-    }
-    T vn = dot(v_point, n);
-    if (!(vn < T(0.1f))) continue;
-    T bias = min_(T(ldc(c + C_BIAS_K)) * max_(-dist - T(0.005f), T(0.0f)),
-                  T(ldc(c + C_MAX_DEPEN)));
-    T e_eff = sel(abs_(vn) > bounce, T(ldc(pr + P_E)), T(0.0f));
-    T jv[ND], yn[ND], yt[ND], du[ND];
-#pragma unroll
-    for (int i = 0; i < ND; ++i) jv[i] = on[i] ? dot(Jc[i], n) : T(0.0f);
-    fwd_sub<T, ND>(L, jv, yn);
-    T w_n = T(0.0f);
-#pragma unroll
-    for (int i = 0; i < ND; ++i) w_n = w_n + yn[i] * yn[i];
-    T Pn = (-(T(1.0f) + e_eff) * min_(vn, T(0.0f)) + bias) / max_(w_n, T(1e-9f));
-    V3<T> vt = sub(v_point, scale(n, vn));
-    T vt_n = sqrt_floor(dot(vt, vt), 1e-18f);
-    V3<T> t_hat = scale(vt, T(1.0f) / vt_n);
-#pragma unroll
-    for (int i = 0; i < ND; ++i) jv[i] = on[i] ? dot(Jc[i], t_hat) : T(0.0f);
-    fwd_sub<T, ND>(L, jv, yt);
-    T w_t = T(0.0f);
-#pragma unroll
-    for (int i = 0; i < ND; ++i) w_t = w_t + yt[i] * yt[i];
-    T Pt = min_(T(ldc(pr + P_MU)) * Pn, vt_n / max_(w_t, T(1e-9f)));
-    // resting-contact band: ramp the impulse over the first 2 mm
-    T s_r = sel(abs_(vn) > bounce, T(1.0f), clip_(-dist / T(0.002f), T(0.0f), T(1.0f)));
-    Pn = Pn * s_r;
-    Pt = Pt * s_r;
-#pragma unroll
-    for (int i = 0; i < ND; ++i) jv[i] = yn[i] * Pn - yt[i] * Pt;
-    back_sub<T, ND>(L, jv, du);
-#pragma unroll
-    for (int i = 0; i < ND; ++i) u[i] = u[i] + du[i];
-    geom_imp[gi] = add(geom_imp[gi], sub(scale(n, Pn), scale(t_hat, Pt)));
+    V3<T> P;
+    if (art_static<T, ND>(c, pr, c + art_off(ND) + gi * ART_STRIDE,
+                          c + static_off(ND) + (int)ldc(pr + P_STATIC) * STATIC_STRIDE,
+                          u, L, fp, fq, axw, P))
+      geom_imp[gi] = add(geom_imp[gi], P);
   }
 
   // outputs: qd, impulse rows, then the capped ball state
@@ -765,11 +869,10 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
   IGT_OUT(io + 3 * n_art, imp.x);
   IGT_OUT(io + 3 * n_art + 1, imp.y);
   IGT_OUT(io + 3 * n_art + 2, imp.z);
-  vel = scale(vel, min_(T(ldc(c + C_MAX_LIN)) / sqrt_floor(dot(vel, vel), 1e-18f), T(1.0f)));
-  omg = scale(omg, min_(T(ldc(c + C_MAX_ANG)) / sqrt_floor(dot(omg, omg), 1e-18f), T(1.0f)));
-  IGT_OUT(3 * ND, pos.x + vel.x * dt);
-  IGT_OUT(3 * ND + 1, pos.y + vel.y * dt);
-  IGT_OUT(3 * ND + 2, pos.z + vel.z * dt);
+  ball_finish(c, pos, vel, omg);
+  IGT_OUT(3 * ND, pos.x);
+  IGT_OUT(3 * ND + 1, pos.y);
+  IGT_OUT(3 * ND + 2, pos.z);
   IGT_OUT(3 * ND + 3, vel.x);
   IGT_OUT(3 * ND + 4, vel.y);
   IGT_OUT(3 * ND + 5, vel.z);

@@ -21,7 +21,7 @@ import torch
 
 from isaacgym_tpu_torch.env.randomize import DomainRandomizer, DRParams
 from isaacgym_tpu_torch.sim.scene import SceneSpec, compile_scene
-from isaacgym_tpu_torch.sim.simulator import SimState, Simulator
+from isaacgym_tpu_torch.sim.simulator import MULTI_DR_REFUSAL, SimState, Simulator
 
 
 class EnvState(NamedTuple):
@@ -43,7 +43,8 @@ class TorchVecTask:
     """Base class of the pingpong task family; subclasses supply the scene,
     the reset, the observation and the reward, all batched."""
 
-    ball_actor: int = 2
+    #: root slot of the ball, set by the subclass before ``__init__``
+    ball_actor: int
     #: flag -> event name surfaced per episode in ``info["episode_events"]``
     event_flag_names: Optional[Dict[str, str]] = None
 
@@ -69,6 +70,8 @@ class TorchVecTask:
         # domain randomization: spec-driven, off by default
         task_cfg = cfg.get("task", {}) or {}
         self.randomize = bool(task_cfg.get("randomize", False))
+        if self.randomize and self.sim.fused_substep_multi is not None:
+            raise NotImplementedError(MULTI_DR_REFUSAL)
         self.randomizer = (DomainRandomizer(task_cfg.get("randomization_params", {}),
                                             self.scene.num_dofs)
                            if self.randomize else None)

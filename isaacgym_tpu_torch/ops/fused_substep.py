@@ -62,6 +62,7 @@ C_BASE_Q = 16
  C_MAX_ANG, C_LIN_DAMP, C_ANG_DAMP, C_KD_AERO, C_KM_AERO, C_KAPPA,
  C_ONE_P_KAPPA, C_KAPPA_OVER_RB, C_WT0, C_KAPPA_INVMB_OVER_RB) = range(20, 38)
 C_NTRUE_STATIC = 38
+C_DRIVE = 39             # 0: PD position drive, 1: effort drive (K3's arts)
 
 DOF_OFF = 48
 DOF_STRIDE = 32
@@ -184,53 +185,41 @@ def _rotmat_np(q):
     return [_round_unit(R[i][j]) for i in range(3) for j in range(3)]
 
 
-def build_constants(model: ArticulationModel, base_pos, base_quat, kp, kd,
-                    gravity, dt_s: float, ball_cfg: dict, static_geoms: list,
-                    art_geoms: list, *, bounce_threshold: float = 0.2,
-                    n_true_static: int = None, max_depenetration: float = 10.0,
-                    exact_support: bool = False) -> np.ndarray:
-    """Pack the scene's constants into one float32 array (integers are
-    stored as exact small floats).
-
-    Arguments are those of ``build_fused_substep``: ``ball_cfg`` a dict of
-    mass, radius, restitution, friction, plane_e, plane_mu, max_lin, max_ang,
-    lin_damp, ang_damp, drag_k, magnus_k, kappa; ``static_geoms`` dicts of
-    kind, pos, quat, size, e, mu in the world frame; ``art_geoms`` dicts of
-    kind, link, off_pos, off_quat, size, e, mu, radius_bound.
-    """
+def check_supported(model: ArticulationModel) -> None:
     tree = model.tree
-    nd = tree.n_dof
     if model.floating or not np.all((tree.dof_type == U.JOINT_REVOLUTE)
                                     | (tree.dof_type == U.JOINT_PRISMATIC)):
         raise NotImplementedError("fused substep: fixed base, revolute/prismatic only")
-    if n_true_static is None:
-        n_true_static = len(static_geoms)
-    pairs = [(gi, si) for gi, g in enumerate(art_geoms)
-             for si, sg in enumerate(static_geoms[:n_true_static])
-             if not static_pair_unreachable(model, base_pos, g, sg)]
-    if (len(static_geoms) > MAX_STATIC or len(art_geoms) > MAX_ART
-            or len(pairs) > MAX_PAIRS):
-        raise ValueError(f"scene exceeds the kernel's maxima: {len(static_geoms)} "
-                         f"static (max {MAX_STATIC}), {len(art_geoms)} art "
-                         f"(max {MAX_ART}), {len(pairs)} pairs (max {MAX_PAIRS})")
-    lay = layout(nd)
-    c = np.zeros(lay["total"], np.float64)
 
+
+def static_pairs(model: ArticulationModel, base_pos, art_geoms, true_statics, first=0):
+    """(art geom index, static index) pairs the build-time broadphase keeps,
+    in the kernels' order; art geom indices count from ``first``."""
+    return [(first + gi, si) for gi, g in enumerate(art_geoms)
+            for si, sg in enumerate(true_statics)
+            if not static_pair_unreachable(model, base_pos, g, sg)]
+
+
+def pack_header(c, nd, dt_s, gravity, bounce_threshold, max_depenetration,
+                n_static, n_art, n_pair, n_true_static) -> None:
+    """The scene-wide slots of a header block (``C_*``, ``c`` a view)."""
+    c[C_ND], c[C_NSTATIC], c[C_NART], c[C_NPAIR] = nd, n_static, n_art, n_pair
+    c[C_DT], c[C_DT_HALF], c[C_DT_QUARTER] = dt_s, dt_s / 2, dt_s / 4
+    c[C_GX:C_GZ + 1] = [float(v) for v in gravity]
+    c[C_BOUNCE] = bounce_threshold
+    c[C_MAX_DEPEN] = max_depenetration
+    c[C_BIAS_K] = 0.2 / dt_s
+    c[C_NTRUE_STATIC] = n_true_static
+
+
+def pack_ball(c, ball_cfg: dict, dt_s: float) -> None:
+    """One ball's slots of a header block (``ball_cfg`` as ``build_constants``)."""
     mass = float(ball_cfg["mass"])
     inv_mb = 1.0 / mass
     rb = float(ball_cfg["radius"])
     e_ball = float(ball_cfg["restitution"])
     mu_ball = float(ball_cfg["friction"])
     kappa = float(ball_cfg.get("kappa", 0.0))
-    c[C_ND], c[C_NSTATIC], c[C_NART], c[C_NPAIR] = (
-        nd, len(static_geoms), len(art_geoms), len(pairs))
-    c[C_DT], c[C_DT_HALF], c[C_DT_QUARTER] = dt_s, dt_s / 2, dt_s / 4
-    c[C_GX:C_GZ + 1] = [float(v) for v in gravity]
-    c[C_BOUNCE] = bounce_threshold
-    c[C_MAX_DEPEN] = max_depenetration
-    c[C_BIAS_K] = 0.2 / dt_s
-    c[C_BASE_P:C_BASE_P + 3] = [float(v) for v in base_pos]
-    c[C_BASE_Q:C_BASE_Q + 4] = [float(v) for v in base_quat]
     c[C_INV_MB], c[C_MB], c[C_RB] = inv_mb, 1.0 / inv_mb, rb
     c[C_E_BALL], c[C_MU_BALL] = e_ball, mu_ball
     c[C_PLANE_E] = 0.5 * (e_ball + float(ball_cfg.get("plane_e", 0.0)))
@@ -245,8 +234,17 @@ def build_constants(model: ArticulationModel, base_pos, base_quat, kp, kd,
     c[C_KAPPA_OVER_RB] = kappa / rb
     c[C_WT0] = (1.0 + kappa) * inv_mb
     c[C_KAPPA_INVMB_OVER_RB] = kappa * inv_mb / rb
-    c[C_NTRUE_STATIC] = n_true_static
 
+
+def pack_articulation(c, model: ArticulationModel, base_pos, base_quat, kp, kd,
+                      drive_mode: int = 0) -> None:
+    """An articulation's base pose, drive mode, DOF table and ancestor mask
+    into a block laid out as :func:`layout` says (``c`` a view)."""
+    tree = model.tree
+    nd = tree.n_dof
+    c[C_BASE_P:C_BASE_P + 3] = [float(v) for v in base_pos]
+    c[C_BASE_Q:C_BASE_Q + 4] = [float(v) for v in base_quat]
+    c[C_DRIVE] = drive_mode
     kp = np.asarray(kp, np.float32)
     kd = np.asarray(kd, np.float32)
     for d in range(nd):
@@ -263,42 +261,92 @@ def build_constants(model: ArticulationModel, base_pos, base_quat, kp, kd,
         c[o + D_LO], c[o + D_HI] = tree.lower[d], tree.upper[d]
         c[o + D_EFFORT], c[o + D_MAXVEL] = tree.effort[d], tree.max_velocity[d]
         c[o + D_KP], c[o + D_KD] = kp[d], kd[d]
-    c[lay["mask"]:lay["mask"] + nd * nd] = model.ancestor_mask[:nd, :nd].reshape(-1)
+    mask = layout(nd)["mask"]
+    c[mask:mask + nd * nd] = model.ancestor_mask[:nd, :nd].reshape(-1)
 
+
+def pack_static_geom(c, g: dict) -> None:
+    """A static geom's kind, world pose (as a rounded rotation matrix), size
+    and own materials into an entry (``G_*``)."""
+    c[G_KIND] = int(g["kind"])
+    c[G_POS:G_POS + 3] = [float(v) for v in g["pos"]]
+    c[G_ROT:G_ROT + 9] = _rotmat_np(g["quat"])
+    c[G_SIZE:G_SIZE + 3] = [float(v) for v in g["size"]]
+    c[G_E_RAW], c[G_MU_RAW] = float(g["e"]), float(g["mu"])
+
+
+def pack_art_geom(c, g: dict) -> None:
+    """An articulated geom's kind, link, offset, size, bounding radius and
+    own materials into an entry (``A_*``)."""
+    c[A_KIND] = int(g["kind"])
+    c[A_LINK] = int(g["link"])
+    c[A_OFF_POS:A_OFF_POS + 3] = [float(v) for v in g["off_pos"]]
+    c[A_OFF_QUAT:A_OFF_QUAT + 4] = [float(v) for v in g["off_quat"]]
+    c[A_SIZE:A_SIZE + 3] = [float(v) for v in g["size"]]
+    c[A_RBOUND] = float(g["radius_bound"])
+    c[A_E_RAW], c[A_MU_RAW] = float(g["e"]), float(g["mu"])
+
+
+def pack_pair(c, gi: int, si: int, g: dict, sg: dict, exact_support: bool) -> None:
+    c[P_ART], c[P_STATIC] = gi, si
+    c[P_EXACT] = float(exact_support and int(g["kind"]) in (U.GEOM_CYLINDER, U.GEOM_BOX))
+    c[P_E] = 0.5 * (float(g["e"]) + float(sg["e"]))
+    c[P_MU] = 0.5 * (float(g["mu"]) + float(sg["mu"]))
+
+
+def build_constants(model: ArticulationModel, base_pos, base_quat, kp, kd,
+                    gravity, dt_s: float, ball_cfg: dict, static_geoms: list,
+                    art_geoms: list, *, bounce_threshold: float = 0.2,
+                    n_true_static: int = None, max_depenetration: float = 10.0,
+                    exact_support: bool = False) -> np.ndarray:
+    """Pack the scene's constants into one float32 array (integers are
+    stored as exact small floats).
+
+    Arguments are those of ``build_fused_substep``: ``ball_cfg`` a dict of
+    mass, radius, restitution, friction, plane_e, plane_mu, max_lin, max_ang,
+    lin_damp, ang_damp, drag_k, magnus_k, kappa; ``static_geoms`` dicts of
+    kind, pos, quat, size, e, mu in the world frame; ``art_geoms`` dicts of
+    kind, link, off_pos, off_quat, size, e, mu, radius_bound.
+    """
+    check_supported(model)
+    nd = model.tree.n_dof
+    if n_true_static is None:
+        n_true_static = len(static_geoms)
+    pairs = static_pairs(model, base_pos, art_geoms, static_geoms[:n_true_static])
+    if (len(static_geoms) > MAX_STATIC or len(art_geoms) > MAX_ART
+            or len(pairs) > MAX_PAIRS):
+        raise ValueError(f"scene exceeds the kernel's maxima: {len(static_geoms)} "
+                         f"static (max {MAX_STATIC}), {len(art_geoms)} art "
+                         f"(max {MAX_ART}), {len(pairs)} pairs (max {MAX_PAIRS})")
+    lay = layout(nd)
+    c = np.zeros(lay["total"], np.float64)
+    pack_header(c, nd, dt_s, gravity, bounce_threshold, max_depenetration,
+                len(static_geoms), len(art_geoms), len(pairs), n_true_static)
+    pack_ball(c, ball_cfg, dt_s)
+    pack_articulation(c, model, base_pos, base_quat, kp, kd)
+    e_ball, mu_ball = c[C_E_BALL], c[C_MU_BALL]
     for si, g in enumerate(static_geoms):
         o = lay["static"] + si * STATIC_STRIDE
-        c[o + G_KIND] = int(g["kind"])
-        c[o + G_POS:o + G_POS + 3] = [float(v) for v in g["pos"]]
-        c[o + G_ROT:o + G_ROT + 9] = _rotmat_np(g["quat"])
-        c[o + G_SIZE:o + G_SIZE + 3] = [float(v) for v in g["size"]]
+        pack_static_geom(c[o:o + STATIC_STRIDE], g)
         c[o + G_E] = 0.5 * (e_ball + float(g["e"]))
         c[o + G_MU] = 0.5 * (mu_ball + float(g["mu"]))
-        c[o + G_E_RAW], c[o + G_MU_RAW] = float(g["e"]), float(g["mu"])
     f32 = np.float32
     for gi, g in enumerate(art_geoms):
         o = lay["art"] + gi * ART_STRIDE
-        c[o + A_KIND] = int(g["kind"])
-        c[o + A_LINK] = int(g["link"])
-        c[o + A_OFF_POS:o + A_OFF_POS + 3] = [float(v) for v in g["off_pos"]]
-        c[o + A_OFF_QUAT:o + A_OFF_QUAT + 4] = [float(v) for v in g["off_quat"]]
-        c[o + A_SIZE:o + A_SIZE + 3] = [float(v) for v in g["size"]]
+        pack_art_geom(c[o:o + ART_STRIDE], g)
         # the Pallas kernel forms these in float32 (material x DR scale 1)
         c[o + A_E] = f32(0.5) * (f32(e_ball) + f32(g["e"]))
         c[o + A_MU] = f32(0.5) * (f32(mu_ball) + f32(g["mu"]))
-        c[o + A_RBOUND] = float(g["radius_bound"])
-        c[o + A_E_RAW], c[o + A_MU_RAW] = float(g["e"]), float(g["mu"])
     for pi, (gi, si) in enumerate(pairs):
         o = lay["pair"] + pi * PAIR_STRIDE
-        g, sg = art_geoms[gi], static_geoms[si]
-        c[o + P_ART], c[o + P_STATIC] = gi, si
-        c[o + P_EXACT] = float(exact_support and int(g["kind"])
-                               in (U.GEOM_CYLINDER, U.GEOM_BOX))
-        c[o + P_E] = 0.5 * (float(g["e"]) + float(sg["e"]))
-        c[o + P_MU] = 0.5 * (float(g["mu"]) + float(sg["mu"]))
+        pack_pair(c[o:o + PAIR_STRIDE], gi, si, art_geoms[gi], static_geoms[si],
+                  exact_support)
     return c.astype(np.float32)
 
 
 class FusedStepOutputs(NamedTuple):
+    """K2's outputs; K3 returns the same fields with its balls as (B, NB, 3)
+    and its impulse rows as ``fused_substep_multi`` says."""
     q_new: torch.Tensor       # (B, nd)
     qd_new: torch.Tensor      # (B, nd) post-contact
     tau: torch.Tensor         # (B, nd)
@@ -544,49 +592,80 @@ def _sym_mat_vec(Iw, v):
     return tuple(Iw[i][0] * v[0] + Iw[i][1] * v[1] + Iw[i][2] * v[2] for i in range(3))
 
 
-def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
-                            ball_vel, ball_omega, dr_chan=None) -> FusedStepOutputs:
-    """Plain PyTorch version of K2 over (B, n) float32 inputs, and of K2-dr
-    when ``dr_chan`` (B, ``n_dr(nd)``) is given.
+class ArtState:
+    """One articulation after its dynamics: the constant block ``k`` (K2's
+    pack, or one articulation block of K3's) with its DOF count and ancestor
+    mask, the Cholesky factor ``L``, the post-step frames and the joint
+    velocities ``u`` that the contacts then change."""
 
-    ``consts`` is the pack of :func:`build_constants` (numpy or a tensor).
-    Every per-env value is a (B,) channel; the arithmetic and the order of
-    contacts follow the kernel, with ``torch.where`` for its branches.
-    """
-    k = np.asarray(consts.cpu() if torch.is_tensor(consts) else consts,
-                   np.float32).tolist()
-    nd = int(k[C_ND])
-    n_static, n_art, n_pair = int(k[C_NSTATIC]), int(k[C_NART]), int(k[C_NPAIR])
+    def __init__(self, k, nd, mask, L, frames, u):
+        self.k, self.nd, self.mask, self.L, self.u = k, nd, mask, L, u
+        self.fp, self.fq, self.axes = frames
+        self.dofs = [DOF_OFF + d * DOF_STRIDE for d in range(nd)]
+
+    def jac_cols(self, link, point):
+        cols = []
+        for i in range(self.nd):
+            if self.mask[link][i]:
+                cols.append(_cross(self.axes[i], _sub(point, self.fp[i]))
+                            if self.k[self.dofs[i] + D_REV] else self.axes[i])
+            else:
+                cols.append(None)
+        return cols
+
+    def jt_dot(self, cols, vec):
+        zero = torch.zeros_like(self.u[0])
+        return [_dot(cc, vec) if cc is not None else zero for cc in cols]
+
+    def point_vel(self, cols):
+        zero = torch.zeros_like(self.u[0])
+        v = (zero, zero, zero)
+        for i, cc in enumerate(cols):
+            if cc is not None:
+                v = _add(v, _scale(cc, self.u[i]))
+        return v
+
+    def link_pose(self, link):
+        return self.fp[link], self.fq[link]
+
+
+def _sum_sq(ys):
+    s = 0
+    for y_ in ys:
+        s = s + y_ * y_
+    return s
+
+
+def art_dynamics(k, nd, q, qd, targets, efforts, dr=None):
+    """One articulation's half of the substep, the Pallas kernels' order:
+    drive (PD, or the effort input when ``k[C_DRIVE]`` is 1) and effort
+    clamp -> FK -> RNEA bias -> mass matrix -> Cholesky -> semi-implicit
+    Euler with limits -> FK at the new q.
+
+    ``k`` is the articulation's constant block as a list, ``q`` .. ``efforts``
+    lists of (B,) channels; ``dr`` the K2-dr scales (kps, kds, losh, hish,
+    ms, g_eff) or None. Returns ``(tau, q_new, ArtState)``."""
     lay = layout(nd)
     mask = [[k[lay["mask"] + l * nd + i] != 0.0 for i in range(nd)] for l in range(nd)]
     dofs = [DOF_OFF + d * DOF_STRIDE for d in range(nd)]
     dt = k[C_DT]
-    qv = [q[:, d] for d in range(nd)]
-    qdv = [qd[:, d] for d in range(nd)]
-    zero = torch.zeros_like(qv[0])
-    g = (k[C_GX], k[C_GY], k[C_GZ])
-    dr = dr_chan is not None
-    if dr:   # the Pallas kernel's kps, kds, losh, hish, ms, g_eff, fric_s, rest_s
-        kps = [dr_chan[:, d] for d in range(nd)]
-        kds = [dr_chan[:, nd + d] for d in range(nd)]
-        losh = [dr_chan[:, 2 * nd + d] for d in range(nd)]
-        hish = [dr_chan[:, 3 * nd + d] for d in range(nd)]
-        ms = dr_chan[:, 4 * nd]
-        g_eff = tuple(g[i] + dr_chan[:, 4 * nd + 1 + i] for i in range(3))
-        fric_s, rest_s = dr_chan[:, 4 * nd + 4], dr_chan[:, 4 * nd + 5]
-    else:
-        g_eff = g
+    zero = torch.zeros_like(q[0])
+    g_eff = dr["g_eff"] if dr else (k[C_GX], k[C_GY], k[C_GZ])
+    effort_drive = k[C_DRIVE] != 0.0
 
-    # PD drive + effort clamp
+    # drive + effort clamp
     tau = []
     for d, o in enumerate(dofs):
-        kp, kd = k[o + D_KP], k[o + D_KD]
-        if dr:
-            kp, kd = kp * kps[d], kd * kds[d]
-        t = kp * (targets[:, d] - qv[d]) - kd * qdv[d] + efforts[:, d]
+        if effort_drive:
+            t = efforts[d]
+        else:
+            kp, kd = k[o + D_KP], k[o + D_KD]
+            if dr:
+                kp, kd = kp * dr["kps"][d], kd * dr["kds"][d]
+            t = kp * (targets[d] - q[d]) - kd * qd[d] + efforts[d]
         tau.append(torch.clamp(t, -k[o + D_EFFORT], k[o + D_EFFORT]))
 
-    fp, fq, axes = _fk(k, nd, qv, zero)
+    fp, fq, axes = _fk(k, nd, q, zero)
     bp = tuple(zero + k[C_BASE_P + i] for i in range(3))
 
     # velocity / bias propagation (RNEA with qdd = 0, world frame)
@@ -601,11 +680,11 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
         r = _sub(fp[d], o_p)
         ao_d = _add(ao_p, _add(_cross(wd_p, r), _cross(w_p, _cross(w_p, r))))
         if k[o + D_REV]:
-            w_d = _add(w_p, _scale(axes[d], qdv[d]))
-            wd_d = _add(wd_p, _scale(_cross(w_p, axes[d]), qdv[d]))
+            w_d = _add(w_p, _scale(axes[d], qd[d]))
+            wd_d = _add(wd_p, _scale(_cross(w_p, axes[d]), qd[d]))
         else:
             w_d, wd_d = w_p, wd_p
-            ao_d = _add(ao_d, _scale(_cross(w_p, axes[d]), 2.0 * qdv[d]))
+            ao_d = _add(ao_d, _scale(_cross(w_p, axes[d]), 2.0 * qd[d]))
         w_l.append(w_d)
         wd_l.append(wd_d)
         ao_l.append(ao_d)
@@ -613,6 +692,7 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
     # per link: world COM/inertia, wrench, Jacobian columns; accumulate the
     # bias and the mass matrix link by link (each entry sums over links in
     # ascending order, as the Pallas kernel does)
+    ms = dr["ms"] if dr else None
     acc_rhs = [zero] * nd
     M = [[zero] * (i + 1) for i in range(nd)]
     for l, o in enumerate(dofs):
@@ -656,188 +736,243 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
     # semi-implicit Euler, velocity clamp, joint limits
     q_new, u = [], []
     for d, o in enumerate(dofs):
-        v = qdv[d] + dt * qdd[d]
+        v = qd[d] + dt * qdd[d]
         if k[o + D_MAXVEL] > 0.0:
             v = torch.clamp(v, -k[o + D_MAXVEL], k[o + D_MAXVEL])
-        p = qv[d] + dt * v
+        p = q[d] + dt * v
         lo, hi = k[o + D_LO], k[o + D_HI]
         if dr:
-            lo, hi = lo + losh[d], hi + hish[d]
+            lo, hi = lo + dr["losh"][d], hi + dr["hish"][d]
         at_lo, at_hi = p < lo, p > hi
         p = torch.clamp(p, lo, hi)
         v = torch.where(at_lo, torch.clamp(v, min=0.0), v)
         v = torch.where(at_hi, torch.clamp(v, max=0.0), v)
         q_new.append(p)
         u.append(v)
-    fp2, fq2, axes2 = _fk(k, nd, q_new, zero)
+    return tau, q_new, ArtState(k, nd, mask, L, _fk(k, nd, q_new, zero), u)
+
+
+def ball_flight(kb, pos, vel, omg, g_eff):
+    """Gravity, velocity damping and the optional aerodynamics of one ball
+    (``kb``: its constant block) over one substep, before its contacts."""
+    dt = kb[C_DT]
+    vel = tuple(vel[i] + g_eff[i] * dt for i in range(3))
+    vel = _scale(vel, kb[C_LIN_DAMP])
+    omg = _scale(omg, kb[C_ANG_DAMP])
+    if kb[C_KD_AERO] > 0.0:
+        vel = _sub(vel, _scale(vel, dt * kb[C_KD_AERO] * _sqrt_floor(_dot(vel, vel), 1e-18)))
+    if kb[C_KM_AERO] > 0.0:
+        vel = _add(vel, _scale(_cross(omg, vel), dt * kb[C_KM_AERO]))
+    return pos, vel, omg
+
+
+def ball_plane(kb, pos, vel, omg):
+    """The ground plane z = 0 (the swept minimum along a plane is monotone)
+    -> (pos, vel, omg, dv)."""
+    zero = torch.zeros_like(pos[2])
+    dist0 = pos[2] - kb[C_RB]
+    dist = torch.minimum(dist0, dist0 + vel[2] * kb[C_DT])
+    vel, omg, push, dv = _resolve_static(kb, vel, omg, dist, (zero, zero, zero + 1.0),
+                                         kb[C_PLANE_E], kb[C_PLANE_MU], dist0)
+    return _add(pos, push), vel, omg, dv
+
+
+def ball_static(kb, kg, e, mu, pos, vel, omg):
+    """One ball against one static geom (entry ``kg``: kind, pose, size),
+    2 sweep samples, combined materials ``e``, ``mu`` -> (pos, vel, omg, dv)."""
+    kind, R = int(kg[G_KIND]), kg[G_ROT:G_ROT + 9]
+    size = kg[G_SIZE:G_SIZE + 3]
+    rb = kb[C_RB]
+    c0 = _mat_t(R, _sub(pos, kg[G_POS:G_POS + 3]))
+    dv_l = _mat_t(R, _scale(vel, kb[C_DT_HALF]))
+    d0, n0 = _sphere_geom(kind, size, c0, rb)
+    dist, n_l = _sweep(kind, size, rb, c0, d0, n0, dv_l, 2)
+    vel, omg, push, dv = _resolve_static(kb, vel, omg, dist, _mat(R, n_l), e, mu, d0)
+    return _add(pos, push), vel, omg, dv
+
+
+def ball_art(art: ArtState, kb, kg, e_art, mu_art, pos, vel, omg):
+    """One ball against one articulated geom (entry ``kg``) of ``art``: swept
+    CCD along the relative motion, gated restitution, spin friction, the
+    joint-space reaction through the factor (changes ``art.u``) -> (pos, vel,
+    omg, P), P the impulse on the ball."""
+    rb, inv_mb = kb[C_RB], kb[C_INV_MB]
+    kind, link = int(kg[A_KIND]), int(kg[A_LINK])
+    size = kg[A_SIZE:A_SIZE + 3]
+    lp, lq = art.link_pose(link)
+    gp = _add(lp, _qrot(lq, kg[A_OFF_POS:A_OFF_POS + 3]))
+    gq = _qmul(lq, kg[A_OFF_QUAT:A_OFF_QUAT + 4])
+    gqi = _conj(gq)
+    c0 = _qrot(gqi, _sub(pos, gp))
+    d_now, n_now_l = _sphere_geom(kind, size, c0, rb)
+    n_now = _qrot(gq, n_now_l)
+    cp = _sub(pos, _scale(n_now, rb))
+    cols = art.jac_cols(link, cp)
+    v_rel = _sub(vel, art.point_vel(cols))
+    dv_l = _qrot(gqi, _scale(v_rel, kb[C_DT_QUARTER]))
+    dist, n_l = _sweep(kind, size, rb, c0, d_now, n_now_l, dv_l, 4)
+    n = _qrot(gq, n_l)
+    vn = _dot(v_rel, n)
+    active = (dist < 0.0) & (vn < 0.0)
+    e_eff = torch.where(torch.abs(vn) > kb[C_BOUNCE], e_art, 0.0)
+    yn = _fwd_sub(art.L, art.jt_dot(cols, n))
+    w_n = inv_mb + _sum_sq(yn)
+    Pn = torch.where(active, -(1.0 + e_eff) * vn / w_n, 0.0)
+    slip = (_sub(v_rel, _scale(_cross(omg, n), rb)) if kb[C_KAPPA] > 0 else v_rel)
+    vt = _sub(slip, _scale(n, _dot(slip, n)))
+    vt_n = _sqrt_floor(_dot(vt, vt), 1e-18)
+    t_hat = _scale(vt, 1.0 / vt_n)
+    yt = _fwd_sub(art.L, art.jt_dot(cols, t_hat))
+    w_t = kb[C_WT0] + _sum_sq(yt)
+    Pt = torch.where(active, torch.minimum(mu_art * Pn, vt_n / w_t), 0.0)
+    P = _sub(_scale(n, Pn), _scale(t_hat, Pt))
+    vel = _add(vel, _scale(P, inv_mb))
+    omg = _add(omg, _scale(_cross(n, t_hat), kb[C_KAPPA_INVMB_OVER_RB] * Pt))
+    du = _back_sub(art.L, [yn[i] * (-Pn) + yt[i] * Pt for i in range(art.nd)])
+    art.u = [art.u[i] + du[i] for i in range(art.nd)]
+    pos = _add(pos, _scale(n, torch.where(active, torch.clamp(-d_now, min=0.0), 0.0)))
+    return pos, vel, omg, P
+
+
+def art_static(art: ArtState, kp, kg, ks):
+    """One articulated geom (entry ``kg``) of ``art`` against one true static
+    (entry ``ks``), pair entry ``kp``: Baumgarte impulse on the generalized
+    velocity with exact support and the 2 mm resting band (changes
+    ``art.u``) -> the impulse on the geom body."""
+    k = art.k
+    link, rbound = int(kg[A_LINK]), kg[A_RBOUND]
+    lp, lq = art.link_pose(link)
+    center = _add(lp, _qrot(lq, kg[A_OFF_POS:A_OFF_POS + 3]))
+    R = ks[G_ROT:G_ROT + 9]
+    c_local = _mat_t(R, _sub(center, ks[G_POS:G_POS + 3]))
+    dist, n_local = _sphere_geom(int(ks[G_KIND]), ks[G_SIZE:G_SIZE + 3], c_local, rbound)
+    n = _mat(R, n_local)
+    if kp[P_EXACT]:
+        gqg = _qmul(lq, kg[A_OFF_QUAT:A_OFF_QUAT + 4])
+        n_g = _qrot(_conj(gqg), n)
+        gs = kg[A_SIZE:A_SIZE + 3]
+        if int(kg[A_KIND]) == U.GEOM_CYLINDER:
+            na = torch.abs(n_g[2])
+            sup = na * gs[1] + _sqrt_floor(1.0 - na * na, 0.0) * gs[0]
+        else:
+            sup = (torch.abs(n_g[0]) * gs[0] + torch.abs(n_g[1]) * gs[1]
+                   + torch.abs(n_g[2]) * gs[2])
+        dist = dist + rbound - sup
+        point = _sub(center, _scale(n, sup))
+    else:
+        point = _sub(center, _scale(n, rbound))
+    cols = art.jac_cols(link, point)
+    v_point = art.point_vel(cols)
+    vn = _dot(v_point, n)
+    active = (dist < 0.0) & (vn < 0.1)
+    bias = torch.clamp(k[C_BIAS_K] * torch.clamp(-dist - 0.005, min=0.0),
+                       max=k[C_MAX_DEPEN])
+    e_eff = torch.where(torch.abs(vn) > k[C_BOUNCE], kp[P_E], 0.0)
+    yn = _fwd_sub(art.L, art.jt_dot(cols, n))
+    w_n = _sum_sq(yn)
+    Pn = torch.where(active, (-(1.0 + e_eff) * torch.clamp(vn, max=0.0) + bias)
+                     / torch.clamp(w_n, min=1e-9), 0.0)
+    vt = _sub(v_point, _scale(n, vn))
+    vt_n = _sqrt_floor(_dot(vt, vt), 1e-18)
+    t_hat = _scale(vt, 1.0 / vt_n)
+    yt = _fwd_sub(art.L, art.jt_dot(cols, t_hat))
+    w_t = _sum_sq(yt)
+    Pt = torch.where(active, torch.minimum(kp[P_MU] * Pn,
+                                           vt_n / torch.clamp(w_t, min=1e-9)), 0.0)
+    s_r = torch.where(torch.abs(vn) > k[C_BOUNCE], 1.0,
+                      torch.clamp(-dist / RESTING_SMOOTH_BAND, 0.0, 1.0))
+    Pn = Pn * s_r
+    Pt = Pt * s_r
+    du = _back_sub(art.L, [yn[i] * Pn - yt[i] * Pt for i in range(art.nd)])
+    art.u = [art.u[i] + du[i] for i in range(art.nd)]
+    return _sub(_scale(n, Pn), _scale(t_hat, Pt))
+
+
+def ball_finish(kb, pos, vel, omg):
+    """Velocity caps (PhysX caps the magnitude) and the position update."""
+    vel = _scale(vel, torch.clamp(kb[C_MAX_LIN] / _sqrt_floor(_dot(vel, vel), 1e-18), max=1.0))
+    omg = _scale(omg, torch.clamp(kb[C_MAX_ANG] / _sqrt_floor(_dot(omg, omg), 1e-18), max=1.0))
+    return tuple(pos[i] + vel[i] * kb[C_DT] for i in range(3)), vel, omg
+
+
+def as_list(consts):
+    """A constant pack (numpy or a tensor) as a list of Python floats."""
+    return np.asarray(consts.cpu() if torch.is_tensor(consts) else consts,
+                      np.float32).tolist()
+
+
+def stack(xs):
+    return torch.stack(list(xs), dim=1)
+
+
+def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
+                            ball_vel, ball_omega, dr_chan=None) -> FusedStepOutputs:
+    """Plain PyTorch version of K2 over (B, n) float32 inputs, and of K2-dr
+    when ``dr_chan`` (B, ``n_dr(nd)``) is given.
+
+    ``consts`` is the pack of :func:`build_constants` (numpy or a tensor).
+    Every per-env value is a (B,) channel; the arithmetic and the order of
+    contacts follow the kernel, with ``torch.where`` for its branches.
+    """
+    k = as_list(consts)
+    nd = int(k[C_ND])
+    n_static, n_art, n_pair = int(k[C_NSTATIC]), int(k[C_NART]), int(k[C_NPAIR])
+    lay = layout(nd)
+    g = (k[C_GX], k[C_GY], k[C_GZ])
+    dr = None
+    if dr_chan is not None:   # the Pallas kernel's kps, kds, losh, hish, ms, g_eff
+        dr = dict(kps=[dr_chan[:, d] for d in range(nd)],
+                  kds=[dr_chan[:, nd + d] for d in range(nd)],
+                  losh=[dr_chan[:, 2 * nd + d] for d in range(nd)],
+                  hish=[dr_chan[:, 3 * nd + d] for d in range(nd)],
+                  ms=dr_chan[:, 4 * nd],
+                  g_eff=tuple(g[i] + dr_chan[:, 4 * nd + 1 + i] for i in range(3)))
+        fric_s, rest_s = dr_chan[:, 4 * nd + 4], dr_chan[:, 4 * nd + 5]
+    cols = lambda t: [t[:, d] for d in range(t.shape[1])]
+    tau, q_new, art = art_dynamics(k, nd, cols(q), cols(qd), cols(targets), cols(efforts), dr)
 
     # ------------------------------- ball ---------------------------------
-    rb, inv_mb = k[C_RB], k[C_INV_MB]
-    pos = tuple(ball_pos[:, i] for i in range(3))
-    vel = tuple(ball_vel[:, i] + g_eff[i] * dt for i in range(3))
-    vel = _scale(vel, k[C_LIN_DAMP])
-    omg = _scale(tuple(ball_omega[:, i] for i in range(3)), k[C_ANG_DAMP])
-    if k[C_KD_AERO] > 0.0:
-        vel = _sub(vel, _scale(vel, dt * k[C_KD_AERO] * _sqrt_floor(_dot(vel, vel), 1e-18)))
-    if k[C_KM_AERO] > 0.0:
-        vel = _add(vel, _scale(_cross(omg, vel), dt * k[C_KM_AERO]))
-
-    # ground plane z = 0: the swept minimum along a plane is monotone
-    dist0 = pos[2] - rb
-    dist = torch.minimum(dist0, dist0 + vel[2] * dt)
-    vel, omg, push, dv = _resolve_static(k, vel, omg, dist, (zero, zero, zero + 1.0),
-                                         k[C_PLANE_E], k[C_PLANE_MU], dist0)
-    pos = _add(pos, push)
+    pos, vel, omg = ball_flight(k, cols(ball_pos), cols(ball_vel), cols(ball_omega),
+                                dr["g_eff"] if dr else g)
+    pos, vel, omg, dv = ball_plane(k, pos, vel, omg)
     imp = _scale(dv, k[C_MB])
+    inv_mb = k[C_INV_MB]
 
-    # static geoms (table, net, base-welded humanoid geoms): 2 sweep samples
+    # static geoms (table, net, base-welded humanoid geoms)
     for si in range(n_static):
-        o = lay["static"] + si * STATIC_STRIDE
-        kind, R = int(k[o + G_KIND]), k[o + G_ROT:o + G_ROT + 9]
-        size = k[o + G_SIZE:o + G_SIZE + 3]
-        c0 = _mat_t(R, _sub(pos, k[o + G_POS:o + G_POS + 3]))
-        dv_l = _mat_t(R, _scale(vel, k[C_DT_HALF]))
-        d0, n0 = _sphere_geom(kind, size, c0, rb)
-        dist, n_l = _sweep(kind, size, rb, c0, d0, n0, dv_l, 2)
-        e, mu = k[o + G_E], k[o + G_MU]
+        kg = k[lay["static"] + si * STATIC_STRIDE:lay["static"] + (si + 1) * STATIC_STRIDE]
+        e, mu = kg[G_E], kg[G_MU]
         if dr and si >= int(k[C_NTRUE_STATIC]):   # base-welded humanoid geoms
-            e = 0.5 * (k[C_E_BALL] + k[o + G_E_RAW] * rest_s)
-            mu = 0.5 * (k[C_MU_BALL] + k[o + G_MU_RAW] * fric_s)
-        vel, omg, push, dv = _resolve_static(k, vel, omg, dist, _mat(R, n_l), e, mu, d0)
-        pos = _add(pos, push)
+            e = 0.5 * (k[C_E_BALL] + kg[G_E_RAW] * rest_s)
+            mu = 0.5 * (k[C_MU_BALL] + kg[G_MU_RAW] * fric_s)
+        pos, vel, omg, dv = ball_static(k, kg, e, mu, pos, vel, omg)
         imp = tuple(imp[i] + dv[i] / inv_mb for i in range(3))
 
-    def jac_cols(link, point):
-        cols = []
-        for i in range(nd):
-            if mask[link][i]:
-                cols.append(_cross(axes2[i], _sub(point, fp2[i]))
-                            if k[dofs[i] + D_REV] else axes2[i])
-            else:
-                cols.append(None)
-        return cols
-
-    def jt_dot(cols, vec):
-        return [_dot(cc, vec) if cc is not None else zero for cc in cols]
-
-    def point_vel(cols):
-        v = (zero, zero, zero)
-        for i, cc in enumerate(cols):
-            if cc is not None:
-                v = _add(v, _scale(cc, u[i]))
-        return v
-
-    def sum_sq(ys):
-        s = 0
-        for y_ in ys:
-            s = s + y_ * y_
-        return s
-
     # articulated geoms: ball contacts with joint-space reactions
+    zero = torch.zeros_like(q_new[0])
     geom_imp = [(zero, zero, zero)] * n_art
+    art_entry = lambda gi: k[lay["art"] + gi * ART_STRIDE:lay["art"] + (gi + 1) * ART_STRIDE]
     for gi in range(n_art):
-        o = lay["art"] + gi * ART_STRIDE
-        kind, link = int(k[o + A_KIND]), int(k[o + A_LINK])
-        size = k[o + A_SIZE:o + A_SIZE + 3]
-        gp = _add(fp2[link], _qrot(fq2[link], k[o + A_OFF_POS:o + A_OFF_POS + 3]))
-        gq = _qmul(fq2[link], k[o + A_OFF_QUAT:o + A_OFF_QUAT + 4])
-        gqi = _conj(gq)
-        c0 = _qrot(gqi, _sub(pos, gp))
-        d_now, n_now_l = _sphere_geom(kind, size, c0, rb)
-        n_now = _qrot(gq, n_now_l)
-        cp = _sub(pos, _scale(n_now, rb))
-        cols = jac_cols(link, cp)
-        v_rel = _sub(vel, point_vel(cols))
-        dv_l = _qrot(gqi, _scale(v_rel, k[C_DT_QUARTER]))
-        dist, n_l = _sweep(kind, size, rb, c0, d_now, n_now_l, dv_l, 4)
-        n = _qrot(gq, n_l)
-        vn = _dot(v_rel, n)
-        active = (dist < 0.0) & (vn < 0.0)
-        e_art, mu_art = k[o + A_E], k[o + A_MU]
+        kg = art_entry(gi)
+        e_art, mu_art = kg[A_E], kg[A_MU]
         if dr:
-            e_art = 0.5 * (k[C_E_BALL] + k[o + A_E_RAW] * rest_s)
-            mu_art = 0.5 * (k[C_MU_BALL] + k[o + A_MU_RAW] * fric_s)
-        e_eff = torch.where(torch.abs(vn) > k[C_BOUNCE], e_art, 0.0)
-        yn = _fwd_sub(L, jt_dot(cols, n))
-        w_n = inv_mb + sum_sq(yn)
-        Pn = torch.where(active, -(1.0 + e_eff) * vn / w_n, 0.0)
-        slip = (_sub(v_rel, _scale(_cross(omg, n), rb)) if k[C_KAPPA] > 0 else v_rel)
-        vt = _sub(slip, _scale(n, _dot(slip, n)))
-        vt_n = _sqrt_floor(_dot(vt, vt), 1e-18)
-        t_hat = _scale(vt, 1.0 / vt_n)
-        yt = _fwd_sub(L, jt_dot(cols, t_hat))
-        w_t = k[C_WT0] + sum_sq(yt)
-        Pt = torch.where(active, torch.minimum(mu_art * Pn, vt_n / w_t), 0.0)
-        P = _sub(_scale(n, Pn), _scale(t_hat, Pt))
-        vel = _add(vel, _scale(P, inv_mb))
-        omg = _add(omg, _scale(_cross(n, t_hat), k[C_KAPPA_INVMB_OVER_RB] * Pt))
-        du = _back_sub(L, [yn[i] * (-Pn) + yt[i] * Pt for i in range(nd)])
-        u = [u[i] + du[i] for i in range(nd)]
-        pos = _add(pos, _scale(n, torch.where(active, torch.clamp(-d_now, min=0.0), 0.0)))
+            e_art = 0.5 * (k[C_E_BALL] + kg[A_E_RAW] * rest_s)
+            mu_art = 0.5 * (k[C_MU_BALL] + kg[A_MU_RAW] * fric_s)
+        pos, vel, omg, P = ball_art(art, k, kg, e_art, mu_art, pos, vel, omg)
         imp = _add(imp, P)
         geom_imp[gi] = (-P[0], -P[1], -P[2])
 
-    # articulation geoms vs the true statics (table slab, net): Baumgarte
-    # impulses on the generalized velocity, pairs pruned at build time
+    # articulation geoms vs the true statics (table slab, net), pairs pruned
+    # at build time
     for pi in range(n_pair):
-        o = lay["pair"] + pi * PAIR_STRIDE
-        gi, si = int(k[o + P_ART]), int(k[o + P_STATIC])
-        oa = lay["art"] + gi * ART_STRIDE
-        os_ = lay["static"] + si * STATIC_STRIDE
-        link, rbound = int(k[oa + A_LINK]), k[oa + A_RBOUND]
-        center = _add(fp2[link], _qrot(fq2[link], k[oa + A_OFF_POS:oa + A_OFF_POS + 3]))
-        R = k[os_ + G_ROT:os_ + G_ROT + 9]
-        c_local = _mat_t(R, _sub(center, k[os_ + G_POS:os_ + G_POS + 3]))
-        dist, n_local = _sphere_geom(int(k[os_ + G_KIND]),
-                                     k[os_ + G_SIZE:os_ + G_SIZE + 3], c_local, rbound)
-        n = _mat(R, n_local)
-        if k[o + P_EXACT]:
-            gqg = _qmul(fq2[link], k[oa + A_OFF_QUAT:oa + A_OFF_QUAT + 4])
-            n_g = _qrot(_conj(gqg), n)
-            gs = k[oa + A_SIZE:oa + A_SIZE + 3]
-            if int(k[oa + A_KIND]) == U.GEOM_CYLINDER:
-                na = torch.abs(n_g[2])
-                sup = na * gs[1] + _sqrt_floor(1.0 - na * na, 0.0) * gs[0]
-            else:
-                sup = (torch.abs(n_g[0]) * gs[0] + torch.abs(n_g[1]) * gs[1]
-                       + torch.abs(n_g[2]) * gs[2])
-            dist = dist + rbound - sup
-            point = _sub(center, _scale(n, sup))
-        else:
-            point = _sub(center, _scale(n, rbound))
-        cols = jac_cols(link, point)
-        v_point = point_vel(cols)
-        vn = _dot(v_point, n)
-        active = (dist < 0.0) & (vn < 0.1)
-        bias = torch.clamp(k[C_BIAS_K] * torch.clamp(-dist - 0.005, min=0.0),
-                           max=k[C_MAX_DEPEN])
-        e_eff = torch.where(torch.abs(vn) > k[C_BOUNCE], k[o + P_E], 0.0)
-        yn = _fwd_sub(L, jt_dot(cols, n))
-        w_n = sum_sq(yn)
-        Pn = torch.where(active, (-(1.0 + e_eff) * torch.clamp(vn, max=0.0) + bias)
-                         / torch.clamp(w_n, min=1e-9), 0.0)
-        vt = _sub(v_point, _scale(n, vn))
-        vt_n = _sqrt_floor(_dot(vt, vt), 1e-18)
-        t_hat = _scale(vt, 1.0 / vt_n)
-        yt = _fwd_sub(L, jt_dot(cols, t_hat))
-        w_t = sum_sq(yt)
-        Pt = torch.where(active, torch.minimum(k[o + P_MU] * Pn,
-                                               vt_n / torch.clamp(w_t, min=1e-9)), 0.0)
-        s_r = torch.where(torch.abs(vn) > k[C_BOUNCE], 1.0,
-                          torch.clamp(-dist / RESTING_SMOOTH_BAND, 0.0, 1.0))
-        Pn = Pn * s_r
-        Pt = Pt * s_r
-        du = _back_sub(L, [yn[i] * Pn - yt[i] * Pt for i in range(nd)])
-        u = [u[i] + du[i] for i in range(nd)]
-        geom_imp[gi] = _add(geom_imp[gi], _sub(_scale(n, Pn), _scale(t_hat, Pt)))
+        kp = k[lay["pair"] + pi * PAIR_STRIDE:lay["pair"] + (pi + 1) * PAIR_STRIDE]
+        gi, si = int(kp[P_ART]), int(kp[P_STATIC])
+        ks = k[lay["static"] + si * STATIC_STRIDE:lay["static"] + (si + 1) * STATIC_STRIDE]
+        geom_imp[gi] = _add(geom_imp[gi], art_static(art, kp, art_entry(gi), ks))
 
-    # ball velocity caps (PhysX caps the magnitude) and integration
-    vel = _scale(vel, torch.clamp(k[C_MAX_LIN] / _sqrt_floor(_dot(vel, vel), 1e-18), max=1.0))
-    omg = _scale(omg, torch.clamp(k[C_MAX_ANG] / _sqrt_floor(_dot(omg, omg), 1e-18), max=1.0))
-    pos = tuple(pos[i] + vel[i] * dt for i in range(3))
-    stack = lambda xs: torch.stack(list(xs), dim=1)
+    pos, vel, omg = ball_finish(k, pos, vel, omg)
     impulses = torch.stack([stack(r) for r in geom_imp] + [stack(imp)], dim=1)
-    return FusedStepOutputs(stack(q_new), stack(u), stack(tau), stack(pos),
+    return FusedStepOutputs(stack(q_new), stack(art.u), stack(tau), stack(pos),
                             stack(vel), stack(omg), impulses)
 
 
@@ -944,7 +1079,7 @@ class FusedSubstep:
                              f"({rows}, B) buffer, got {x.dtype} {tuple(x.shape)} "
                              f"on {x.device}")
         if self._lib is None:
-            lib = _build.build_cuda_library()
+            lib = _build.cuda_library("fused_substep")
             check_library_layout(lib, nd)
             self._lib = lib
         B = x.shape[1]

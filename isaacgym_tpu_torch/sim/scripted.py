@@ -1,8 +1,11 @@
-"""Scripted inputs for holding K2 (the fused substep) against a reference.
+"""Scripted inputs for holding K2 and K3 (the fused substeps) against a
+reference.
 
 Random-action states rarely bring the paddle into the narrowphase, so the
 checks also build states that do: each function returns the kernel's seven
-(B, n) float32 numpy inputs, made from a numpy ``RandomState``.
+float32 numpy inputs, made from a numpy ``RandomState``.
+
+K2 (``k2_inputs``, (B, n) each):
 
   reset        reset states with launched balls (config launch ranges)
   paddle_ball  the paddle face in front of an incoming ball
@@ -11,6 +14,17 @@ checks also build states that do: each function returns the kernel's seven
                flagship's joint limits keep the paddle 0.16 m above its
                table, so this set needs the scene of ``raised_table_cfg``
   ball_rest    the ball resting on the table top
+
+K3 (``k3_inputs``, balls (B, NB, 3)), on C8 or on the two-arm, two-ball
+check scene of ``toy_multi_scene`` (the JAX package's own test scene):
+  reset        reset states (C8: config launch ranges; toy: the JAX test's
+               two launches)
+  paddle_ball1 ball 0 in front of articulation 0's paddle (toy: ball 1 at
+               articulation 1's)
+  paddle_ball2 ball 0 in front of articulation 1's paddle, the one yawed
+               180 deg (toy: ball 1 at articulation 0's)
+  ball_rest    C8 only: the ball resting on the table top
+  ball_ball    toy only: the two balls about to collide, one spinning
 """
 
 from __future__ import annotations
@@ -19,11 +33,14 @@ import numpy as np
 import torch
 
 from isaacgym_tpu_torch.models import urdf as U
-from isaacgym_tpu_torch.models.kinematics import fk_dof_frames
+from isaacgym_tpu_torch.models.kinematics import compile_tree, fk_dof_frames
+from isaacgym_tpu_torch.sim.scene import ActorSpec, PlaneParams, SceneSpec, compile_scene
 from isaacgym_tpu_torch.sim.simulator import fused_geom_lists
 from isaacgym_tpu_torch.utils import rotations as rot
 
 KINDS = ("reset", "paddle_ball", "paddle_table", "ball_rest")
+C8_KINDS = ("reset", "paddle_ball1", "paddle_ball2", "ball_rest")
+TOY_KINDS = ("reset", "paddle_ball1", "paddle_ball2", "ball_ball")
 TABLE_RAISE = 0.49   # m: puts the table top where the paddle reaches it
 
 
@@ -37,13 +54,16 @@ def raised_table_cfg(cfg):
     return out
 
 
-def _paddle_pose(env, q):
-    """World centre and face normal (cylinder axis) of the paddle geom."""
+def _paddle_pose(env, q, art: int = 0):
+    """World centre and face normal (cylinder axis) of articulation
+    ``art``'s paddle geom: its cylinder, else its first articulated geom."""
     scene = env.scene
-    tree = scene.articulations[0].model.tree
-    _, _, art, _ = fused_geom_lists(scene)
-    g = next(a for a in art if a["kind"] == U.GEOM_CYLINDER)
-    init = scene.initial_root[0]
+    slot = scene.articulations[art]
+    tree = slot.model.tree
+    _, _, geoms, _ = fused_geom_lists(scene)
+    mine = [g for g in geoms if g["art"] == art]
+    g = next((g for g in mine if g["kind"] == U.GEOM_CYLINDER), mine[0])
+    init = scene.initial_root[slot.actor_index]
     B = q.shape[0]
     fp, fq = fk_dof_frames(tree, torch.as_tensor(init[0:3]).expand(B, 3),
                            torch.as_tensor(init[3:7]).expand(B, 4),
@@ -121,3 +141,172 @@ def k2_inputs(env, kind: str, B: int, rng: np.random.RandomState):
                        rng.uniform(-0.1, 0.0, B)], 1)
         return tuple(map(f, (q, np.zeros((B, 7)), tgt, eff, bp, bv, 0.1 * bw)))
     raise KeyError(f"unknown input kind {kind!r}; known: {KINDS}")
+
+
+TOY_ARM_URDF = """
+<robot name="toy_arm">
+  <link name="base">
+    <inertial><origin xyz="0 0 0"/><mass value="5.0"/>
+      <inertia ixx="0.1" iyy="0.1" izz="0.1" ixy="0" ixz="0" iyz="0"/></inertial>
+    <collision><origin xyz="0 0 -0.2"/>
+      <geometry><box size="0.2 0.2 0.4"/></geometry></collision>
+  </link>
+  <link name="upper">
+    <inertial><origin xyz="0.1 0 0"/><mass value="1.0"/>
+      <inertia ixx="0.01" iyy="0.01" izz="0.01" ixy="0" ixz="0" iyz="0"/></inertial>
+  </link>
+  <link name="fore">
+    <inertial><origin xyz="0.1 0 0"/><mass value="0.6"/>
+      <inertia ixx="0.005" iyy="0.005" izz="0.005" ixy="0" ixz="0" iyz="0"/></inertial>
+  </link>
+  <link name="paddle">
+    <inertial><origin xyz="0.08 0 0"/><mass value="0.3"/>
+      <inertia ixx="0.002" iyy="0.002" izz="0.002" ixy="0" ixz="0" iyz="0"/></inertial>
+    <collision><origin xyz="0.12 0 0"/>
+      <geometry><sphere radius="0.09"/></geometry></collision>
+  </link>
+  <joint name="shoulder" type="revolute">
+    <origin xyz="0.1 0 0.1"/><parent link="base"/><child link="upper"/>
+    <axis xyz="0 1 0"/><limit lower="-2.0" upper="2.0" effort="40" velocity="20"/>
+  </joint>
+  <joint name="elbow" type="revolute">
+    <origin xyz="0.2 0 0"/><parent link="upper"/><child link="fore"/>
+    <axis xyz="0 1 0"/><limit lower="-2.0" upper="2.0" effort="30" velocity="20"/>
+  </joint>
+  <joint name="wrist" type="revolute">
+    <origin xyz="0.2 0 0"/><parent link="fore"/><child link="paddle"/>
+    <axis xyz="0 0 1"/><limit lower="-2.0" upper="2.0" effort="20" velocity="20"/>
+  </joint>
+</robot>
+"""
+
+TOY_BALL_URDF = """
+<robot name="toy_ball">
+  <link name="ball">
+    <inertial><origin xyz="0 0 0"/><mass value="0.0027"/>
+      <inertia ixx="7e-7" iyy="7e-7" izz="7e-7" ixy="0" ixz="0" iyz="0"/></inertial>
+    <collision><origin xyz="0 0 0"/>
+      <geometry><sphere radius="0.02"/></geometry></collision>
+  </link>
+</robot>
+"""
+
+
+class ToyEnv:
+    """The two-arm, two-ball check scene: its compiled scene and simulator."""
+
+    def __init__(self, drive_mode: int, device="cpu"):
+        from isaacgym_tpu_torch.sim.simulator import Simulator
+        self.scene = toy_multi_scene(drive_mode)
+        self.sim = Simulator(self.scene, device=device)
+        self.cfg = None
+
+
+def toy_multi_scene(drive_mode: int):
+    """Two fixed-base 3-DOF arms facing each other (the second yawed 180
+    deg), two balls and the plane, as the JAX package's K3 tests build it
+    (``tests/test_pallas_dynamics.py:_toy_multi_scene``)."""
+    arm = compile_tree(U.parse_urdf(TOY_ARM_URDF, from_string=True))
+    ball = compile_tree(U.parse_urdf(TOY_BALL_URDF, from_string=True))
+    kp = np.full(3, 25.0, np.float32)
+    arm_spec = lambda name, pos, quat: ActorSpec(
+        name, arm, pos=pos, quat=quat, fixed_base=True, restitution=0.6, friction=0.5,
+        drive_mode=drive_mode, stiffness=kp, damping=kp / 20)
+    return compile_scene(SceneSpec(
+        actors=[arm_spec("arm1", (0, 0, 1.0), (0.0, 0.0, 0.0, 1.0)),
+                arm_spec("arm2", (2.0, 0, 1.0), (0, 0, 1, 0)),
+                ActorSpec("ball1", ball, pos=(1.4, 0.02, 1.3), fixed_base=False,
+                          restitution=1.3, friction=0.2),
+                ActorSpec("ball2", ball, pos=(0.6, -0.02, 1.3), fixed_base=False,
+                          restitution=1.3, friction=0.2)],
+        plane=PlaneParams(), dt=1 / 120, substeps=2))
+
+
+def _ball_at_paddle(env, q_art, art, rng, rb):
+    """Ball positions and velocities in front of articulation ``art``'s
+    paddle at joint values ``q_art`` (B, nd): within 3 cm of the surface or
+    up to 4 mm inside it, heading in."""
+    B = q_art.shape[0]
+    center, axis, g = _paddle_pose(env, q_art, art)
+    if g["kind"] == U.GEOM_CYLINDER:
+        nrm = axis * np.where(rng.uniform(size=(B, 1)) < 0.5, -1.0, 1.0)
+        lateral = np.cross(nrm, rng.normal(size=(B, 3)))
+        lateral *= rng.uniform(0.0, 0.9 * g["size"][0], (B, 1)) / np.maximum(
+            np.linalg.norm(lateral, axis=1, keepdims=True), 1e-9)
+        surface = g["size"][1]
+    else:   # a sphere: any direction
+        nrm = rng.normal(size=(B, 3))
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        lateral = 0.0
+        surface = g["size"][0]
+    gap = rng.uniform(-0.004, 0.03, (B, 1))
+    bp = center + nrm * (surface + rb + gap) + lateral
+    bv = -nrm * rng.uniform(1.0, 8.0, (B, 1)) + rng.normal(0.0, 1.0, (B, 3))
+    return bp, bv
+
+
+def k3_inputs(env, kind: str, B: int, rng: np.random.RandomState, effort_scale: float = 0.0):
+    """(q, qd, targets, efforts, ball_pos, ball_vel, ball_omega) of K3 for
+    ``kind`` on ``env`` (a C8 env or a :class:`ToyEnv`). With
+    ``effort_scale`` (effort drive) the efforts are uniform in that range
+    and the targets zero; else the targets are uniform within the limits."""
+    scene = env.scene
+    arts = scene.articulations
+    nd = arts[0].model.tree.n_dof
+    lo = np.concatenate([s.model.tree.lower for s in arts]).astype(np.float64)
+    hi = np.concatenate([s.model.tree.upper for s in arts]).astype(np.float64)
+    f = lambda a: np.ascontiguousarray(a, dtype=np.float32)
+    n, nb = len(lo), len(scene.free_bodies)
+    if effort_scale:
+        tgt, eff = np.zeros((B, n)), rng.uniform(-effort_scale, effort_scale, (B, n))
+    else:
+        tgt, eff = rng.uniform(lo, hi, (B, n)), np.zeros((B, n))
+    q = rng.uniform(lo, hi, (B, n))
+    qd = rng.uniform(-3.0, 3.0, (B, n))
+    init = np.stack([scene.initial_root[b.actor_index] for b in scene.free_bodies])
+    bp = np.broadcast_to(init[None, :, 0:3], (B, nb, 3)).copy()
+    bv = rng.normal(0.0, 1.0, (B, nb, 3))
+    bw = rng.uniform(-20.0, 20.0, (B, nb, 3))
+    rb = scene.free_bodies[0].radius
+    if kind == "reset":
+        q, qd = np.zeros((B, n)), np.zeros((B, n))
+        bw = 0 * bw
+        if env.cfg is not None:   # C8: the config's launch ranges
+            ball = env.cfg["env"]["ball"]
+            s = rng.uniform(*ball["initialSpeedRange"], B)
+            a = np.radians(rng.uniform(*ball["tiltAngleRange"], B))
+            b = np.radians(rng.uniform(*ball["tiltZAngleRange"], B))
+            bv[:, 0] = np.stack([-s * np.cos(a) * np.cos(b), s * np.sin(a) * np.cos(b),
+                                 s * np.sin(b)], 1)
+        else:   # the toy: the JAX test's two launches
+            bv = np.broadcast_to(np.asarray([[-3.0, 0.1, 0.5], [3.0, -0.1, 0.5]]),
+                                 (B, 2, 3)) + rng.normal(0.0, 0.1, (B, 2, 3))
+    elif kind in ("paddle_ball1", "paddle_ball2"):
+        first = 0 if kind == "paddle_ball1" else 1
+        for bi in range(nb):
+            art = (first + bi) % len(arts)
+            bp[:, bi], bv[:, bi] = _ball_at_paddle(env, q[:, art * nd:(art + 1) * nd], art,
+                                                   rng, rb)
+    elif kind == "ball_rest":
+        table = fused_geom_lists(scene)[0][0]
+        top = float(table["pos"][2] + table["size"][2])
+        bp[:, 0] = np.stack([rng.uniform(1.0, 2.5, B), rng.uniform(-0.6, 0.6, B),
+                             top + rb - rng.uniform(0.0, 0.002, B)], 1)
+        bv[:, 0] = np.stack([rng.uniform(-0.3, 0.3, B), rng.uniform(-0.3, 0.3, B),
+                             rng.uniform(-0.1, 0.0, B)], 1)
+        qd, bw = np.zeros((B, n)), 0.1 * bw
+    elif kind == "ball_ball":
+        if nb != 2:
+            raise KeyError("ball_ball needs two balls")
+        mid = np.stack([rng.uniform(0.9, 1.1, B), rng.uniform(-0.3, 0.3, B),
+                        rng.uniform(1.2, 1.5, B)], 1)
+        d = rng.normal(size=(B, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        half = 0.5 * (2 * rb + rng.uniform(-0.004, 0.03, (B, 1)))
+        bp = np.stack([mid + d * half, mid - d * half], 1)
+        closing = rng.uniform(1.0, 5.0, (B, 1))
+        bv = np.stack([-d * closing, d * closing], 1) + rng.normal(0.0, 0.3, (B, 2, 3))
+        bw[:, 1] = 0.0   # one ball spinning
+    else:
+        raise KeyError(f"unknown input kind {kind!r}; known: {C8_KINDS + TOY_KINDS}")
+    return tuple(map(f, (q, qd, tgt, eff, bp, bv, bw)))

@@ -1,11 +1,17 @@
-"""Batched simulator for the flagship scene class, on the fused-substep kernel.
+"""Batched simulator for the pingpong scene classes, on the fused-substep kernels.
 
-Counterpart of ``isaacgym_tpu/sim/simulator.py``'s fused single-humanoid
-path: ``step`` -> ``_step_batched_pallas`` (``:626``) -> ``_substep_fused``
-(``:686-734``), run ``substeps`` times, with the ball-quaternion integration
-and the net-contact-force writeback. One kernel launch (K2) per substep;
-given ``DRParams`` (``step_dr``, ``:594-624``), K2-dr, the domain-randomized
-build, instead.
+Counterpart of ``isaacgym_tpu/sim/simulator.py``'s fused paths: ``step`` ->
+``_step_batched_pallas`` (``:626``), run ``substeps`` times, with the
+ball-quaternion integration and the net-contact-force writeback. Routing as
+``_maybe_build_fused`` (``:435-566``) does it:
+
+* one position-driven fixed-base humanoid and one ball (the flagship, C6):
+  ``_substep_fused`` (``:686-734``), one K2 launch per substep; given
+  ``DRParams`` (``step_dr``, ``:594-624``), K2-dr instead;
+* K fixed-base articulations (position or effort drive) and up to two balls
+  (C8): ``_substep_fused_multi`` (``:643-684``), one K3 launch per substep.
+  The JAX package randomizes such scenes only on its non-kernel path, so
+  ``step`` with ``dr`` raises here.
 
 State layout (the reference tensor-API contract), batched over B envs:
   root (B, num_actors, 13) = pos(3) + quat(4, xyzw) + linvel(3) + angvel(3),
@@ -13,8 +19,8 @@ State layout (the reference tensor-API contract), batched over B envs:
   (B, num_bodies, 3).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the non-kernel path for other scene classes, link-vs-link contacts,
-terrain. The JAX package also guards the kernels' folded base and static
+item): the non-kernel path for other scene classes and for DR on
+multi-articulation scenes, link-vs-link contacts, terrain. The JAX package also guards the kernels' folded base and static
 poses (``_baked_roots_moved``, ``:568``) in ``step`` and ``step_dr`` and
 falls back to its XLA path when a root is rewritten at run time; the port
 has no such path yet, and nothing in the port moves a baked root (the reset
@@ -32,8 +38,13 @@ from isaacgym_tpu_torch.models import urdf as U
 from isaacgym_tpu_torch.env.randomize import DRParams
 from isaacgym_tpu_torch.models.kinematics import _qmul, _qrot, fk_body_states
 from isaacgym_tpu_torch.ops.fused_substep import FusedSubstep, build_constants
-from isaacgym_tpu_torch.sim.scene import DRIVE_POS, CompiledScene
+from isaacgym_tpu_torch.ops.fused_substep_multi import FusedSubstepMulti, build_multi_constants
+from isaacgym_tpu_torch.sim.scene import DRIVE_EFFORT, DRIVE_POS, CompiledScene
 from isaacgym_tpu_torch.utils import rotations as rot
+
+
+MULTI_DR_REFUSAL = ("domain randomization of a multi-articulation scene is not ported: the "
+                    "JAX package runs it on its non-kernel path (ROADMAP, module 10)")
 
 
 class SimState(NamedTuple):
@@ -70,9 +81,10 @@ def _compose(p1, q1, p2, q2):
 
 def fused_geom_lists(scene: CompiledScene):
     """The static and articulated geom lists ``_maybe_build_fused``
-    (``simulator.py:435-535``) hands the kernel: true statics first, then
-    the base-welded humanoid geoms as statics; art geoms with their offsets
-    folded through the welded body transform.
+    (``simulator.py:435-535``) hands the kernels: true statics first, then
+    every humanoid's base-welded geoms as statics at its own base pose; art
+    geoms with their offsets folded through the welded body transform and
+    the index of their articulation (``art``).
 
     Returns ``(static_list, n_true_static, art_list, art_bodies)``."""
     static_list = []
@@ -97,15 +109,16 @@ def fused_geom_lists(scene: CompiledScene):
             static_list.append(dict(kind=g.kind, pos=wp, quat=wq, size=g.size,
                                     e=g.restitution, mu=g.friction))
         else:
-            art_list.append(dict(kind=g.kind, link=link, off_pos=offp, off_quat=offq,
+            art_list.append(dict(kind=g.kind, art=g.art_index, link=link,
+                                 off_pos=offp, off_quat=offq,
                                  size=g.size, e=g.restitution, mu=g.friction,
                                  radius_bound=rb))
             art_bodies.append(slot.body_start + g.body_index)
     return static_list, n_true_static, art_list, np.asarray(art_bodies, np.int64)
 
 
-def fused_ball_cfg(scene: CompiledScene) -> dict:
-    ball, plane = scene.free_bodies[0], scene.spec.plane
+def fused_ball_cfg(scene: CompiledScene, index: int = 0) -> dict:
+    ball, plane = scene.free_bodies[index], scene.spec.plane
     return dict(mass=ball.mass, radius=ball.radius, restitution=ball.restitution,
                 friction=ball.friction, plane_e=plane.restitution,
                 plane_mu=plane.dynamic_friction, max_lin=ball.max_linear_velocity,
@@ -115,7 +128,7 @@ def fused_ball_cfg(scene: CompiledScene) -> dict:
 
 
 class Simulator:
-    """Compiled simulator for one flagship-class scene on one device."""
+    """Compiled simulator for one pingpong-class scene on one device."""
 
     def __init__(self, scene: CompiledScene, device="cuda"):
         self.scene = scene
@@ -123,31 +136,50 @@ class Simulator:
         spec = scene.spec
         self.dt = float(spec.dt)
         self.substeps = int(spec.substeps)
-        if (len(scene.articulations) != 1 or len(scene.free_bodies) != 1
-                or spec.terrain is not None or spec.plane is None
-                or spec.link_collision
-                or scene.articulations[0].drive_mode != DRIVE_POS
-                or scene.articulations[0].model.floating):
+        arts = scene.articulations
+        if (not arts or not scene.free_bodies or spec.terrain is not None
+                or spec.plane is None or spec.link_collision
+                or any(s.model.floating or s.drive_mode not in (DRIVE_POS, DRIVE_EFFORT)
+                       for s in arts)):
             raise NotImplementedError(
-                "the port simulates only the single fixed-base humanoid + one ball "
-                "scene on the fused kernel (ROADMAP, modules 7-9)")
-        self.slot = scene.articulations[0]
-        self.ball = scene.free_bodies[0]
+                "the port simulates only fixed-base articulations with balls and a flat "
+                "plane on the fused kernels (ROADMAP, modules 8-11)")
         static_list, n_true, art_list, self.art_bodies = fused_geom_lists(scene)
-        init = scene.initial_root[self.slot.actor_index]
-        self.constants = build_constants(
-            self.slot.model, init[0:3], init[3:7], self.slot.stiffness,
-            self.slot.damping, np.asarray(spec.gravity, np.float32),
-            self.dt / self.substeps, fused_ball_cfg(scene), static_list, art_list,
-            bounce_threshold=float(spec.bounce_threshold_velocity),
-            n_true_static=n_true,
-            max_depenetration=float(spec.max_depenetration_velocity),
-            exact_support=bool(spec.exact_link_support))
-        #: K2 for this scene; ``fused_substep.launches`` counts its launches
-        self.fused_substep = FusedSubstep(self.constants)
-        #: K2-dr, the same constants plus a per-env randomization channel
-        self.fused_substep_dr = FusedSubstep(self.constants, with_dr=True)
+        common = dict(bounce_threshold=float(spec.bounce_threshold_velocity),
+                      n_true_static=n_true,
+                      max_depenetration=float(spec.max_depenetration_velocity),
+                      exact_support=bool(spec.exact_link_support))
+        gravity = np.asarray(spec.gravity, np.float32)
+        dt_s = self.dt / self.substeps
         self._art_bodies_t = torch.as_tensor(self.art_bodies, device=self.device)
+        #: K2 and K2-dr (one humanoid, one ball) or K3 (the rest); the
+        #: others are None. Each wrapper's ``launches`` counts its launches.
+        self.fused_substep = self.fused_substep_dr = self.fused_substep_multi = None
+        if len(arts) == 1 and len(scene.free_bodies) == 1 and arts[0].drive_mode == DRIVE_POS:
+            self.slot = arts[0]
+            self.ball = scene.free_bodies[0]
+            init = scene.initial_root[self.slot.actor_index]
+            self.constants = build_constants(
+                self.slot.model, init[0:3], init[3:7], self.slot.stiffness,
+                self.slot.damping, gravity, dt_s, fused_ball_cfg(scene), static_list,
+                art_list, **common)
+            self.fused_substep = FusedSubstep(self.constants)
+            self.fused_substep_dr = FusedSubstep(self.constants, with_dr=True)
+        else:
+            spec_of = lambda sl: dict(
+                model=sl.model, base_pos=scene.initial_root[sl.actor_index][0:3],
+                base_quat=scene.initial_root[sl.actor_index][3:7], kp=sl.stiffness,
+                kd=sl.damping, drive_mode=sl.drive_mode)
+            self.constants = build_multi_constants(
+                [spec_of(sl) for sl in arts],
+                [fused_ball_cfg(scene, i) for i in range(len(scene.free_bodies))],
+                static_list, art_list, gravity, dt_s, **common)
+            self.fused_substep_multi = FusedSubstepMulti(self.constants)
+            fb = scene.free_bodies
+            self._ball_actors_t = torch.as_tensor([b.actor_index for b in fb],
+                                                  device=self.device)
+            self._ball_bodies_t = torch.as_tensor([b.body_start for b in fb],
+                                                  device=self.device)
 
     def initial_state(self, batch: int) -> SimState:
         sc, dev = self.scene, self.device
@@ -160,11 +192,18 @@ class Simulator:
         """One env step: ``substeps`` fused substeps, contact forces reset.
         With ``dr``, every substep runs K2-dr on the per-env channel packed
         in the JAX package's order (kp, kd, lower, upper, mass, gravity
-        offset, friction, restitution); without, K2. The baked-root guard is
-        left out (module docstring)."""
+        offset, friction, restitution); without, K2, or K3 on a
+        multi-articulation scene. The baked-root guard is left out (module
+        docstring)."""
         dt_s = self.dt / self.substeps
         state = state._replace(net_contact_force=torch.zeros_like(state.net_contact_force),
                                net_contact_torque=torch.zeros_like(state.net_contact_torque))
+        if self.fused_substep_multi is not None:
+            if dr is not None:
+                raise NotImplementedError(MULTI_DR_REFUSAL)
+            for _ in range(self.substeps):
+                state = self._substep_fused_multi(state, targets, efforts, dt_s)
+            return state
         dr_chan = None if dr is None else self.dr_channel(dr)
         for _ in range(self.substeps):
             state = self._substep_fused(state, targets, efforts, dt_s, dr_chan=dr_chan)
@@ -214,6 +253,29 @@ class Simulator:
         dof_vel[:, sl] = out.qd_new
         dof_force[:, sl] = out.tau
         return SimState(root, dof_pos, dof_vel, dof_force, ncf, state.net_contact_torque)
+
+    def _substep_fused_multi(self, state: SimState, targets, efforts, dt_s) -> SimState:
+        """One K3 launch (``simulator.py:643-684``): every DOF, every ball."""
+        ba = self._ball_actors_t
+        root = state.root
+        out = self.fused_substep_multi(
+            state.dof_pos.contiguous(), state.dof_vel.contiguous(), targets.contiguous(),
+            efforts.contiguous(), root[:, ba, 0:3].contiguous(), root[:, ba, 7:10].contiguous(),
+            root[:, ba, 10:13].contiguous())
+        root = root.clone()
+        root[:, ba, 3:7] = _integrate_quat(root[:, ba, 3:7], out.ball_omega, dt_s)
+        root[:, ba, 0:3] = out.ball_pos
+        root[:, ba, 7:10] = out.ball_vel
+        root[:, ba, 10:13] = out.ball_omega
+        ng, nb = len(self.art_bodies), len(ba)
+        inv_dt = 1.0 / self.dt
+        ncf = state.net_contact_force.clone()
+        if ng:
+            ncf.index_add_(1, self._art_bodies_t, out.impulses[:, :ng] * inv_dt)
+        # per ball: its plane and static row plus its art-reaction row
+        ball_imp = out.impulses[:, ng:ng + nb] + out.impulses[:, ng + nb:ng + 2 * nb]
+        ncf.index_add_(1, self._ball_bodies_t, ball_imp * inv_dt)
+        return SimState(root, out.q_new, out.qd_new, out.tau, ncf, state.net_contact_torque)
 
     def make_body_state_fn(self, body_ids):
         """``state -> (B, len(body_ids), 13)`` for env-level body indices

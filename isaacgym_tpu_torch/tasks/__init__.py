@@ -1,5 +1,5 @@
-"""Task registry of the port: the flagship only, so far (ROADMAP, module 5
-queues the other single-humanoid tasks)."""
+"""Task registry of the port: the flagship, C6 and C8 so far (ROADMAP,
+module 1 queues the other single-humanoid tasks)."""
 
 from __future__ import annotations
 
@@ -7,7 +7,11 @@ from typing import Dict
 
 
 def task_registry() -> Dict[str, type]:
+    from isaacgym_tpu_torch.tasks.humanoid_pingpong_4actor_tilt import Humanoid12PingpongTilt
+    from isaacgym_tpu_torch.tasks.humanoid_pingpong_tilt import HumanoidPingpongTilt
     from isaacgym_tpu_torch.tasks.humanoid_pingpong_tilt_no_earlystop import (
         HumanoidPingpongTiltNoEarlyStop,
     )
-    return {"HumanoidPingpongTiltNoEarlyStopG1": HumanoidPingpongTiltNoEarlyStop}
+    return {"HumanoidPingpongTiltG1": HumanoidPingpongTilt,
+            "HumanoidPingpongTiltNoEarlyStopG1": HumanoidPingpongTiltNoEarlyStop,
+            "Humanoid12PingpongTiltG1": Humanoid12PingpongTilt}

@@ -1,5 +1,5 @@
 """Shared base of the pingpong task family (``isaacgym_tpu/tasks/base.py``):
-the 3-actor scene, the randomized ball launch at reset, heading-local
+the 3- or 4-actor scene, the randomized ball launch at reset, heading-local
 observations and PD position drive over the right-arm DOFs."""
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ from isaacgym_tpu_torch.tasks import pingpong_common as P
 class PingpongFamilyTask(TorchVecTask):
     """Common machinery; subclasses supply the reward and constants."""
 
-    PADDLE_BODY = 39             # paddle body index within the humanoid
+    HUMANOIDS = 1
+    PADDLE_BODY = 39             # paddle body index within a humanoid
     RESTORE_DOF_ON_RESET = True  # False: the flagship keeps the pose
 
     def __init__(self, cfg, seed: int = 42, device="cuda"):
@@ -29,13 +30,14 @@ class PingpongFamilyTask(TorchVecTask):
         self.tilt_z_angle_range = tuple(ball.get("tiltZAngleRange", (0.0, 0.0)))
         self.body_states_id = np.asarray(env["bodyStatesId"], dtype=np.int64)
         self._paddle_row = int(np.nonzero(self.body_states_id == self.PADDLE_BODY)[0][0])
-        self.ball_actor = 2        # [humanoid, table, ball]
-        self.table_actor = 1
+        self.ball_actor = self.HUMANOIDS + 1   # [h1(, h2), table, ball]
+        self.table_actor = self.HUMANOIDS
         super().__init__(cfg, seed=seed, device=device)
         self._init_root = torch.as_tensor(self.scene.initial_root, device=self.device)
 
     def create_scene(self):
-        return P.build_pingpong_scene(self.cfg["env"], self.cfg["sim"])
+        return P.build_pingpong_scene(self.cfg["env"], self.cfg["sim"],
+                                      humanoids=self.HUMANOIDS)
 
     def rb_body_ids(self):
         return self.body_states_id
@@ -64,6 +66,6 @@ class PingpongFamilyTask(TorchVecTask):
         ball = sim.root[:, self.ball_actor]
         power = torch.sum(torch.abs(sim.dof_force * sim.dof_vel), dim=-1)
         return dict(paddle_pos=rb_states[:, self._paddle_row, 0:3],
-                    ball_pos=ball[:, 0:3], ball_vx=ball[:, 7],
+                    ball_pos=ball[:, 0:3], ball_vx=ball[:, 7], ball_vel=ball[:, 7:10],
                     pre_vx=pre_ball_root[:, 7], humanoid_x=sim.root[:, 0, 0],
                     power_reward=-self.power_coefficient * power)

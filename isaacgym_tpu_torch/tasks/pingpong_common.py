@@ -1,8 +1,8 @@
 """Scene construction, ball launch and observation blocks of the pingpong
 family, batched in torch.
 
-Counterpart of ``isaacgym_tpu/tasks/pingpong_common.py``: the 3-actor scene
-(``build_pingpong_scene``, ``:41``), the launch-velocity sampler (``:129``)
+Counterpart of ``isaacgym_tpu/tasks/pingpong_common.py``: the 3- or 4-actor
+scene (``build_pingpong_scene``, ``:41``), the launch-velocity sampler (``:129``)
 and the heading-local observation blocks (``:145``, ``:165``), written over a
 leading batch dimension instead of per env.
 """
@@ -29,8 +29,10 @@ def quat_from_yaw_deg(deg: float):
     return (0.0, 0.0, float(np.sin(half)), float(np.cos(half)))
 
 
-def build_pingpong_scene(env_cfg, sim_cfg) -> SceneSpec:
-    """The 3-actor scene: fixed-base humanoid + table + ball."""
+def build_pingpong_scene(env_cfg, sim_cfg, *, humanoids=1) -> SceneSpec:
+    """The 3-actor (or 4-actor) scene: fixed-base humanoid(s) + table + ball,
+    in that actor order. The second humanoid stands at ``humanoid2Pos`` with
+    yaw ``humanoid2YawDeg``."""
     sc = env_cfg["scene"]
     plane_cfg = env_cfg.get("plane", {})
     if plane_cfg.get("terrain") or (env_cfg.get("heightmap") or {}).get("enabled"):
@@ -43,11 +45,15 @@ def build_pingpong_scene(env_cfg, sim_cfg) -> SceneSpec:
     kd = kp / 40.0
     ball_aero = env_cfg.get("ball", {}) or {}
     actors = [
-        ActorSpec(name="humanoid1", tree=g1, pos=tuple(sc["humanoidPos"]),
-                  quat=quat_from_yaw_deg(sc.get("humanoidYawDeg", 0.0)),
+        ActorSpec(name=f"humanoid{h + 1}", tree=g1,
+                  pos=tuple(sc["humanoidPos"] if h == 0 else sc["humanoid2Pos"]),
+                  quat=quat_from_yaw_deg(sc.get("humanoidYawDeg", 0.0) if h == 0
+                                         else sc.get("humanoid2YawDeg", 180.0)),
                   fixed_base=True, restitution=sc["humanoidRestitution"],
                   friction=sc["humanoidFriction"], drive_mode=DRIVE_POS,
-                  stiffness=kp, damping=kd, max_angular_velocity=100.0),
+                  stiffness=kp, damping=kd, max_angular_velocity=100.0)
+        for h in range(humanoids)
+    ] + [
         ActorSpec(name="pingpong_table", tree=table, pos=tuple(sc["tablePos"]),
                   fixed_base=True, restitution=sc["tableRestitution"],
                   friction=sc["tableFriction"]),

@@ -2,7 +2,8 @@
 
 A subprocess with those modules made unimportable imports every module of
 ``isaacgym_tpu_torch`` and the top of ``chip_smoke.py`` and drives the env,
-the DR env and one PPO epoch with a checkpoint on the CPU; an AST scan of
+the two-humanoid C8 env (K3), the DR env and one PPO epoch with a checkpoint
+on the CPU; an AST scan of
 every file finds no such import. The entry points default to the card and
 raise without one.
 """
@@ -59,6 +60,12 @@ env = isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpongTiltNoEarlyStopG1",
 state, obs = env.reset()
 state, obs, rew, done, info = env.step(state, torch.zeros(2, 7))
 assert obs.shape == (2, 80) and bool(torch.isfinite(obs).all())
+env8 = isaacgym_tpu_torch.make(seed=0, task="Humanoid12PingpongTiltG1", num_envs=2,
+                               device="cpu")
+state8, obs8 = env8.reset()
+state8, obs8, rew8, done8, info8 = env8.step(state8, torch.zeros(2, 14))
+assert obs8.shape == (2, 94) and bool(torch.isfinite(obs8).all())
+assert env8.sim.fused_substep is None and env8.sim.fused_substep_multi is not None
 import os, tempfile
 from isaacgym_tpu_torch.rl import checkpoint
 from isaacgym_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
@@ -107,6 +114,13 @@ def test_make_on_cuda_without_a_gpu_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpongTiltNoEarlyStopG1",
                                 num_envs=4)
+
+
+def test_c8_make_on_cuda_without_a_gpu_raises(monkeypatch):
+    import isaacgym_tpu_torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        isaacgym_tpu_torch.make(seed=0, task="Humanoid12PingpongTiltG1", num_envs=4)
 
 
 def test_launcher_defaults_to_the_card_and_raises_without_one(monkeypatch, tmp_path):
