@@ -7,8 +7,8 @@ Each phase prints one JSON line with its seconds:
   device  the card's name, and its name and power limit from nvidia-smi;
   build   one nvcc per csrc/*.cu, started together, into build/kernels/
           (and g++ the host loop that counts the kernels' operations), wall
-          seconds, and ptxas's registers, stack and spills of K2, K2-dr and
-          K3;
+          seconds, and ptxas's registers, stack and spills of K2, K2-dr,
+          K2-tau, K2-dr-tau, K3 and K3-tau;
   k2/*    the fused-substep kernel against its plain PyTorch version on the
           card, B = 4096, one substep from each state set (reset, rollout
           after 60 steps, paddle_ball, paddle_table, ball_rest), the plain
@@ -32,6 +32,18 @@ Each phase prints one JSON line with its seconds:
           (ball_ball: the balls about to collide; effort: effort drive);
   k3_timing  K3 per launch on the C8 rollout states, its plain version and
           its bound, as timing;
+  k2tau/*  K2-tau, the torque-lane build of K2 for scenes with a force
+          sensor, on the flagship scene with a paddle sensor (raised table
+          for paddle_table), on K2's five sets under the same comparison and
+          gates, the moment rows compared on their own (geom moments to
+          1e-5, the ball's to 1e-7: TOL); k2drtau/* K2-dr-tau (DR and torque
+          lanes) on two of them; k2tau_timing its time and bound;
+  k3tau/*  K3-tau on C8 with a sensor on each paddle (C8's five sets) and on
+          the two-arm, two-ball scene with paddle sensors (ball_ball, whose
+          ball-pair moments the JAX package's tests never reach, and
+          effort); k3tau_timing its time and bound;
+  tau_gates  each tau kernel's output with its geom or its ball moment rows
+          zeroed, or negated, must fail the moment gates on some set;
   main    make(seed=0, flagship, 4096 envs), reset, 5 warm-up steps, then
           3 windows of 100 steps under uniform actions in [-1, 1] from a
           seeded generator: launches must be exactly 2 per step, every
@@ -46,6 +58,16 @@ Each phase prints one JSON line with its seconds:
           K3's share;
   c6_main 100 steps of C6 (HumanoidPingpongTiltG1) at 4096 envs: K2
           exactly 2 per step, every state finite;
+  sensors/flagship, sensors/c8  the force-sensor path at 4096 envs: the
+          scene with a sensor on each paddle (create_asset_force_sensor), 100
+          Simulator.step calls from scripted off-centre strikes re-launched
+          every 10 steps, each read with acquire_force_sensor_tensor: K2-tau
+          (K3-tau on C8) exactly 2 launches per step, every strike (force
+          above 0.1 N) reads a non-zero moment; env-steps/s and
+          microseconds per acquire_force_sensor_tensor; then the first
+          strike step's sensor force and moment lanes against the same step
+          through the plain version in float32 and float64 (SENSOR_TOL
+          beyond the float32 run's rounding);
   train   PPOTrainer at the flagship's full width (4096 envs, horizon 32,
           minibatch 4096 x 5 mini-epochs, separate [2048,1536,1024,1024,512,512]
           bf16 trunks) with task.randomize=true, global step 3000 and
@@ -77,6 +99,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 TASK = "HumanoidPingpongTiltNoEarlyStopG1"
 C6 = "HumanoidPingpongTiltG1"
@@ -85,8 +108,17 @@ B = 4096
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_OPS_PER_S = 67e12    # H100 SXM FP32, non-tensor
 PEAK_BF16_OPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
+OUTPUTS = ("q_new", "ball_pos", "ball_vel", "qd_new", "tau", "impulses", "ball_omega")
+# impulses: the force rows; a torque build's moment rows are gated on their
+# own, by their size (tests/test_torch_force_torque.py's header): a ball's
+# moment about its centre is 0.02 m times a friction impulse (up to ~1e-4),
+# a geom body's up to ~6e-3 in a strike and ~0.4 at the raised table
 TOL = dict(q_new=1e-4, ball_pos=1e-4, ball_vel=1e-4, qd_new=1e-3, tau=1e-3,
-           impulses=1e-3, ball_omega=1e-3)
+           impulses=1e-3, ball_omega=1e-3, geom_moments=1e-5, ball_moments=1e-7)
+# the sensor path's step against the same step through the plain version:
+# force lanes in N, moment lanes in N m (the CPU test's port step against the
+# JAX package's step holds them so)
+SENSOR_TOL = dict(force=1e-2, moment=1e-3)
 MAX_FLIP_RATE = 0.002
 C_F32 = 1.0                    # see compare
 
@@ -102,11 +134,26 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def compare(got, want32, want64):
+def split_rows(out, moments=None):
+    """name -> tensor of each compared output. A torque build's impulses
+    (``moments`` = (ng, nb): ng geom moment rows, then nb ball moment rows,
+    after the force rows) split into ``impulses`` (the force rows),
+    ``geom_moments`` and ``ball_moments``."""
+    v = {f: getattr(out, f) for f in OUTPUTS}
+    if moments:
+        ng, nb = moments
+        imp = out.impulses
+        v.update(impulses=imp[:, :-(ng + nb)], geom_moments=imp[:, -(ng + nb):-nb],
+                 ball_moments=imp[:, -nb:])
+    return v
+
+
+def compare(got, want32, want64, moments=None):
     """A kernel against its plain version, run in float32 and in float64 on
-    the same inputs. Flips (envs whose contact pattern differs from the
-    float32 plain run's) are counted and left out. The gate holds each
-    element of each output to exact arithmetic, as far as float32 allows:
+    the same inputs (a torque build's moment rows as their own outputs, see
+    split_rows). Flips (envs whose contact pattern, the force rows, differs
+    from the float32 plain run's) are counted and left out. The gate holds
+    each element of each output to exact arithmetic, as far as float32 allows:
 
         |kernel - plain64| <= TOL + C_F32 |plain32 - plain64|
 
@@ -121,15 +168,16 @@ def compare(got, want32, want64):
     ``|kernel - plain64| - C_F32 |plain32 - plain64|``, the deviation from
     each plain run and the float32-to-float64 gap."""
     import torch
-    fa = got.impulses.abs().sum(-1) > 0
-    fb = want32.impulses.abs().sum(-1) > 0
+    g_, w32_, w64_ = (split_rows(o, moments) for o in (got, want32, want64))
+    fa = g_["impulses"].abs().sum(-1) > 0
+    fb = w32_["impulses"].abs().sum(-1) > 0
     keep = ~(fa != fb).any(dim=1)
     flat = lambda t: t.reshape(keep.shape[0], -1)[keep]
     kept_max = lambda d: float(flat(d).max()) if bool(keep.any()) else 0.0
     res = {k_: {} for k_ in ("excess", "max_err_vs_f32_plain", "max_err_vs_f64_plain",
                              "f32_plain_vs_f64_plain")}
-    for f in TOL:
-        g, w32, w64 = getattr(got, f).double(), getattr(want32, f).double(), getattr(want64, f)
+    for f in g_:
+        g, w32, w64 = g_[f].double(), w32_[f].double(), w64_[f]
         d64, gap = (g - w64).abs(), (w32 - w64).abs()
         res["excess"][f] = kept_max(d64 - C_F32 * gap)
         res["max_err_vs_f32_plain"][f] = kept_max((g - w32).abs())
@@ -143,10 +191,58 @@ def compare(got, want32, want64):
 def gate(phase, res, extra_ok=True, extra=""):
     """Raise unless ``compare``'s result is within TOL, the flip rate and
     finite."""
-    bad = [f for f, tol in TOL.items() if not res["excess"][f] <= tol]
+    bad = [f for f, e in res["excess"].items() if not e <= TOL[f]]
     if bad or res["flip_rate"] > MAX_FLIP_RATE or not res["finite"] or not extra_ok:
         raise SystemExit(f"{phase}: kernel disagrees with its plain version: {bad} "
                          f"flip {res['flip_rate']} finite {res['finite']} {extra}")
+
+
+def check_kernel(phase, kernel, plain, ins, extra=(), fields=None, ok=True, why=""):
+    """One state set: the kernel against its plain version run in float32 and
+    in float64 on the same inputs (``extra``: more inputs, the DR channel),
+    emitted and gated (``compare``, ``gate``; ``ok`` and ``why`` a further
+    check of the caller's). A torque-lane build also reports its largest geom
+    and ball moment, and which of its moment rows, zeroed or negated in the
+    kernel's output, the gates reject (``wrong_moments_rejected``). Returns
+    ``compare``'s result."""
+    import torch
+    t0 = time.perf_counter()
+    got = kernel(*ins, *extra)
+    want = plain(*ins, *extra)
+    want64 = plain(*[t.double() for t in ins], *[t.double() for t in extra])
+    torch.cuda.synchronize()
+    moments = (kernel.ng, getattr(kernel, "nb", 1)) if kernel.with_torque else None
+    res = compare(got, want, want64, moments)
+    out = {"phase": phase, **res, **(fields or {}),
+           "contact_rows_active": (got.impulses.abs().sum(-1) > 0).float().mean(0).tolist()}
+    if moments:
+        ng, nb = moments
+        rows = {"geom_moments": slice(-(ng + nb), -nb), "ball_moments": slice(-nb, None)}
+        out["max_moment"] = {f: float(got.impulses[:, r].abs().max()) for f, r in rows.items()}
+        res["wrong_moments_rejected"] = []
+        for how, scale in (("zeroed", 0.0), ("negated", -1.0)):
+            for f, r in rows.items():
+                imp = got.impulses.clone()
+                imp[:, r] *= scale
+                if not compare(got._replace(impulses=imp), want, want64,
+                               moments)["excess"][f] <= TOL[f]:
+                    res["wrong_moments_rejected"].append(f"{f} {how}")
+    emit({**out, "seconds": time.perf_counter() - t0})
+    gate(phase, res, ok, why)
+    return res
+
+
+def fold(acc, res):
+    """Keep in ``acc`` the largest deviation, excess and flip rate over sets,
+    and which wrong moment rows some set's gates rejected."""
+    if "wrong_moments_rejected" in res:
+        acc["wrong_moments_rejected"] = sorted(set(acc.get("wrong_moments_rejected", ()))
+                                               | set(res["wrong_moments_rejected"]))
+    for f in res["excess"]:
+        acc["max_err"][f] = max(acc["max_err"].get(f, 0.0), res["max_err_vs_f32_plain"][f])
+        acc["excess"][f] = max(acc["excess"].get(f, -math.inf), res["excess"][f])
+    acc["flip_rate"] = max(acc.get("flip_rate", 0.0), res["flip_rate"])
+    acc["max_abs_err"] = max(acc["max_err"].values())
 
 
 def device_kernels(prof):
@@ -239,29 +335,17 @@ def k3_checks(dev, host):
              ("paddle_ball1", env, "paddle_ball1", 0.0), ("paddle_ball2", env, "paddle_ball2", 0.0),
              ("ball_rest", env, "ball_rest", 0.0), ("ball_ball", toy_pd, "ball_ball", 0.0),
              ("effort", toy_effort, "paddle_ball1", 15.0))
-    sets, max_err, excess, flips = {}, {}, {}, {}
+    sets, acc = {}, {"max_err": {}, "excess": {}}
     for i, (name, e, kind, scale) in enumerate(cases):
-        t0 = time.perf_counter()
         if kind is None:
             ins = rollout_inputs()
         else:
             ins = tuple(torch.as_tensor(a, device=dev) for a in scripted.k3_inputs(
                 e, kind, B, np.random.RandomState(200 + i), scale))
         k = e.sim.fused_substep_multi
-        got = k(*ins)
-        want = M.fused_substep_multi_reference(k.device_consts(dev), *ins)
-        want64 = M.fused_substep_multi_reference(k.device_consts(dev),
-                                                 *[t.double() for t in ins])
-        torch.cuda.synchronize()
-        res = compare(got, want, want64)
-        contacts = (got.impulses.abs().sum(-1) > 0).float().mean(0).tolist()
-        emit({"phase": f"k3/{name}", **res, "contact_rows_active": contacts,
-              "shape": [k.nd, k.K, k.nb], "seconds": time.perf_counter() - t0})
-        gate(f"k3/{name}", res)
-        for f in TOL:
-            max_err[f] = max(max_err.get(f, 0.0), res["max_err_vs_f32_plain"][f])
-            excess[f] = max(excess.get(f, -math.inf), res["excess"][f])
-        flips[name] = res["flip_rate"]
+        plain = lambda *a, k=k: M.fused_substep_multi_reference(k.device_consts(dev), *a)
+        fold(acc, check_kernel(f"k3/{name}", k, plain, ins,
+                               fields={"shape": [k.nd, k.K, k.nb]}))
         sets[name] = (e, ins)
 
     # timing at the main path's shape, on the C8 rollout states
@@ -278,9 +362,228 @@ def k3_checks(dev, host):
                                                k.nd, k.K, k.nb),
         4 * B * (M.n_in(k.nd_tot, k.nb) + M.n_out(k.nd_tot, k.nb, k.ng)) + 4 * k.consts.size,
         plain_repeats=5)
-    return dict(max_abs_err=max(max_err.values()), max_err=max_err, excess=excess,
-                flip_rate=max(flips.values()), ms=t["kernel_ms"], plain_ms=t["plain_ms"],
-                bound_ms=t["bound_ms"], bound_by=t["bound_by"])
+    return dict(acc, ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"])
+
+
+def tau_checks(dev, host, k2_sets, rz):
+    """K2-tau (the torque lanes of K2, for scenes with a force sensor) against
+    its plain version in float32 and float64 on K2's five state sets, on the
+    flagship scene with a paddle sensor (raised-table scene for
+    paddle_table); K2-dr-tau on two of them; then K3-tau on C8 with a sensor
+    on each paddle (C8's five sets) and on the two-arm, two-ball scene with
+    paddle sensors (ball_ball, effort). Then each kernel's timing and bound,
+    and a check that the moment gates reject each kernel's output with its
+    geom or its ball moment rows zeroed or negated. Returns the kernels-line
+    numbers of K2-tau and K3-tau; raises on any failed gate."""
+    import numpy as np
+    import torch
+    from isaacgym_tpu_torch.ops import fused_substep as F
+    from isaacgym_tpu_torch.ops import fused_substep_multi as M
+    from isaacgym_tpu_torch.sim import scripted
+    from isaacgym_tpu_torch.sim.scene import DRIVE_EFFORT, DRIVE_POS
+    from isaacgym_tpu_torch.sim.simulator import Simulator
+    from isaacgym_tpu_torch.utils.config import load_task_config
+
+    sims = {raised: Simulator(scripted.paddle_sensor_scene(
+        scripted.raised_table_cfg(load_task_config(TASK)) if raised else load_task_config(TASK)),
+        device=dev) for raised in (False, True)}
+    k2 = {"max_err": {}, "excess": {}}
+    k2dr = {"max_err": {}, "excess": {}}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    for name, (e, ins) in k2_sets.items():
+        sim = sims[name == "paddle_table"]
+        k = sim.fused_substep
+        if not k.with_torque or not np.array_equal(k.consts, e.sim.fused_substep.consts):
+            raise SystemExit("k2tau: the sensor scene's pack differs from the flagship's")
+        plain = lambda *a, k=k: F.fused_substep_reference(k.device_consts(dev), *a,
+                                                          with_torque=True)
+        fold(k2, check_kernel(f"k2tau/{name}", k, plain, ins))
+        if name in ("rollout", "paddle_ball"):
+            kd = sim.fused_substep_dr
+            chan = sim.dr_channel(rz.sample(gen, 3000, B))
+            plain_dr = lambda *a, k=kd: F.fused_substep_reference(
+                k.device_consts(dev), *a[:7], dr_chan=a[7], with_torque=True)
+            fold(k2dr, check_kernel(f"k2drtau/{name}", kd, plain_dr, ins, (chan,)))
+
+    # K2-tau timing on the rollout states, the bound from the host body's count
+    _, ins = k2_sets["rollout"]
+    k = sims[False].fused_substep
+    x = F.pack_inputs(*ins)
+    xc, cc = x.cpu(), torch.as_tensor(k.consts)
+    yc = torch.empty((F.n_out(k.nd, k.ng, True), B))
+    consts = k.device_consts(dev)
+    t = time_kernel(
+        "k2tau_timing", lambda: k.launch(x), lambda: k(*ins),
+        lambda: F.fused_substep_reference(consts, *ins, with_torque=True),
+        host.igt_fused_substep_tau_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(), B,
+                                             k.nd, 0),
+        4 * B * (F.n_in(k.nd) + F.n_out(k.nd, k.ng, True)) + 4 * k.consts.size)
+    k2.update(ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+              bound_by=t["bound_by"])
+
+    # K3-tau
+    c8cfg = load_task_config(C8)
+    c8 = types.SimpleNamespace(cfg=c8cfg, sim=Simulator(scripted.paddle_sensor_scene(c8cfg, 2),
+                                                        device=dev))
+    c8.scene = c8.sim.scene
+    toys = {d: scripted.ToyEnv(d, device=dev, paddle_sensor=True)
+            for d in (DRIVE_POS, DRIVE_EFFORT)}
+    k3 = {"max_err": {}, "excess": {}}
+    rollout = None
+    cases = (("reset", c8, "reset", 0.0), ("rollout", c8, None, 0.0),
+             ("paddle_ball1", c8, "paddle_ball1", 0.0), ("paddle_ball2", c8, "paddle_ball2", 0.0),
+             ("ball_rest", c8, "ball_rest", 0.0), ("ball_ball", toys[DRIVE_POS], "ball_ball", 0.0),
+             ("effort", toys[DRIVE_EFFORT], "paddle_ball1", 15.0))
+    for i, (name, e, kind, scale) in enumerate(cases):
+        if kind is None:   # 60 steps of the sensor scene from reset launches
+            state, _ = scripted.strike_state(e.sim, "reset", B, np.random.RandomState(299),
+                                             c8cfg)
+            for _ in range(60):
+                tgt = torch.rand((B, 14), generator=gen, device=dev) * 2 - 1
+                state = e.sim.step(state, tgt, torch.zeros_like(tgt))
+            ba = [b.actor_index for b in e.scene.free_bodies]
+            ins = (state.dof_pos, state.dof_vel, tgt, torch.zeros_like(tgt),
+                   state.root[:, ba, 0:3], state.root[:, ba, 7:10], state.root[:, ba, 10:13])
+            ins = rollout = tuple(a.contiguous() for a in ins)
+        else:
+            ins = tuple(torch.as_tensor(a, device=dev) for a in scripted.k3_inputs(
+                e, kind, B, np.random.RandomState(300 + i), scale))
+        k = e.sim.fused_substep_multi
+        if not k.with_torque:
+            raise SystemExit("k3tau: the sensor scene was built without the torque lanes")
+        plain = lambda *a, k=k: M.fused_substep_multi_reference(k.device_consts(dev), *a,
+                                                                with_torque=True)
+        fold(k3, check_kernel(f"k3tau/{name}", k, plain, ins))
+    # the moment gates bite: each kernel's output with its geom or its ball
+    # moment rows zeroed, or negated, fails them on some set
+    rejected = {n: acc.pop("wrong_moments_rejected")
+                for n, acc in (("k2tau", k2), ("k2drtau", k2dr), ("k3tau", k3))}
+    emit({"phase": "tau_gates", "wrong_moments_rejected": rejected})
+    wrong = {f"{f} {how}" for how in ("zeroed", "negated")
+             for f in ("geom_moments", "ball_moments")}
+    if any(wrong - set(r) for r in rejected.values()):
+        raise SystemExit(f"tau_gates: the moment gates let wrong moments pass: {rejected}")
+    k = c8.sim.fused_substep_multi
+    x = M.pack_inputs(*rollout)
+    xc, cc = x.cpu(), torch.as_tensor(k.consts)
+    yc = torch.empty((M.n_out(k.nd_tot, k.nb, k.ng, True), B))
+    consts = k.device_consts(dev)
+    t = time_kernel(
+        "k3tau_timing", lambda: k.launch(x), lambda: k(*rollout),
+        lambda: M.fused_substep_multi_reference(consts, *rollout, with_torque=True),
+        host.igt_fused_substep_multi_tau_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(),
+                                                   B, k.nd, k.K, k.nb),
+        4 * B * (M.n_in(k.nd_tot, k.nb) + M.n_out(k.nd_tot, k.nb, k.ng, True))
+        + 4 * k.consts.size, plain_repeats=5)
+    k3.update(ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+              bound_by=t["bound_by"])
+    return k2, k3
+
+
+def sensor_vs_plain(sim, state, tgt, eff):
+    """One ``Simulator.step`` from ``state`` through the scene's kernel, and
+    the same step with the kernel's plain version put in its place, run in
+    float32 and in float64: the sensor tensor's force and moment lanes of
+    the kernel's step against the plain steps', over envs whose sensors read
+    a force in both the kernel's and the float32 plain step or in neither,
+    held as ``compare`` holds a kernel, ``|kernel - plain64| <= SENSOR_TOL +
+    |plain32 - plain64|``. Raises if they disagree."""
+    import copy
+    from isaacgym_tpu_torch.ops import fused_substep as F
+    from isaacgym_tpu_torch.ops import fused_substep_multi as M
+    from isaacgym_tpu_torch.sim import tensor_api as T
+    name = "fused_substep" if sim.fused_substep_multi is None else "fused_substep_multi"
+    consts = getattr(sim, name).device_consts(state.root.device)
+    ref = F.fused_substep_reference if name == "fused_substep" else \
+        M.fused_substep_multi_reference
+    plain = copy.copy(sim)
+    setattr(plain, name, lambda *a: ref(consts, *a, with_torque=True))
+    w = T.acquire_force_sensor_tensor(sim, sim.step(state, tgt, eff))
+    w32 = T.acquire_force_sensor_tensor(plain, plain.step(state, tgt, eff))
+    w64 = T.acquire_force_sensor_tensor(plain, plain.step(
+        state._replace(**{f: getattr(state, f).double() for f in state._fields}),
+        tgt.double(), eff.double()))
+    keep = ((w[..., :3].norm(dim=-1) > 0) == (w32[..., :3].norm(dim=-1) > 0)).all(dim=1)
+    res = {"flip_rate": float((~keep).float().mean()), "strikes": int(
+        (w[keep][..., :3].norm(dim=-1) > 0.1).sum())}
+    for lane, sl in (("force", slice(0, 3)), ("moment", slice(3, 6))):
+        g, a, b = w[keep][..., sl].double(), w32[keep][..., sl].double(), w64[keep][..., sl]
+        res[lane] = {"excess": float(((g - b).abs() - (a - b).abs()).max()),
+                     "max_err_vs_f64_plain": float((g - b).abs().max()),
+                     "f32_plain_vs_f64_plain": float((a - b).abs().max()),
+                     "largest": float(b.abs().max())}
+    if (res["flip_rate"] > MAX_FLIP_RATE or res["strikes"] == 0
+            or any(not res[n]["excess"] <= tol for n, tol in SENSOR_TOL.items())):
+        raise SystemExit(f"sensor lanes disagree with the plain version's step: {res}")
+    return res
+
+
+def sensor_path(dev, steps=100, relaunch_every=10):
+    """The force-sensor path at full width: the flagship scene, then C8, each
+    with a sensor on every paddle (``create_asset_force_sensor``), 4096
+    envs, ``steps`` calls of ``Simulator.step`` from scripted off-centre
+    strikes (re-launched every ``relaunch_every`` steps), each read through
+    ``acquire_force_sensor_tensor``. Checks that every strike (a sensor
+    force above 0.1 N) reads a non-zero moment, and after the run the first
+    strike step's sensor lanes against the same step through the plain
+    version (``sensor_vs_plain``). Returns the kernels' launch counts of
+    this run and the phase's numbers."""
+    import numpy as np
+    import torch
+    from isaacgym_tpu_torch.sim import scripted
+    from isaacgym_tpu_torch.sim import tensor_api as T
+    from isaacgym_tpu_torch.sim.simulator import Simulator
+    from isaacgym_tpu_torch.utils.config import load_task_config
+
+    out, launches = {}, {}
+    for label, task, humanoids, kinds in (("flagship", TASK, 1, ("paddle_ball",)),
+                                          ("c8", C8, 2, ("paddle_ball1", "paddle_ball2"))):
+        t0 = time.perf_counter()
+        sim = Simulator(scripted.paddle_sensor_scene(load_task_config(task), humanoids),
+                        device=dev)
+        k = sim.fused_substep if humanoids == 1 else sim.fused_substep_multi
+        rng = np.random.RandomState(7)
+        state, tgt = scripted.strike_state(sim, kinds[0], B, rng)
+        eff = torch.zeros_like(tgt)
+        sim.step(state, tgt, eff)   # warm-up
+        torch.cuda.synchronize()
+        for kk in (sim.fused_substep, sim.fused_substep_dr, sim.fused_substep_multi):
+            if kk is not None:
+                kk.launches = 0
+        step_s, read_s, strikes, moments = 0.0, 0.0, 0, 0
+        rows = torch.as_tensor(sim.scene.force_sensor_bodies, device=dev)
+        for i in range(steps):
+            if i % relaunch_every == 0:
+                state, tgt = scripted.strike_state(sim, kinds[(i // relaunch_every) % len(kinds)],
+                                                   B, rng)
+                if i == 0:
+                    first = (state, tgt)
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            state = sim.step(state, tgt, eff)
+            torch.cuda.synchronize()
+            tr = time.perf_counter()
+            w = T.acquire_force_sensor_tensor(sim, state)
+            torch.cuda.synchronize()
+            read_s += time.perf_counter() - tr
+            step_s += tr - ts
+            hit = w[..., :3].norm(dim=-1) > 0.1
+            strikes += int(hit.sum())
+            moments += int((hit & (w[..., 3:].norm(dim=-1) > 0)).sum())
+        finite = all(bool(torch.isfinite(t).all()) for t in state)
+        launches[label] = k.launches
+        out[label] = {"num_envs": B, "steps": steps, "sensors": int(rows.numel()),
+                      "launches": k.launches, "env_steps_per_s": B * steps / step_s,
+                      "us_per_acquire_force_sensor_tensor": read_s / steps * 1e6,
+                      "strikes": strikes, "strikes_with_moment": moments, "finite": finite}
+        if k.launches != 2 * steps or not finite or strikes == 0 or moments != strikes:
+            raise SystemExit(f"sensors/{label}: {out[label]}")
+        out[label]["vs_plain_step"] = sensor_vs_plain(sim, *first, eff)
+        out[label]["seconds"] = time.perf_counter() - t0
+        emit({"phase": f"sensors/{label}", **out[label]})
+    return launches, out
 
 
 def main():
@@ -345,10 +648,8 @@ def main():
         return tuple(t.contiguous() for t in (s.dof_pos, s.dof_vel, tgt, eff, s.root[:, 2, 0:3],
                                               s.root[:, 2, 7:10], s.root[:, 2, 10:13]))
 
-    sets = {}
-    max_err, excess, flip_rates = {}, {}, {}
+    sets, k2acc = {}, {"max_err": {}, "excess": {}}
     for i, name in enumerate(("reset", "rollout", "paddle_ball", "paddle_table", "ball_rest")):
-        t0 = time.perf_counter()
         e = env_raised if name == "paddle_table" else env
         if name == "rollout":
             ins = rollout_inputs()
@@ -356,19 +657,8 @@ def main():
             ins = tuple(torch.as_tensor(a, device=dev) for a in
                         scripted.k2_inputs(e, name, B, np.random.RandomState(100 + i)))
         k = e.sim.fused_substep
-        got = k(*ins)
-        want = F.fused_substep_reference(k.device_consts(dev), *ins)
-        want64 = F.fused_substep_reference(k.device_consts(dev), *[t.double() for t in ins])
-        torch.cuda.synchronize()
-        res = compare(got, want, want64)
-        contacts = (got.impulses.abs().sum(-1) > 0).float().mean(0).tolist()
-        emit({"phase": f"k2/{name}", **res, "contact_rows_active": contacts,
-              "seconds": time.perf_counter() - t0})
-        gate(f"k2/{name}", res)
-        for f in TOL:
-            max_err[f] = max(max_err.get(f, 0.0), res["max_err_vs_f32_plain"][f])
-            excess[f] = max(excess.get(f, -math.inf), res["excess"][f])
-        flip_rates[name] = res["flip_rate"]
+        plain = lambda *a, k=k: F.fused_substep_reference(k.device_consts(dev), *a)
+        fold(k2acc, check_kernel(f"k2/{name}", k, plain, ins))
         sets[name] = (e, ins)
 
     # ---- timing at the main path's shape, on the rollout states
@@ -389,34 +679,24 @@ def main():
     dr_gen = torch.Generator(device=dev)
     dr_gen.manual_seed(3)
     ident = None
-    dr_err, dr_excess, dr_flips, dr_chans = {}, {}, {}, {}
+    k2dracc, dr_chans = {"max_err": {}, "excess": {}}, {}
     for name, (e, ins) in sets.items():
-        t0 = time.perf_counter()
         chan = e.sim.dr_channel(rz.sample(dr_gen, 3000, B))
         if ident is None:
             ident = e.sim.dr_channel(rz.sample(dr_gen, 0, B))   # step 0: the identity
         k = e.sim.fused_substep_dr
-        got = k(*ins, chan)
-        want = F.fused_substep_reference(k.device_consts(dev), *ins, dr_chan=chan)
-        want64 = F.fused_substep_reference(k.device_consts(dev), *[t.double() for t in ins],
-                                           dr_chan=chan.double())
         k2_out, id_out = e.sim.fused_substep(*ins), k(*ins, ident)
-        torch.cuda.synchronize()
-        res = compare(got, want, want64)
         id_dev = max(float(((getattr(id_out, f) - getattr(k2_out, f)).abs()
                             / getattr(k2_out, f).abs().clamp(min=1.0)).max())
                      for f in k2_out._fields)
-        contacts = (got.impulses.abs().sum(-1) > 0).float().mean(0).tolist()
-        emit({"phase": f"k2dr/{name}", **res,
-              "identity_vs_k2": id_dev, "contact_rows_active": contacts,
-              "mass_scale_range": [float(chan[:, 4 * k.nd].min()),
-                                   float(chan[:, 4 * k.nd].max())],
-              "seconds": time.perf_counter() - t0})
-        gate(f"k2dr/{name}", res, id_dev <= 1e-6, f"identity vs K2 {id_dev}")
-        for f in TOL:
-            dr_err[f] = max(dr_err.get(f, 0.0), res["max_err_vs_f32_plain"][f])
-            dr_excess[f] = max(dr_excess.get(f, -math.inf), res["excess"][f])
-        dr_flips[name] = res["flip_rate"]
+        plain = lambda *a, k=k: F.fused_substep_reference(k.device_consts(dev), *a[:7],
+                                                          dr_chan=a[7])
+        fold(k2dracc, check_kernel(
+            f"k2dr/{name}", k, plain, ins, (chan,), ok=id_dev <= 1e-6,
+            why=f"identity vs K2 {id_dev}",
+            fields={"identity_vs_k2": id_dev,
+                    "mass_scale_range": [float(chan[:, 4 * k.nd].min()),
+                                         float(chan[:, 4 * k.nd].max())]}))
         dr_chans[name] = chan
 
     e, ins = sets["rollout"]
@@ -433,6 +713,9 @@ def main():
 
     # ---- 2c: K3 against its plain version, and its timing
     k3 = k3_checks(dev, host)
+
+    # ---- 2d: K2-tau, K2-dr-tau and K3-tau against their plain versions, timings
+    k2tau, k3tau = tau_checks(dev, host, sets, rz)
 
     # ---- 3: the main path
     t0 = time.perf_counter()
@@ -578,6 +861,9 @@ def main():
         raise SystemExit(f"c6_main: K2 launched {c6_launches} times in 100 steps, "
                          f"finite={finite}")
     del env6, state, obs
+
+    # ---- 4d: the force-sensor path through K2-tau and K3-tau
+    tau_launches, _ = sensor_path(dev)
 
     # ---- 5: training at full width with DR, through K2-dr
     from isaacgym_tpu_torch.rl import checkpoint
@@ -779,8 +1065,7 @@ def main():
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:754",
         "launches": launches, "launches_by_path": {
             "main": launches, "train": train_launches["k2"], "train_nodr": nodr_launches["k2"]},
-        "max_abs_err": max(max_err.values()), "max_err": max_err, "excess": excess,
-        "flip_rate": max(flip_rates.values()), "ms": k2t["kernel_ms"],
+        **k2acc, "ms": k2t["kernel_ms"],
         "plain_ms": k2t["plain_ms"], "bound_ms": k2t["bound_ms"], "bound_by": k2t["bound_by"],
         "library_ms": None, "us": k2t["kernel_ms"] * 1e3, "plain_us": k2t["plain_ms"] * 1e3,
         "bound_us": k2t["bound_ms"] * 1e3}, {
@@ -790,8 +1075,7 @@ def main():
                     "isaacgym_tpu/sim/simulator.py:521)",
         "launches": train_launches["k2dr"], "launches_by_path": {
             "main": 0, "train": train_launches["k2dr"], "train_nodr": nodr_launches["k2dr"]},
-        "max_abs_err": max(dr_err.values()), "max_err": dr_err, "excess": dr_excess,
-        "flip_rate": max(dr_flips.values()), "ms": k2drt["kernel_ms"],
+        **k2dracc, "ms": k2drt["kernel_ms"],
         "plain_ms": k2drt["plain_ms"], "bound_ms": k2drt["bound_ms"],
         "bound_by": k2drt["bound_by"], "library_ms": None, "us": k2drt["kernel_ms"] * 1e3,
         "plain_us": k2drt["plain_ms"] * 1e3, "bound_us": k2drt["bound_ms"] * 1e3}, {
@@ -801,7 +1085,20 @@ def main():
         "launches": c8_launches, "launches_by_path": {
             "c8_main": c8_launches, "c8_train": c8_train_launches},
         **k3, "library_ms": None, "us": k3["ms"] * 1e3, "plain_us": k3["plain_ms"] * 1e3,
-        "bound_us": k3["bound_ms"] * 1e3}]})
+        "bound_us": k3["bound_ms"] * 1e3}, {
+        "name": "fused_substep_tau", "route": "cuda",
+        "source": "isaacgym_tpu_torch/csrc/fused_substep.cu",
+        "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:754 (with_torque=True)",
+        "launches": tau_launches["flagship"],
+        "launches_by_path": {"sensors": tau_launches["flagship"]},
+        **k2tau, "library_ms": None, "us": k2tau["ms"] * 1e3,
+        "plain_us": k2tau["plain_ms"] * 1e3, "bound_us": k2tau["bound_ms"] * 1e3}, {
+        "name": "fused_substep_multi_tau", "route": "cuda",
+        "source": "isaacgym_tpu_torch/csrc/fused_substep_multi.cu",
+        "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:1477 (with_torque=True)",
+        "launches": tau_launches["c8"], "launches_by_path": {"sensors": tau_launches["c8"]},
+        **k3tau, "library_ms": None, "us": k3tau["ms"] * 1e3,
+        "plain_us": k3tau["plain_ms"] * 1e3, "bound_us": k3tau["bound_ms"] * 1e3}]})
     print(f"total seconds {time.perf_counter() - t_all:.1f}", file=sys.stderr)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

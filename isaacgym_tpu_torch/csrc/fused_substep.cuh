@@ -1,8 +1,9 @@
 // K2, the fused physics substep of the flagship scene: the per-env body.
 //
-// Replaces isaacgym_tpu/ops/pallas_dynamics.py:754 (build_fused_substep,
-// with_torque=False): K2 with with_dr=False, K2-dr with with_dr=True (the
-// compile-time WITH_DR below). One call computes one env's
+// Replaces isaacgym_tpu/ops/pallas_dynamics.py:754 (build_fused_substep):
+// K2 with with_dr=False, K2-dr with with_dr=True (the compile-time WITH_DR
+// below), and their torque-lane builds K2-tau (with_torque=True, the
+// compile-time WITH_TORQUE). One call computes one env's
 // whole substep: PD -> FK -> world inertias -> mass matrix -> RNEA bias ->
 // Cholesky -> semi-implicit Euler with limits -> FK at the new q -> ball
 // gravity/damping -> plane, static-geom and articulated-geom contacts (swept
@@ -19,7 +20,15 @@
 //
 // Scene constants are read at run time from one float32 buffer (layout
 // below, mirrored by isaacgym_tpu_torch/ops/fused_substep.py); only the DOF
-// count ND and WITH_DR are compile-time parameters.
+// count ND, WITH_DR and WITH_TORQUE are compile-time parameters.
+//
+// K2-tau (WITH_TORQUE) also writes the force sensors' moment rows after the
+// impulse rows: each articulated geom body's contact moment about its frame
+// origin (the lever from the body origin, the A_BODY_OFF slots, to the
+// contact point; ball contacts and art-vs-static contacts alike), then the
+// ball's contact moment about its centre (lever -r n). Built only for scenes
+// that register a sensor; WITH_TORQUE = false compiles to K2 unchanged, with
+// no moment arithmetic.
 //
 // K2-dr reads a per-env domain-randomization channel of n_dr(ND) = 4 ND + 6
 // rows appended to the packed input, in the JAX package's order (kp scale,
@@ -61,7 +70,8 @@ enum : int {
   C_MAX_LIN, C_MAX_ANG, C_LIN_DAMP, C_ANG_DAMP, C_KD_AERO, C_KM_AERO,
   C_KAPPA, C_ONE_P_KAPPA, C_KAPPA_OVER_RB, C_WT0, C_KAPPA_INVMB_OVER_RB,
   C_NTRUE_STATIC = 38,
-  C_DRIVE = 39   // 0: PD position drive, 1: effort drive (K3's articulations)
+  C_DRIVE = 39,  // 0: PD position drive, 1: effort drive (K3's articulations)
+  C_TQ_STATIC = 40   // -r / inv_m: a static contact's moment factor about the ball
 };
 constexpr int DOF_OFF = 48, DOF_STRIDE = 32;
 enum : int {
@@ -79,7 +89,8 @@ enum : int {
 constexpr int ART_STRIDE = 20;
 enum : int {
   A_KIND = 0, A_LINK = 1, A_OFF_POS = 2, A_OFF_QUAT = 5, A_SIZE = 9,
-  A_E = 12, A_MU = 13, A_RBOUND = 14, A_E_RAW = 15, A_MU_RAW = 16
+  A_E = 12, A_MU = 13, A_RBOUND = 14, A_E_RAW = 15, A_MU_RAW = 16,
+  A_BODY_OFF = 17   // the geom body's frame origin in its link frame (3 slots)
 };
 constexpr int PAIR_STRIDE = 8;
 enum : int { P_ART = 0, P_STATIC = 1, P_EXACT = 2, P_E = 3, P_MU = 4 };
@@ -91,19 +102,23 @@ IGT_HD constexpr int art_off(int nd) { return static_off(nd) + MAX_STATIC * STAT
 IGT_HD constexpr int pair_off(int nd) { return art_off(nd) + MAX_ART * ART_STRIDE; }
 IGT_HD constexpr int total_size(int nd) { return pair_off(nd) + MAX_PAIRS * PAIR_STRIDE; }
 IGT_HD constexpr int n_in(int nd) { return 4 * nd + 9; }
-IGT_HD constexpr int n_out(int nd, int ng) { return 3 * nd + 9 + 3 * (ng + 1); }
+IGT_HD constexpr int n_out(int nd, int ng, bool with_torque = false) {
+  return 3 * nd + 9 + 3 * (ng + 1) * (with_torque ? 2 : 1);
+}
 IGT_HD constexpr int n_dr(int nd) { return 4 * nd + 6; }
 
 // Fills ``out`` with the layout (dof, mask, static, art, pair, total,
-// max_static, max_art, max_pairs, n_dr, and the slots K2-dr reads: true
-// static count, raw static restitution, raw art restitution) so the Python
-// side can check it.
+// max_static, max_art, max_pairs, n_dr, the slots K2-dr reads: true static
+// count, raw static restitution, raw art restitution, and those K2-tau
+// reads: the art geom's body origin and the static moment factor) so the
+// Python side can check it.
 inline int fill_layout(int nd, int* out, int n) {
-  if (n < 13 || nd < 1) return 1;
+  if (n < 15 || nd < 1) return 1;
   out[0] = DOF_OFF; out[1] = mask_off(nd); out[2] = static_off(nd);
   out[3] = art_off(nd); out[4] = pair_off(nd); out[5] = total_size(nd);
   out[6] = MAX_STATIC; out[7] = MAX_ART; out[8] = MAX_PAIRS;
   out[9] = n_dr(nd); out[10] = C_NTRUE_STATIC; out[11] = G_E_RAW; out[12] = A_E_RAW;
+  out[13] = A_BODY_OFF; out[14] = C_TQ_STATIC;
   return 0;
 }
 
@@ -567,6 +582,13 @@ IGT_HD void ball_flight(const float* cb, T gx, T gy, T gz, V3<T>& vel, V3<T>& om
     vel = add(vel, scale(cross(omg, vel), dt * T(ldc(cb + C_KM_AERO))));
 }
 
+// The moment about a ball's centre (block cb) of a static contact with
+// normal n that changed its velocity by dv: lever -r n, impulse dv / inv_m.
+template <class T>
+IGT_HD V3<T> static_moment(const float* cb, V3<T> n, V3<T> dv) {
+  return scale(cross(n, dv), T(ldc(cb + C_TQ_STATIC)));
+}
+
 // The ground plane z = 0: the swept minimum along a plane is monotone.
 // Returns the velocity change.
 template <class T>
@@ -578,10 +600,11 @@ IGT_HD V3<T> ball_plane(const float* cb, V3<T>& pos, V3<T>& vel, V3<T>& omg) {
 }
 
 // A ball against one static geom (entry g), 2 sweep samples, combined
-// materials e and mu. Returns the velocity change.
+// materials e and mu. Returns the velocity change; with ``tq`` adds the
+// contact's moment about the ball's centre to it.
 template <class T>
 IGT_HD V3<T> ball_static(const float* cb, const float* g, T e, T mu, V3<T>& pos, V3<T>& vel,
-                         V3<T>& omg) {
+                         V3<T>& omg, V3<T>* tq = nullptr) {
   const int kind = (int)ldc(g + G_KIND);
   const float* R = g + G_ROT;
   const T rb = T(ldc(cb + C_RB));
@@ -592,7 +615,10 @@ IGT_HD V3<T> ball_static(const float* cb, const float* g, T e, T mu, V3<T>& pos,
   sphere_geom(kind, g + G_SIZE, c0, rb, dist, n_l);
   const T d0 = dist;
   sweep(kind, g + G_SIZE, rb, c0, dv_l, 2, dist, n_l);
-  return resolve_static(cb, vel, omg, pos, dist, mat(R, n_l), e, mu, d0);
+  const V3<T> n = mat(R, n_l);
+  V3<T> dv = resolve_static(cb, vel, omg, pos, dist, n, e, mu, d0);
+  if (tq) *tq = add(*tq, static_moment(cb, n, dv));
+  return dv;
 }
 
 // A ball (block cb) against one articulated geom (entry g) of the
@@ -602,11 +628,14 @@ IGT_HD V3<T> ball_static(const float* cb, const float* g, T e, T mu, V3<T>& pos,
 // read only when the contact acts: g[e_off] and g[mu_off], or with WITH_DR
 // the geom's own scaled by env b's DR channel (dr, K2-dr's rows) and
 // combined with the ball's. Returns whether it acted; P is the impulse on
-// the ball.
+// the ball. With ``ball_tq`` the contact's moments are added: about the
+// ball's centre (lever -r n at the current depth) to it, and about the geom
+// body's frame origin (lever to the contact point) to ``geom_tq``.
 template <class T, int ND, bool WITH_DR>
 IGT_HD bool ball_art(const float* ca, const float* cb, const float* g, int e_off, int mu_off,
                      const float* dr, size_t sB, V3<T>& pos, V3<T>& vel, V3<T>& omg, T* u,
-                     const T* L, const V3<T>* fp, const Q4<T>* fq, const V3<T>* axw, V3<T>& P) {
+                     const T* L, const V3<T>* fp, const Q4<T>* fq, const V3<T>* axw, V3<T>& P,
+                     V3<T>* ball_tq = nullptr, V3<T>* geom_tq = nullptr) {
   const float* mask = ca + mask_off(ND);
   const V3<T> zero3 = v3<T>(T(0.0f), T(0.0f), T(0.0f));
   const T rb = T(ldc(cb + C_RB)), inv_mb = T(ldc(cb + C_INV_MB));
@@ -623,7 +652,8 @@ IGT_HD bool ball_art(const float* ca, const float* cb, const float* g, int e_off
   T d_now;
   V3<T> n_now_l;
   sphere_geom(kind, g + A_SIZE, c0, rb, d_now, n_now_l);
-  V3<T> cp = sub(pos, scale(qrot(gq, n_now_l), rb));
+  const V3<T> n_now = qrot(gq, n_now_l);
+  V3<T> cp = sub(pos, scale(n_now, rb));
   V3<T> Jc[ND];
   bool on[ND];
   V3<T> v_point = zero3;
@@ -681,6 +711,11 @@ IGT_HD bool ball_art(const float* ca, const float* cb, const float* g, int e_off
 #pragma unroll
   for (int i = 0; i < ND; ++i) u[i] = u[i] + du[i];
   pos = add(pos, scale(n, max_(-d_now, T(0.0f))));
+  if (ball_tq) {
+    *ball_tq = add(*ball_tq, scale(cross(n_now, P), -rb));
+    V3<T> borg = add(lp, qrot(lq, cv3<T>(g + A_BODY_OFF)));
+    *geom_tq = add(*geom_tq, cross(sub(cp, borg), scale(P, T(-1.0f))));
+  }
   return true;
 }
 
@@ -688,10 +723,12 @@ IGT_HD bool ball_art(const float* ca, const float* cb, const float* g, int e_off
 // one true static (entry sg), pair entry pr: Baumgarte impulse on the
 // generalized velocity u, exact support of a cylinder or box along the
 // normal, the 2 mm resting band. Returns whether it acted; P is the impulse
-// on the geom's body.
+// on the geom's body; with ``geom_tq`` its moment about the body's frame
+// origin is added there.
 template <class T, int ND>
 IGT_HD bool art_static(const float* ca, const float* pr, const float* g, const float* sg, T* u,
-                       const T* L, const V3<T>* fp, const Q4<T>* fq, const V3<T>* axw, V3<T>& P) {
+                       const T* L, const V3<T>* fp, const Q4<T>* fq, const V3<T>* axw, V3<T>& P,
+                       V3<T>* geom_tq = nullptr) {
   const float* mask = ca + mask_off(ND);
   const V3<T> zero3 = v3<T>(T(0.0f), T(0.0f), T(0.0f));
   const int link = (int)ldc(g + A_LINK);
@@ -769,6 +806,8 @@ IGT_HD bool art_static(const float* ca, const float* pr, const float* g, const f
 #pragma unroll
   for (int i = 0; i < ND; ++i) u[i] = u[i] + du[i];
   P = sub(scale(n, Pn), scale(t_hat, Pt));
+  if (geom_tq)
+    *geom_tq = add(*geom_tq, cross(sub(point, add(lp, qrot(lq, cv3<T>(g + A_BODY_OFF)))), P));
   return true;
 }
 
@@ -783,9 +822,9 @@ IGT_HD void ball_finish(const float* cb, V3<T>& pos, V3<T>& vel, V3<T>& omg) {
 
 // ------------------------------------------------------------- the body --
 // One env's K2 substep. x: (n_in(ND) [+ n_dr(ND) with WITH_DR], B) inputs,
-// y: (n_out(ND, ng), B) outputs, both channel-major; env b reads and writes
-// column b.
-template <class T, int ND, bool WITH_DR = false>
+// y: (n_out(ND, ng, WITH_TORQUE), B) outputs, both channel-major; env b reads
+// and writes column b.
+template <class T, int ND, bool WITH_DR = false, bool WITH_TORQUE = false>
 IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restrict__ x,
                               float* __restrict__ y, int b, int B) {
   const size_t sB = (size_t)B;
@@ -813,7 +852,11 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
                 vel, omg);
   else
     ball_flight(c, gx, gy, gz, vel, omg);
-  V3<T> imp = scale(ball_plane(c, pos, vel, omg), T(ldc(c + C_MB)));
+  V3<T> dv0 = ball_plane(c, pos, vel, omg);
+  V3<T> imp = scale(dv0, T(ldc(c + C_MB)));
+  // WITH_TORQUE: the ball's contact moment and each geom body's
+  V3<T> tqb, geom_tq[WITH_TORQUE ? MAX_ART : 1];
+  if constexpr (WITH_TORQUE) tqb = static_moment(c, v3<T>(T(0.0f), T(0.0f), T(1.0f)), dv0);
 
   // static geoms (table, net, base-welded humanoid geoms)
   const int n_static = (int)ldc(c + C_NSTATIC);
@@ -827,7 +870,7 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
         mu = T(0.5f) * (T(ldc(c + C_MU_BALL)) + T(ldc(g + G_MU_RAW)) * IGT_DR(4 * ND + 4));
       }
     }
-    V3<T> dv = ball_static(c, g, e, mu, pos, vel, omg);
+    V3<T> dv = ball_static(c, g, e, mu, pos, vel, omg, WITH_TORQUE ? &tqb : nullptr);
     imp = v3<T>(imp.x + dv.x / inv_mb, imp.y + dv.y / inv_mb, imp.z + dv.z / inv_mb);
   }
 
@@ -838,8 +881,10 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
     const float* g = c + art_off(ND) + gi * ART_STRIDE;
     V3<T> P;
     geom_imp[gi] = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+    if constexpr (WITH_TORQUE) geom_tq[gi] = geom_imp[gi];
     if (!ball_art<T, ND, WITH_DR>(c, c, g, A_E, A_MU, dr, sB, pos, vel, omg, u, L, fp, fq,
-                                  axw, P))
+                                  axw, P, WITH_TORQUE ? &tqb : nullptr,
+                                  WITH_TORQUE ? &geom_tq[gi] : nullptr))
       continue;
     imp = add(imp, P);
     geom_imp[gi] = v3<T>(-P.x, -P.y, -P.z);
@@ -853,7 +898,7 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
     V3<T> P;
     if (art_static<T, ND>(c, pr, c + art_off(ND) + gi * ART_STRIDE,
                           c + static_off(ND) + (int)ldc(pr + P_STATIC) * STATIC_STRIDE,
-                          u, L, fp, fq, axw, P))
+                          u, L, fp, fq, axw, P, WITH_TORQUE ? &geom_tq[gi] : nullptr))
       geom_imp[gi] = add(geom_imp[gi], P);
   }
 
@@ -869,6 +914,18 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
   IGT_OUT(io + 3 * n_art, imp.x);
   IGT_OUT(io + 3 * n_art + 1, imp.y);
   IGT_OUT(io + 3 * n_art + 2, imp.z);
+  if constexpr (WITH_TORQUE) {
+    // moment rows: one per art geom body, then the ball's
+    const int it = io + 3 * (n_art + 1);
+    for (int gi = 0; gi < n_art; ++gi) {
+      IGT_OUT(it + 3 * gi, geom_tq[gi].x);
+      IGT_OUT(it + 3 * gi + 1, geom_tq[gi].y);
+      IGT_OUT(it + 3 * gi + 2, geom_tq[gi].z);
+    }
+    IGT_OUT(it + 3 * n_art, tqb.x);
+    IGT_OUT(it + 3 * n_art + 1, tqb.y);
+    IGT_OUT(it + 3 * n_art + 2, tqb.z);
+  }
   ball_finish(c, pos, vel, omg);
   IGT_OUT(3 * ND, pos.x);
   IGT_OUT(3 * ND + 1, pos.y);

@@ -1,8 +1,9 @@
 // K3, the fused physics substep of K fixed-base articulations and NB balls
 // (the two-humanoid C8 scene): the per-env body.
 //
-// Replaces isaacgym_tpu/ops/pallas_dynamics.py:1477 (build_fused_substep_multi,
-// with_torque=False), in its order: each articulation's dynamics (PD or
+// Replaces isaacgym_tpu/ops/pallas_dynamics.py:1477 (build_fused_substep_multi;
+// K3 with with_torque=False, K3-tau with with_torque=True, the compile-time
+// WITH_TORQUE), in its order: each articulation's dynamics (PD or
 // effort drive, FK, mass matrix, RNEA bias, Cholesky, integration, FK at the
 // new q); then per ball its free flight, the plane, every static geom and
 // every articulated geom of every articulation, each reaction going into
@@ -19,7 +20,13 @@
 // ranges, DOF table, mask), MAX_BALLS ball blocks each a K2 header with that
 // ball's slots, then the static geoms, the articulated geoms (grouped by
 // articulation) and the art-vs-static pairs. Static and articulated entries
-// carry the material combined with each ball.
+// carry the material combined with each ball; articulated entries keep K2's
+// slots, the body origin (A_BODY_OFF) included.
+//
+// K3-tau writes, after K3's impulse rows, each articulated geom body's
+// contact moment about its frame origin and each ball's about its centre:
+// (B, 2 ng + 3 NB, 3) impulse rows in all. A ball-pair contact gives each
+// ball -r_i (n x P), as the JAX package's ball-pair block takes it.
 //
 // ND (DOFs per articulation), K and NB are template parameters, so each
 // articulation's factor, velocities and frames are arrays with compile-time
@@ -48,8 +55,9 @@ enum : int { H_K = 40, H_NB = 41, H_BB_E = 42, H_BB_MU = 43, H_BB_WN = 44, H_BB_
 enum : int { C_GEOM_LO = 40, C_GEOM_HI = 41, C_PAIR_LO = 42, C_PAIR_HI = 43 };
 constexpr int BALL_STRIDE = 48;
 constexpr int MULTI_STATIC_STRIDE = 24;
-constexpr int MULTI_ART_STRIDE = 24;
-enum : int { G_EB = 20, G_MUB = 21, A_ART = 17, A_EB = 20, A_MUB = 21 };   // + 2 bi
+constexpr int MULTI_ART_STRIDE = 28;
+// per-ball materials (+ 2 bi) past K2's entry slots; the entry's articulation
+enum : int { G_EB = 20, G_MUB = 21, A_EB = 20, A_MUB = 21, A_ART = 24 };
 
 IGT_HD constexpr int multi_art_stride(int nd) { return static_off(nd); }
 IGT_HD constexpr int multi_ball_off(int nd, int k) { return MULTI_HEAD + k * multi_art_stride(nd); }
@@ -77,10 +85,12 @@ inline int fill_multi_layout(int nd, int k, int* out, int n) {
 }
 
 // The two balls' swept sphere-sphere impulse with spin; s_imp gathers it
-// into each ball's static row.
+// into each ball's static row, and with ``tqa`` each ball's moment -r (n x P)
+// is added to tqa and tqb.
 template <class T>
 IGT_HD void ball_pair(const float* c, const float* ca, const float* cb, V3<T>& pa, V3<T>& va,
-                      V3<T>& wa, V3<T>& sa, V3<T>& pb, V3<T>& vb, V3<T>& wb, V3<T>& sb) {
+                      V3<T>& wa, V3<T>& sa, V3<T>& pb, V3<T>& vb, V3<T>& wb, V3<T>& sb,
+                      V3<T>* tqa = nullptr, V3<T>* tqb = nullptr) {
   V3<T> d = sub(pa, pb);
   T dn = sqrt_floor(dot(d, d), 1e-18f);
   V3<T> n = scale(d, T(1.0f) / dn);
@@ -120,12 +130,17 @@ IGT_HD void ball_pair(const float* c, const float* ca, const float* cb, V3<T>& p
   pb = sub(pb, scale(n, T(0.5f) * push));
   sa = add(sa, P);
   sb = sub(sb, P);
+  if (tqa) {
+    V3<T> nxP = cross(n, P);
+    *tqa = sub(*tqa, scale(nxP, ra));
+    *tqb = sub(*tqb, scale(nxP, rb));
+  }
 }
 
 // One env's K3 substep. x: (multi_n_in(K ND, NB), B) inputs, y: (3 K ND +
-// 9 NB + 3 (ng + 2 NB), B) outputs, both channel-major; env b reads and
-// writes column b.
-template <class T, int ND, int K, int NB>
+// 9 NB + 3 (ng + 2 NB) [+ 3 (ng + NB) with WITH_TORQUE], B) outputs, both
+// channel-major; env b reads and writes column b.
+template <class T, int ND, int K, int NB, bool WITH_TORQUE = false>
 IGT_HD void fused_substep_multi_env(const float* __restrict__ c, const float* __restrict__ x,
                                     float* __restrict__ y, int b, int B) {
   static_assert(NB >= 1 && NB <= MAX_BALLS, "1 or 2 balls");
@@ -146,7 +161,12 @@ IGT_HD void fused_substep_multi_env(const float* __restrict__ c, const float* __
   const int n_static = (int)ldc(c + C_NSTATIC);
   const int ng = (int)ldc(c + C_NART);
   V3<T> geom_imp[MULTI_MAX_ART];
-  for (int gi = 0; gi < ng; ++gi) geom_imp[gi] = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+  // WITH_TORQUE: each geom body's contact moment and each ball's
+  V3<T> geom_tq[WITH_TORQUE ? MULTI_MAX_ART : 1], b_tq[NB];
+  for (int gi = 0; gi < ng; ++gi) {
+    geom_imp[gi] = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+    if constexpr (WITH_TORQUE) geom_tq[gi] = geom_imp[gi];
+  }
   V3<T> pos[NB], vel[NB], omg[NB], s_imp[NB];
   const int ib = 4 * NDT;
 #pragma unroll
@@ -159,11 +179,14 @@ IGT_HD void fused_substep_multi_env(const float* __restrict__ c, const float* __
     omg[bi] = v3<T>(IGT_IN(ib + 6 * NB + 3 * bi), IGT_IN(ib + 6 * NB + 3 * bi + 1),
                     IGT_IN(ib + 6 * NB + 3 * bi + 2));
     ball_flight(cb, T(ldc(cb + C_GX)), T(ldc(cb + C_GY)), T(ldc(cb + C_GZ)), vel[bi], omg[bi]);
-    s_imp[bi] = scale(ball_plane(cb, pos[bi], vel[bi], omg[bi]), T(ldc(cb + C_MB)));
+    V3<T> dv0 = ball_plane(cb, pos[bi], vel[bi], omg[bi]);
+    s_imp[bi] = scale(dv0, T(ldc(cb + C_MB)));
+    if constexpr (WITH_TORQUE)
+      b_tq[bi] = static_moment(cb, v3<T>(T(0.0f), T(0.0f), T(1.0f)), dv0);
     for (int si = 0; si < n_static; ++si) {
       const float* g = c + multi_static_off(ND, K) + si * MULTI_STATIC_STRIDE;
       V3<T> dv = ball_static(cb, g, T(ldc(g + G_EB + 2 * bi)), T(ldc(g + G_MUB + 2 * bi)),
-                             pos[bi], vel[bi], omg[bi]);
+                             pos[bi], vel[bi], omg[bi], WITH_TORQUE ? &b_tq[bi] : nullptr);
       s_imp[bi] = v3<T>(s_imp[bi].x + dv.x / inv_mb, s_imp[bi].y + dv.y / inv_mb,
                         s_imp[bi].z + dv.z / inv_mb);
     }
@@ -177,7 +200,8 @@ IGT_HD void fused_substep_multi_env(const float* __restrict__ c, const float* __
         V3<T> P;
         if (!ball_art<T, ND, false>(ca, cb, g, A_EB + 2 * bi, A_MUB + 2 * bi, nullptr, sB,
                                     pos[bi], vel[bi], omg[bi], u[a], L[a], fp[a], fq[a],
-                                    axw[a], P))
+                                    axw[a], P, WITH_TORQUE ? &b_tq[bi] : nullptr,
+                                    WITH_TORQUE ? &geom_tq[gi] : nullptr))
           continue;
         geom_imp[gi] = sub(geom_imp[gi], P);
         b_art = add(b_art, P);
@@ -192,7 +216,8 @@ IGT_HD void fused_substep_multi_env(const float* __restrict__ c, const float* __
   if constexpr (NB == 2) {
     const float* c0 = c + multi_ball_off(ND, K);
     ball_pair(c, c0, c0 + BALL_STRIDE, pos[0], vel[0], omg[0], s_imp[0], pos[1], vel[1],
-              omg[1], s_imp[1]);
+              omg[1], s_imp[1], WITH_TORQUE ? &b_tq[0] : nullptr,
+              WITH_TORQUE ? &b_tq[1] : nullptr);
   }
 
 #pragma unroll
@@ -212,6 +237,12 @@ IGT_HD void fused_substep_multi_env(const float* __restrict__ c, const float* __
     IGT_OUT(row, s_imp[bi].x);
     IGT_OUT(row + 1, s_imp[bi].y);
     IGT_OUT(row + 2, s_imp[bi].z);
+    if constexpr (WITH_TORQUE) {   // ball moment rows after the geom moment rows
+      const int rt = 3 * NDT + 9 * NB + 3 * (2 * ng + 2 * NB + bi);
+      IGT_OUT(rt, b_tq[bi].x);
+      IGT_OUT(rt + 1, b_tq[bi].y);
+      IGT_OUT(rt + 2, b_tq[bi].z);
+    }
   }
 
   // articulated geoms vs the true statics: pairs pruned at pack time
@@ -225,7 +256,8 @@ IGT_HD void fused_substep_multi_env(const float* __restrict__ c, const float* __
       V3<T> P;
       if (art_static<T, ND>(ca, pr, c + multi_art_off(ND, K) + gi * MULTI_ART_STRIDE,
                             c + multi_static_off(ND, K) + (int)ldc(pr + P_STATIC) * MULTI_STATIC_STRIDE,
-                            u[a], L[a], fp[a], fq[a], axw[a], P))
+                            u[a], L[a], fp[a], fq[a], axw[a], P,
+                            WITH_TORQUE ? &geom_tq[gi] : nullptr))
         geom_imp[gi] = add(geom_imp[gi], P);
     }
   }
@@ -235,6 +267,12 @@ IGT_HD void fused_substep_multi_env(const float* __restrict__ c, const float* __
     IGT_OUT(io + 3 * gi, geom_imp[gi].x);
     IGT_OUT(io + 3 * gi + 1, geom_imp[gi].y);
     IGT_OUT(io + 3 * gi + 2, geom_imp[gi].z);
+    if constexpr (WITH_TORQUE) {
+      const int rt = io + 3 * (ng + 2 * NB + gi);
+      IGT_OUT(rt, geom_tq[gi].x);
+      IGT_OUT(rt + 1, geom_tq[gi].y);
+      IGT_OUT(rt + 2, geom_tq[gi].z);
+    }
   }
 #pragma unroll
   for (int a = 0; a < K; ++a)

@@ -4,8 +4,12 @@ The arrays of the JAX package's ``SimState``, ``EnvState`` (with its
 domain-randomization fields), ``DRParams``, ``RunningStats`` and flax
 actor-critic parameters, handed over as numpy, become the port's tensors and
 modules, so a check can start both packages from one state and one set of
-weights. The JAX package's per-env PRNG keys have no counterpart (the port
-keeps one ``torch.Generator`` per env object) and are dropped.
+weights. ``SimState`` carries the contact moments (``net_contact_torque``)
+with the forces. The force sensors registered on a JAX asset
+(``create_asset_force_sensor``, kept on the asset as ``_force_sensors``)
+carry over to the port's asset with :func:`copy_force_sensors`. The JAX
+package's per-env PRNG keys have no counterpart (the port keeps one
+``torch.Generator`` per env object) and are dropped.
 """
 
 from __future__ import annotations
@@ -82,6 +86,19 @@ def actor_critic_from_jax(params_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out[f"{head}.bias"] = f32(p[head]["bias"])
     out["log_sigma"] = f32(p["log_sigma"])
     return out
+
+
+def copy_force_sensors(src_asset, dst_asset) -> int:
+    """Register on ``dst_asset`` (the port's ``KinematicTree``) every force
+    sensor registered on ``src_asset`` (the JAX package's), in order; returns
+    how many. Both assets must be the same model."""
+    from isaacgym_tpu_torch.sim.asset_api import create_asset_force_sensor
+    if tuple(src_asset.body_names) != tuple(dst_asset.body_names):
+        raise ValueError("copy_force_sensors: the assets' bodies differ")
+    sensors = list(getattr(src_asset, "_force_sensors", ()))
+    for body, local_pos in sensors:
+        create_asset_force_sensor(dst_asset, body, local_pos)
+    return len(sensors)
 
 
 def to_numpy(state) -> Dict[str, Any]:

@@ -4,7 +4,7 @@ with a plain C interface, loaded with ``ctypes``.
 Each ``csrc/<name>.cu`` is its own library, built at first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v [EXTRA_CUDA_FLAGS[name]]
+         -Xcompiler -fPIC -Xptxas -v -fmad=false
          -o <dir>/libigt_<name>.so csrc/<name>.cu
 
 into ``build/kernels/<hash>/`` beside the package (listed in ``.gitignore``),
@@ -33,14 +33,15 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "kernels")
 
 CUDA_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-fmad=false"]
 HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
-#: per-source flags past CUDA_FLAGS. K3 is built without FMA contraction, so
-#: it rounds op by op as its plain version and the JAX package's kernel do:
-#: at humanoid 2's paddle (x ~ 3.2 m, where a float32 ulp is 4x humanoid
-#: 1's) a contracted build's own rounding, amplified through a short
-#: ball-to-paddle normal, put the ball's spin 2.1e-3 past its gate.
-EXTRA_CUDA_FLAGS = {"fused_substep_multi": ["-fmad=false"]}
+#: ``-fmad=false``: no FMA contraction, so the kernels round op by op as
+#: their plain versions and the JAX package's kernels do. At a paddle contact
+#: the ball's spin change is the friction impulse times kappa / (r m) ~ 5e4,
+#: and a contracted build's own rounding carried it past its gate: K3 at
+#: humanoid 2's paddle (x ~ 3.2 m, where a float32 ulp is 4x humanoid 1's)
+#: 2.1e-3 off, K2-dr-tau on a full-strength DR channel 1.8e-3 off, where the
+#: float32 plain version was within 1e-3 of float64.
 
 _loaded = {}
 #: wall seconds of the builds this process ran, by library name
@@ -107,6 +108,14 @@ _SIGNATURES = {
     "igt_fused_substep_multi_host": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP], _IP),
     "igt_fused_substep_multi_count_ops": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP],
                                           ctypes.c_longlong),
+    # the torque-lane builds (K2-tau with a with_dr flag, K3-tau)
+    "igt_fused_substep_tau_launch": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP, _VP], _IP),
+    "igt_fused_substep_multi_tau_launch": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP, _IP, _VP], _IP),
+    "igt_fused_substep_tau_host": ([_VP, _VP, _VP, _IP, _IP, _IP], _IP),
+    "igt_fused_substep_tau_count_ops": ([_VP, _VP, _VP, _IP, _IP, _IP], ctypes.c_longlong),
+    "igt_fused_substep_multi_tau_host": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP], _IP),
+    "igt_fused_substep_multi_tau_count_ops": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP],
+                                              ctypes.c_longlong),
 }
 
 
@@ -126,7 +135,7 @@ def cuda_sources():
 
 def cuda_library(name: str) -> ctypes.CDLL:
     """libigt_<name>.so: ``csrc/<name>.cu`` built by nvcc for sm_90a."""
-    return _bind(_build(f"libigt_{name}.so", _nvcc(), CUDA_FLAGS + EXTRA_CUDA_FLAGS.get(name, []),
+    return _bind(_build(f"libigt_{name}.so", _nvcc(), CUDA_FLAGS,
                         [os.path.join(CSRC, f"{name}.cu")], _headers()))
 
 

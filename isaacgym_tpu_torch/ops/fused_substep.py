@@ -63,6 +63,7 @@ C_BASE_Q = 16
  C_ONE_P_KAPPA, C_KAPPA_OVER_RB, C_WT0, C_KAPPA_INVMB_OVER_RB) = range(20, 38)
 C_NTRUE_STATIC = 38
 C_DRIVE = 39             # 0: PD position drive, 1: effort drive (K3's arts)
+C_TQ_STATIC = 40         # -r / inv_m: a static contact's moment about the ball
 
 DOF_OFF = 48
 DOF_STRIDE = 32
@@ -74,8 +75,11 @@ STATIC_STRIDE = 20
 # G_E/G_MU: combined with the ball's material; *_RAW: the geom's own (K2-dr)
 G_KIND, G_POS, G_ROT, G_SIZE, G_E, G_MU, G_E_RAW, G_MU_RAW = 0, 1, 4, 13, 16, 17, 18, 19
 ART_STRIDE = 20
+# A_BODY_OFF: the geom body's frame origin in its link's frame, the point
+# the body's contact moments are taken about (K2-tau, K3-tau)
 A_KIND, A_LINK, A_OFF_POS, A_OFF_QUAT, A_SIZE, A_E, A_MU, A_RBOUND, A_E_RAW, A_MU_RAW = (
     0, 1, 2, 5, 9, 12, 13, 14, 15, 16)
+A_BODY_OFF = 17
 PAIR_STRIDE = 8
 P_ART, P_STATIC, P_EXACT, P_E, P_MU = 0, 1, 2, 3, 4
 
@@ -97,9 +101,10 @@ def n_in(nd: int) -> int:
     return 4 * nd + 9
 
 
-def n_out(nd: int, ng: int) -> int:
-    """Output channels: q, qd, tau, ball pos/vel/omega, impulse rows."""
-    return 3 * nd + 9 + 3 * (ng + 1)
+def n_out(nd: int, ng: int, with_torque: bool = False) -> int:
+    """Output channels: q, qd, tau, ball pos/vel/omega, impulse rows, and
+    with the torque lanes the moment rows."""
+    return 3 * nd + 9 + 3 * (ng + 1) * (2 if with_torque else 1)
 
 
 def n_dr(nd: int) -> int:
@@ -234,6 +239,7 @@ def pack_ball(c, ball_cfg: dict, dt_s: float) -> None:
     c[C_KAPPA_OVER_RB] = kappa / rb
     c[C_WT0] = (1.0 + kappa) * inv_mb
     c[C_KAPPA_INVMB_OVER_RB] = kappa * inv_mb / rb
+    c[C_TQ_STATIC] = -rb / inv_mb
 
 
 def pack_articulation(c, model: ArticulationModel, base_pos, base_quat, kp, kd,
@@ -276,8 +282,9 @@ def pack_static_geom(c, g: dict) -> None:
 
 
 def pack_art_geom(c, g: dict) -> None:
-    """An articulated geom's kind, link, offset, size, bounding radius and
-    own materials into an entry (``A_*``)."""
+    """An articulated geom's kind, link, offset, size, bounding radius, own
+    materials and body origin (``body_off``, zero when absent) into an
+    entry (``A_*``)."""
     c[A_KIND] = int(g["kind"])
     c[A_LINK] = int(g["link"])
     c[A_OFF_POS:A_OFF_POS + 3] = [float(v) for v in g["off_pos"]]
@@ -285,6 +292,7 @@ def pack_art_geom(c, g: dict) -> None:
     c[A_SIZE:A_SIZE + 3] = [float(v) for v in g["size"]]
     c[A_RBOUND] = float(g["radius_bound"])
     c[A_E_RAW], c[A_MU_RAW] = float(g["e"]), float(g["mu"])
+    c[A_BODY_OFF:A_BODY_OFF + 3] = [float(v) for v in g.get("body_off", (0.0, 0.0, 0.0))]
 
 
 def pack_pair(c, gi: int, si: int, g: dict, sg: dict, exact_support: bool) -> None:
@@ -306,7 +314,8 @@ def build_constants(model: ArticulationModel, base_pos, base_quat, kp, kd,
     mass, radius, restitution, friction, plane_e, plane_mu, max_lin, max_ang,
     lin_damp, ang_damp, drag_k, magnus_k, kappa; ``static_geoms`` dicts of
     kind, pos, quat, size, e, mu in the world frame; ``art_geoms`` dicts of
-    kind, link, off_pos, off_quat, size, e, mu, radius_bound.
+    kind, link, off_pos, off_quat, size, e, mu, radius_bound and, for the
+    torque lanes, body_off.
     """
     check_supported(model)
     nd = model.tree.n_dof
@@ -353,7 +362,10 @@ class FusedStepOutputs(NamedTuple):
     ball_pos: torch.Tensor    # (B, 3)
     ball_vel: torch.Tensor    # (B, 3)
     ball_omega: torch.Tensor  # (B, 3)
-    impulses: torch.Tensor    # (B, ng+1, 3): per art geom body, then the ball total
+    impulses: torch.Tensor    # (B, ng+1, 3): per art geom body, then the ball total;
+    #                           with the torque lanes (B, 2 ng + 2, 3): then per art
+    #                           geom body its contact moment about the body origin,
+    #                           and the ball's about its centre
 
 
 # ---------------------------------------------------------------------------
@@ -779,7 +791,8 @@ def ball_plane(kb, pos, vel, omg):
 
 def ball_static(kb, kg, e, mu, pos, vel, omg):
     """One ball against one static geom (entry ``kg``: kind, pose, size),
-    2 sweep samples, combined materials ``e``, ``mu`` -> (pos, vel, omg, dv)."""
+    2 sweep samples, combined materials ``e``, ``mu`` -> (pos, vel, omg, dv,
+    n), n the contact normal."""
     kind, R = int(kg[G_KIND]), kg[G_ROT:G_ROT + 9]
     size = kg[G_SIZE:G_SIZE + 3]
     rb = kb[C_RB]
@@ -787,15 +800,25 @@ def ball_static(kb, kg, e, mu, pos, vel, omg):
     dv_l = _mat_t(R, _scale(vel, kb[C_DT_HALF]))
     d0, n0 = _sphere_geom(kind, size, c0, rb)
     dist, n_l = _sweep(kind, size, rb, c0, d0, n0, dv_l, 2)
-    vel, omg, push, dv = _resolve_static(kb, vel, omg, dist, _mat(R, n_l), e, mu, d0)
-    return _add(pos, push), vel, omg, dv
+    n = _mat(R, n_l)
+    vel, omg, push, dv = _resolve_static(kb, vel, omg, dist, n, e, mu, d0)
+    return _add(pos, push), vel, omg, dv, n
 
 
-def ball_art(art: ArtState, kb, kg, e_art, mu_art, pos, vel, omg):
+def static_moment(kb, n, dv):
+    """The moment about the ball's centre of a static contact (normal ``n``)
+    that changed its velocity by ``dv``: lever -r n, impulse dv / inv_m."""
+    return _scale(_cross(n, dv), kb[C_TQ_STATIC])
+
+
+def ball_art(art: ArtState, kb, kg, e_art, mu_art, pos, vel, omg, torque=False):
     """One ball against one articulated geom (entry ``kg``) of ``art``: swept
     CCD along the relative motion, gated restitution, spin friction, the
     joint-space reaction through the factor (changes ``art.u``) -> (pos, vel,
-    omg, P), P the impulse on the ball."""
+    omg, P), P the impulse on the ball. With ``torque`` also the contact's
+    moments: on the ball about its centre (lever -r n) and on the geom body
+    about its frame origin (lever from the body origin to the contact
+    point)."""
     rb, inv_mb = kb[C_RB], kb[C_INV_MB]
     kind, link = int(kg[A_KIND]), int(kg[A_LINK])
     size = kg[A_SIZE:A_SIZE + 3]
@@ -831,14 +854,19 @@ def ball_art(art: ArtState, kb, kg, e_art, mu_art, pos, vel, omg):
     du = _back_sub(art.L, [yn[i] * (-Pn) + yt[i] * Pt for i in range(art.nd)])
     art.u = [art.u[i] + du[i] for i in range(art.nd)]
     pos = _add(pos, _scale(n, torch.where(active, torch.clamp(-d_now, min=0.0), 0.0)))
-    return pos, vel, omg, P
+    if not torque:
+        return pos, vel, omg, P
+    borg = _add(lp, _qrot(lq, kg[A_BODY_OFF:A_BODY_OFF + 3]))
+    return (pos, vel, omg, P, _scale(_cross(n_now, P), -rb),
+            _cross(_sub(cp, borg), _scale(P, -1.0)))
 
 
-def art_static(art: ArtState, kp, kg, ks):
+def art_static(art: ArtState, kp, kg, ks, torque=False):
     """One articulated geom (entry ``kg``) of ``art`` against one true static
     (entry ``ks``), pair entry ``kp``: Baumgarte impulse on the generalized
     velocity with exact support and the 2 mm resting band (changes
-    ``art.u``) -> the impulse on the geom body."""
+    ``art.u``) -> the impulse on the geom body, and with ``torque`` also its
+    moment about the body's frame origin."""
     k = art.k
     link, rbound = int(kg[A_LINK]), kg[A_RBOUND]
     lp, lq = art.link_pose(link)
@@ -885,7 +913,11 @@ def art_static(art: ArtState, kp, kg, ks):
     Pt = Pt * s_r
     du = _back_sub(art.L, [yn[i] * Pn - yt[i] * Pt for i in range(art.nd)])
     art.u = [art.u[i] + du[i] for i in range(art.nd)]
-    return _sub(_scale(n, Pn), _scale(t_hat, Pt))
+    P = _sub(_scale(n, Pn), _scale(t_hat, Pt))
+    if not torque:
+        return P
+    borg = _add(lp, _qrot(lq, kg[A_BODY_OFF:A_BODY_OFF + 3]))
+    return P, _cross(_sub(point, borg), P)
 
 
 def ball_finish(kb, pos, vel, omg):
@@ -906,9 +938,12 @@ def stack(xs):
 
 
 def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
-                            ball_vel, ball_omega, dr_chan=None) -> FusedStepOutputs:
-    """Plain PyTorch version of K2 over (B, n) float32 inputs, and of K2-dr
-    when ``dr_chan`` (B, ``n_dr(nd)``) is given.
+                            ball_vel, ball_omega, dr_chan=None,
+                            with_torque=False) -> FusedStepOutputs:
+    """Plain PyTorch version of K2 over (B, n) float32 inputs, of K2-dr when
+    ``dr_chan`` (B, ``n_dr(nd)``) is given, and with ``with_torque`` of their
+    torque-lane builds (K2-tau): the impulses gain each art geom body's
+    contact moment and the ball's.
 
     ``consts`` is the pack of :func:`build_constants` (numpy or a tensor).
     Every per-env value is a (B,) channel; the arithmetic and the order of
@@ -937,6 +972,9 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
     pos, vel, omg, dv = ball_plane(k, pos, vel, omg)
     imp = _scale(dv, k[C_MB])
     inv_mb = k[C_INV_MB]
+    zero = torch.zeros_like(q_new[0])
+    if with_torque:
+        tqb = static_moment(k, (zero, zero, zero + 1.0), dv)
 
     # static geoms (table, net, base-welded humanoid geoms)
     for si in range(n_static):
@@ -945,12 +983,14 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
         if dr and si >= int(k[C_NTRUE_STATIC]):   # base-welded humanoid geoms
             e = 0.5 * (k[C_E_BALL] + kg[G_E_RAW] * rest_s)
             mu = 0.5 * (k[C_MU_BALL] + kg[G_MU_RAW] * fric_s)
-        pos, vel, omg, dv = ball_static(k, kg, e, mu, pos, vel, omg)
+        pos, vel, omg, dv, n = ball_static(k, kg, e, mu, pos, vel, omg)
         imp = tuple(imp[i] + dv[i] / inv_mb for i in range(3))
+        if with_torque:
+            tqb = _add(tqb, static_moment(k, n, dv))
 
     # articulated geoms: ball contacts with joint-space reactions
-    zero = torch.zeros_like(q_new[0])
     geom_imp = [(zero, zero, zero)] * n_art
+    geom_tq = [(zero, zero, zero)] * n_art
     art_entry = lambda gi: k[lay["art"] + gi * ART_STRIDE:lay["art"] + (gi + 1) * ART_STRIDE]
     for gi in range(n_art):
         kg = art_entry(gi)
@@ -958,9 +998,13 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
         if dr:
             e_art = 0.5 * (k[C_E_BALL] + kg[A_E_RAW] * rest_s)
             mu_art = 0.5 * (k[C_MU_BALL] + kg[A_MU_RAW] * fric_s)
-        pos, vel, omg, P = ball_art(art, k, kg, e_art, mu_art, pos, vel, omg)
+        pos, vel, omg, P, *tq = ball_art(art, k, kg, e_art, mu_art, pos, vel, omg,
+                                         with_torque)
         imp = _add(imp, P)
         geom_imp[gi] = (-P[0], -P[1], -P[2])
+        if with_torque:
+            tqb = _add(tqb, tq[0])
+            geom_tq[gi] = tq[1]
 
     # articulation geoms vs the true statics (table slab, net), pairs pruned
     # at build time
@@ -968,10 +1012,15 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
         kp = k[lay["pair"] + pi * PAIR_STRIDE:lay["pair"] + (pi + 1) * PAIR_STRIDE]
         gi, si = int(kp[P_ART]), int(kp[P_STATIC])
         ks = k[lay["static"] + si * STATIC_STRIDE:lay["static"] + (si + 1) * STATIC_STRIDE]
-        geom_imp[gi] = _add(geom_imp[gi], art_static(art, kp, art_entry(gi), ks))
+        P = art_static(art, kp, art_entry(gi), ks, with_torque)
+        if with_torque:
+            P, tq = P
+            geom_tq[gi] = _add(geom_tq[gi], tq)
+        geom_imp[gi] = _add(geom_imp[gi], P)
 
     pos, vel, omg = ball_finish(k, pos, vel, omg)
-    impulses = torch.stack([stack(r) for r in geom_imp] + [stack(imp)], dim=1)
+    rows = geom_imp + [imp] + (geom_tq + [tqb] if with_torque else [])
+    impulses = torch.stack([stack(r) for r in rows], dim=1)
     return FusedStepOutputs(stack(q_new), stack(art.u), stack(tau), stack(pos),
                             stack(vel), stack(omg), impulses)
 
@@ -981,7 +1030,8 @@ def fused_substep_reference(consts, q, qd, targets, efforts, ball_pos,
 # ---------------------------------------------------------------------------
 
 _LAYOUT_KEYS = ("dof", "mask", "static", "art", "pair", "total", "max_static", "max_art",
-                "max_pairs", "n_dr", "ntrue_static_slot", "static_e_raw", "art_e_raw")
+                "max_pairs", "n_dr", "ntrue_static_slot", "static_e_raw", "art_e_raw",
+                "art_body_off", "tq_static")
 
 
 def check_library_layout(lib, nd: int) -> None:
@@ -992,7 +1042,7 @@ def check_library_layout(lib, nd: int) -> None:
     theirs = dict(zip(_LAYOUT_KEYS, out[:len(_LAYOUT_KEYS)]))
     ours = dict(layout(nd), max_static=MAX_STATIC, max_art=MAX_ART, max_pairs=MAX_PAIRS,
                 n_dr=n_dr(nd), ntrue_static_slot=C_NTRUE_STATIC, static_e_raw=G_E_RAW,
-                art_e_raw=A_E_RAW)
+                art_e_raw=A_E_RAW, art_body_off=A_BODY_OFF, tq_static=C_TQ_STATIC)
     if theirs != ours:
         raise RuntimeError(f"constant-pack layout mismatch: C {theirs} vs Python {ours}")
 
@@ -1006,17 +1056,19 @@ def pack_inputs(q, qd, targets, efforts, ball_pos, ball_vel, ball_omega, dr_chan
 
 
 def unpack_outputs(y, nd: int, ng: int) -> FusedStepOutputs:
-    """(n_out, B) SoA buffer -> (B, n) views."""
+    """(n_out, B) SoA buffer -> (B, n) views; the impulse rows, moment rows
+    included, are whatever follows the ball state."""
     yt = y.t()
     o = 3 * nd
     return FusedStepOutputs(yt[:, 0:nd], yt[:, nd:2 * nd], yt[:, 2 * nd:o],
                             yt[:, o:o + 3], yt[:, o + 3:o + 6], yt[:, o + 6:o + 9],
-                            yt[:, o + 9:].reshape(-1, ng + 1, 3))
+                            yt[:, o + 9:].reshape(yt.shape[0], -1, 3))
 
 
 class FusedSubstep:
-    """K2 (or K2-dr, ``with_dr=True``) for one scene: holds the constant pack
-    and counts kernel launches.
+    """K2 (or K2-dr, ``with_dr=True``; with ``with_torque=True`` their
+    torque-lane builds K2-tau and K2-dr-tau) for one scene: holds the
+    constant pack and counts kernel launches.
 
     ``__call__`` takes the Pallas wrapper's (B, n) float32 inputs, plus the
     (B, ``n_dr``) randomization channel for K2-dr. On CPU tensors it runs
@@ -1025,11 +1077,12 @@ class FusedSubstep:
     first use) and adds one to ``launches``; anything else raises.
     """
 
-    def __init__(self, consts: np.ndarray, with_dr: bool = False):
+    def __init__(self, consts: np.ndarray, with_dr: bool = False, with_torque: bool = False):
         self.consts = np.asarray(consts, np.float32)
         self.nd = int(self.consts[C_ND])
         self.ng = int(self.consts[C_NART])
         self.with_dr = bool(with_dr)
+        self.with_torque = bool(with_torque)
         self.launches = 0
         self._dev_consts = {}
         self._lib = None
@@ -1060,7 +1113,7 @@ class FusedSubstep:
             if t.device != q.device:
                 raise ValueError("fused substep: inputs on different devices")
         if q.device.type == "cpu":
-            return fused_substep_reference(self.consts, *ins)
+            return fused_substep_reference(self.consts, *ins, with_torque=self.with_torque)
         if q.device.type != "cuda":
             raise ValueError(f"fused substep: no kernel for device {q.device}")
         return self.launch(pack_inputs(*ins))
@@ -1084,11 +1137,16 @@ class FusedSubstep:
             self._lib = lib
         B = x.shape[1]
         c = self.device_consts(x.device)
-        y = torch.empty((n_out(nd, ng), B), dtype=torch.float32, device=x.device)
+        y = torch.empty((n_out(nd, ng, self.with_torque), B), dtype=torch.float32,
+                        device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        fn = (self._lib.igt_fused_substep_dr_launch if self.with_dr
-              else self._lib.igt_fused_substep_launch)
-        err = fn(c.data_ptr(), x.data_ptr(), y.data_ptr(), B, nd, ng, stream)
+        if self.with_torque:
+            err = self._lib.igt_fused_substep_tau_launch(
+                c.data_ptr(), x.data_ptr(), y.data_ptr(), B, nd, ng, int(self.with_dr), stream)
+        else:
+            fn = (self._lib.igt_fused_substep_dr_launch if self.with_dr
+                  else self._lib.igt_fused_substep_launch)
+            err = fn(c.data_ptr(), x.data_ptr(), y.data_ptr(), B, nd, ng, stream)
         if err != 0:
             raise RuntimeError(f"fused substep launch failed: cudaError {err}")
         self.launches += 1

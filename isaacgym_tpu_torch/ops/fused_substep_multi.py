@@ -3,7 +3,8 @@ two-humanoid C8 scene): wrapper, plain version and the constant pack.
 
 One launch computes the whole substep of every articulation and every ball
 of an env, as ``isaacgym_tpu/ops/pallas_dynamics.py:1477``
-(``build_fused_substep_multi``, ``with_torque=False``) does, in its order:
+(``build_fused_substep_multi``; K3 with ``with_torque=False``, K3-tau with
+``with_torque=True``) does, in its order:
 
   1. per articulation, in list order: PD drive (or the effort input under
      effort drive), FK, mass matrix, RNEA bias, Cholesky, semi-implicit
@@ -36,8 +37,12 @@ checks it.
 Outputs follow the Pallas wrapper: q, qd, tau (B, sum nd); ball pos, vel,
 omega (B, NB, 3); impulses (B, ng + 2 NB, 3) as [one row per articulated
 geom body | each ball's plane and static total | each ball's total reaction
-from articulated geoms]. ``FusedSubstepMulti`` runs the plain version on CPU
-tensors and the kernel on CUDA tensors, counting launches.
+from articulated geoms]; K3-tau appends [each articulated geom body's contact
+moment about its frame origin | each ball's contact moment about its centre]
+-> (B, 2 ng + 3 NB, 3) (``:2144-2171``). The moments of the ball pair are
+-r_i (n x P) on each ball, as the JAX package's ball-pair block takes them.
+``FusedSubstepMulti`` runs the plain version on CPU tensors and the kernel on
+CUDA tensors, counting launches.
 """
 
 from __future__ import annotations
@@ -69,9 +74,9 @@ C_GEOM_LO, C_GEOM_HI, C_PAIR_LO, C_PAIR_HI = 40, 41, 42, 43
 BALL_STRIDE = 48
 STATIC_STRIDE = 24
 G_EB, G_MUB = 20, 21           # + 2 bi: combined with ball bi
-ART_STRIDE = 24
-A_ART = 17
-A_EB, A_MUB = 20, 21           # + 2 bi
+ART_STRIDE = 28
+A_EB, A_MUB = 20, 21           # + 2 bi (K2's entry slots, body origin included, before)
+A_ART = 24
 
 
 def multi_layout(nd: int, K: int) -> dict:
@@ -90,9 +95,10 @@ def n_in(nd_tot: int, nb: int) -> int:
     return 4 * nd_tot + 9 * nb
 
 
-def n_out(nd_tot: int, nb: int, ng: int) -> int:
-    """Output channels: q, qd, tau, ball pos/vel/omega, impulse rows."""
-    return 3 * nd_tot + 9 * nb + 3 * (ng + 2 * nb)
+def n_out(nd_tot: int, nb: int, ng: int, with_torque: bool = False) -> int:
+    """Output channels: q, qd, tau, ball pos/vel/omega, impulse rows, and
+    with the torque lanes the moment rows."""
+    return 3 * nd_tot + 9 * nb + 3 * (ng + 2 * nb) + (3 * (ng + nb) if with_torque else 0)
 
 
 def build_multi_constants(arts: list, balls: list, static_geoms: list, art_geoms: list,
@@ -187,8 +193,9 @@ def build_multi_constants(arts: list, balls: list, static_geoms: list, art_geoms
 # ---------------------------------------------------------------------------
 
 def _ball_pair(k, A, Bb):
-    """Two balls (``kb``, pos, vel, omg, s_imp lists) against each other:
-    the swept sphere-sphere impulse with spin (``:1969-2040``)."""
+    """Two balls (``kb``, pos, vel, omg, s_imp and moment lists, the moment
+    None without the torque lanes) against each other: the swept
+    sphere-sphere impulse with spin (``:1969-2040``)."""
     kA, kB = A[0], Bb[0]
     d = F._sub(A[1], Bb[1])
     dn = F._sqrt_floor(F._dot(d, d), 1e-18)
@@ -225,11 +232,16 @@ def _ball_pair(k, A, Bb):
     Bb[1] = F._sub(Bb[1], F._scale(n, 0.5 * push))
     A[4] = F._add(A[4], P)
     Bb[4] = F._sub(Bb[4], P)
+    if A[5] is not None:
+        nxP = F._cross(n, P)
+        A[5] = F._sub(A[5], F._scale(nxP, kA[F.C_RB]))
+        Bb[5] = F._sub(Bb[5], F._scale(nxP, kB[F.C_RB]))
 
 
 def fused_substep_multi_reference(consts, q, qd, targets, efforts, ball_pos, ball_vel,
-                                  ball_omega) -> FusedStepOutputs:
-    """Plain PyTorch version of K3: q .. efforts (B, sum nd), balls (B, NB, 3).
+                                  ball_omega, with_torque=False) -> FusedStepOutputs:
+    """Plain PyTorch version of K3 (of K3-tau with ``with_torque``): q ..
+    efforts (B, sum nd), balls (B, NB, 3).
 
     ``consts`` is the pack of :func:`build_multi_constants`; every per-env
     value is a (B,) channel and the order of contacts is the kernel's."""
@@ -249,6 +261,7 @@ def fused_substep_multi_reference(consts, q, qd, targets, efforts, ball_pos, bal
         arts.append(art)
     zero = torch.zeros_like(q_news[0])
     geom_imp = [(zero, zero, zero)] * n_art
+    geom_tq = [(zero, zero, zero)] * n_art
     static = lambda si: block(lay["static"] + si * STATIC_STRIDE, STATIC_STRIDE)
     art_entry = lambda gi: block(lay["art"] + gi * ART_STRIDE, ART_STRIDE)
 
@@ -260,37 +273,49 @@ def fused_substep_multi_reference(consts, q, qd, targets, efforts, ball_pos, bal
                                       (kb[F.C_GX], kb[F.C_GY], kb[F.C_GZ]))
         pos, vel, omg, dv = F.ball_plane(kb, pos, vel, omg)
         s_imp = F._scale(dv, kb[F.C_MB])
+        b_tq = F.static_moment(kb, (zero, zero, zero + 1.0), dv) if with_torque else None
         for si in range(n_static):
             kg = static(si)
-            pos, vel, omg, dv = F.ball_static(kb, kg, kg[G_EB + 2 * bi], kg[G_MUB + 2 * bi],
-                                              pos, vel, omg)
+            pos, vel, omg, dv, n = F.ball_static(kb, kg, kg[G_EB + 2 * bi],
+                                                 kg[G_MUB + 2 * bi], pos, vel, omg)
             s_imp = tuple(s_imp[i] + dv[i] / kb[F.C_INV_MB] for i in range(3))
+            if with_torque:
+                b_tq = F._add(b_tq, F.static_moment(kb, n, dv))
         b_art = (zero, zero, zero)
         for art in arts:
             for gi in range(int(art.k[C_GEOM_LO]), int(art.k[C_GEOM_HI])):
                 kg = art_entry(gi)
-                pos, vel, omg, P = F.ball_art(art, kb, kg, kg[A_EB + 2 * bi],
-                                              kg[A_MUB + 2 * bi], pos, vel, omg)
+                pos, vel, omg, P, *tq = F.ball_art(art, kb, kg, kg[A_EB + 2 * bi],
+                                                   kg[A_MUB + 2 * bi], pos, vel, omg,
+                                                   with_torque)
                 geom_imp[gi] = F._sub(geom_imp[gi], P)
                 b_art = F._add(b_art, P)
-        balls.append([kb, pos, vel, omg, s_imp])
+                if with_torque:
+                    b_tq = F._add(b_tq, tq[0])
+                    geom_tq[gi] = F._add(geom_tq[gi], tq[1])
+        balls.append([kb, pos, vel, omg, s_imp, b_tq])
         b_art_rows.append(b_art)
 
     for i in range(NB):
         for j in range(i + 1, NB):
             _ball_pair(k, balls[i], balls[j])
 
-    outs = [F.ball_finish(kb, pos, vel, omg) for kb, pos, vel, omg, _ in balls]
+    outs = [F.ball_finish(kb, pos, vel, omg) for kb, pos, vel, omg, *_ in balls]
 
     for art in arts:
         for pi in range(int(art.k[C_PAIR_LO]), int(art.k[C_PAIR_HI])):
             kp = block(lay["pair"] + pi * F.PAIR_STRIDE, F.PAIR_STRIDE)
             gi = int(kp[F.P_ART])
-            geom_imp[gi] = F._add(geom_imp[gi], F.art_static(art, kp, art_entry(gi),
-                                                             static(int(kp[F.P_STATIC]))))
+            P = F.art_static(art, kp, art_entry(gi), static(int(kp[F.P_STATIC])), with_torque)
+            if with_torque:
+                P, tq = P
+                geom_tq[gi] = F._add(geom_tq[gi], tq)
+            geom_imp[gi] = F._add(geom_imp[gi], P)
 
     ball_arr = lambda j: torch.stack([stack(o[j]) for o in outs], dim=1)
     rows = geom_imp + [b[4] for b in balls] + b_art_rows
+    if with_torque:
+        rows += geom_tq + [b[5] for b in balls]
     return FusedStepOutputs(stack(q_news), stack(u for art in arts for u in art.u),
                             stack(taus), ball_arr(0), ball_arr(1), ball_arr(2),
                             torch.stack([stack(r) for r in rows], dim=1))
@@ -338,11 +363,12 @@ def unpack_outputs(y, nd_tot: int, nb: int, ng: int) -> FusedStepOutputs:
     ball = lambda j: yt[:, o + 3 * nb * j:o + 3 * nb * (j + 1)].reshape(B, nb, 3)
     return FusedStepOutputs(yt[:, 0:nd_tot], yt[:, nd_tot:2 * nd_tot], yt[:, 2 * nd_tot:o],
                             ball(0), ball(1), ball(2),
-                            yt[:, o + 9 * nb:].reshape(B, ng + 2 * nb, 3))
+                            yt[:, o + 9 * nb:].reshape(B, -1, 3))
 
 
 class FusedSubstepMulti:
-    """K3 for one scene: holds the constant pack and counts kernel launches.
+    """K3 (K3-tau with ``with_torque=True``) for one scene: holds the
+    constant pack and counts kernel launches.
 
     ``__call__`` takes the Pallas wrapper's inputs: q, qd, targets, efforts
     (B, sum nd) and ball pos, vel, omega (B, NB, 3), float32. On CPU tensors
@@ -352,8 +378,9 @@ class FusedSubstepMulti:
     raises.
     """
 
-    def __init__(self, consts: np.ndarray):
+    def __init__(self, consts: np.ndarray, with_torque: bool = False):
         self.consts = np.asarray(consts, np.float32)
+        self.with_torque = bool(with_torque)
         self.nd = int(self.consts[F.C_ND])
         self.K = int(self.consts[H_K])
         self.nb = int(self.consts[H_NB])
@@ -384,7 +411,8 @@ class FusedSubstepMulti:
         if any(t.device != q.device for t in ins):
             raise ValueError("fused multi substep: inputs on different devices")
         if q.device.type == "cpu":
-            return fused_substep_multi_reference(self.consts, *ins)
+            return fused_substep_multi_reference(self.consts, *ins,
+                                                 with_torque=self.with_torque)
         if q.device.type != "cuda":
             raise ValueError(f"fused multi substep: no kernel for device {q.device}")
         return self.launch(pack_inputs(*ins))
@@ -409,10 +437,12 @@ class FusedSubstepMulti:
             self._lib = lib
         B = x.shape[1]
         c = self.device_consts(x.device)
-        y = torch.empty((n_out(self.nd_tot, self.nb, self.ng), B), dtype=torch.float32,
-                        device=x.device)
+        y = torch.empty((n_out(self.nd_tot, self.nb, self.ng, self.with_torque), B),
+                        dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = self._lib.igt_fused_substep_multi_launch(
+        fn = (self._lib.igt_fused_substep_multi_tau_launch if self.with_torque
+              else self._lib.igt_fused_substep_multi_launch)
+        err = fn(
             c.data_ptr(), x.data_ptr(), y.data_ptr(), B, self.nd, self.K, self.nb, self.ng,
             stream)
         if err != 0:

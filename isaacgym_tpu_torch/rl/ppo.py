@@ -128,6 +128,20 @@ def gaussian_kl(mu0, log_sig0, mu1, log_sig1):
     return torch.sum(kl, dim=-1).mean()
 
 
+def action_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """The rollout's unit normal action noise for one step, drawn here so a
+    check can hand both packages the same draws (the JAX package's come from
+    ``jax.random.normal``)."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+
+
+def minibatch_permutation(T: int, generator: torch.Generator, device) -> torch.Tensor:
+    """One mini-epoch's order of the batch's ``T`` rows. ``_update`` draws
+    every permutation here, so a check can hand both packages the same ones
+    (the JAX package draws them with ``jax.random.permutation``)."""
+    return torch.randperm(T, generator=generator, device=device)
+
+
 def clip_and_adam(params: List[torch.Tensor], grads: List[torch.Tensor], state: AdamState,
                   lr: torch.Tensor, max_norm: float = None) -> AdamState:
     """One optimizer step in place on ``params``: optax's
@@ -228,7 +242,7 @@ class PPOTrainer:
             mu, log_sig, value_n = self._policy(ts.params, ts.obs_stats, obs)
             value = (N.denormalize(ts.value_stats, value_n)
                      if cfg.normalize_value else value_n)
-            noise = torch.randn(mu.shape, generator=ts.rng, **f32)
+            noise = action_noise(mu.shape, ts.rng, dev)
             action = mu + torch.exp(log_sig) * noise
             traj["obs"][t] = obs
             traj["action"][t] = action
@@ -347,7 +361,7 @@ class PPOTrainer:
         max_norm = cfg.grad_norm if cfg.truncate_grads else None
         aux_means = {}
         for _ in range(cfg.mini_epochs):
-            perm = torch.randperm(T, generator=ts.rng, device=self.device)
+            perm = minibatch_permutation(T, ts.rng, self.device)
             perm = perm[:num_mb * mb].view(num_mb, mb)
             sums: Dict[str, torch.Tensor] = {}
             for i in range(num_mb):

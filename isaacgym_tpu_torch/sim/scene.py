@@ -2,7 +2,9 @@
 
 A copy of ``isaacgym_tpu/sim/scene.py``: the scene is declared once as a list
 of actor specs; ``compile_scene`` produces the static layout tables (actor ->
-root slot, dof slice, body slice, geom tables) that every env shares.
+root slot, dof slice, body slice, geom tables) that every env shares, and
+carries the force sensors registered on the actors' assets
+(``asset_api.create_asset_force_sensor``) as env-level body rows.
 """
 
 from __future__ import annotations
@@ -166,6 +168,9 @@ class CompiledScene:
     actor_names: Tuple[str, ...]
     dof_names: Tuple[str, ...]
     body_names: Tuple[str, ...]
+    #: env-level body row of every registered force sensor, in actor order
+    force_sensor_bodies: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, np.int64))
 
 
 def compile_scene(spec: SceneSpec) -> CompiledScene:
@@ -179,6 +184,7 @@ def compile_scene(spec: SceneSpec) -> CompiledScene:
 
     dof_cursor = 0
     body_cursor = 0
+    sensor_bodies: List[int] = []
     for ai, actor in enumerate(spec.actors):
         tree = actor.tree
         initial_root[ai, 0:3] = actor.pos
@@ -236,6 +242,7 @@ def compile_scene(spec: SceneSpec) -> CompiledScene:
                     size=tree.geom_size[g],
                     restitution=actor.restitution, friction=actor.friction,
                 ))
+        sensor_bodies += [body_cursor + bi for bi, _ in getattr(tree, "_force_sensors", ())]
         dof_names += [f"{actor.name}/{n}" for n in tree.dof_names]
         body_names += [f"{actor.name}/{n}" for n in tree.body_names]
         dof_cursor += nd
@@ -254,4 +261,5 @@ def compile_scene(spec: SceneSpec) -> CompiledScene:
         actor_names=tuple(a.name for a in spec.actors),
         dof_names=tuple(dof_names),
         body_names=tuple(body_names),
+        force_sensor_bodies=np.asarray(sensor_bodies, np.int64),
     )

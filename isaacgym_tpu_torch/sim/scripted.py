@@ -25,9 +25,16 @@ check scene of ``toy_multi_scene`` (the JAX package's own test scene):
                180 deg (toy: ball 1 at articulation 0's)
   ball_rest    C8 only: the ball resting on the table top
   ball_ball    toy only: the two balls about to collide, one spinning
+
+The force-sensor path (K2-tau, K3-tau): ``paddle_sensor_scene`` compiles a
+task's scene with a force sensor on each humanoid's paddle, and
+``strike_state`` makes a ``SimState`` of it from a paddle_ball set: each
+ball in front of a paddle, off its centre, heading in.
 """
 
 from __future__ import annotations
+
+import types
 
 import numpy as np
 import torch
@@ -193,20 +200,25 @@ TOY_BALL_URDF = """
 
 
 class ToyEnv:
-    """The two-arm, two-ball check scene: its compiled scene and simulator."""
+    """The two-arm, two-ball check scene: its compiled scene and simulator
+    (with ``paddle_sensor``, a force sensor on each arm's paddle)."""
 
-    def __init__(self, drive_mode: int, device="cpu"):
+    def __init__(self, drive_mode: int, device="cpu", paddle_sensor: bool = False):
         from isaacgym_tpu_torch.sim.simulator import Simulator
-        self.scene = toy_multi_scene(drive_mode)
+        self.scene = toy_multi_scene(drive_mode, paddle_sensor)
         self.sim = Simulator(self.scene, device=device)
         self.cfg = None
 
 
-def toy_multi_scene(drive_mode: int):
+def toy_multi_scene(drive_mode: int, paddle_sensor: bool = False):
     """Two fixed-base 3-DOF arms facing each other (the second yawed 180
     deg), two balls and the plane, as the JAX package's K3 tests build it
-    (``tests/test_pallas_dynamics.py:_toy_multi_scene``)."""
+    (``tests/test_pallas_dynamics.py:_toy_multi_scene``); with
+    ``paddle_sensor`` a force sensor on the arms' shared paddle body."""
     arm = compile_tree(U.parse_urdf(TOY_ARM_URDF, from_string=True))
+    if paddle_sensor:
+        from isaacgym_tpu_torch.sim.asset_api import create_asset_force_sensor
+        create_asset_force_sensor(arm, arm.body_index("paddle"))
     ball = compile_tree(U.parse_urdf(TOY_BALL_URDF, from_string=True))
     kp = np.full(3, 25.0, np.float32)
     arm_spec = lambda name, pos, quat: ActorSpec(
@@ -310,3 +322,38 @@ def k3_inputs(env, kind: str, B: int, rng: np.random.RandomState, effort_scale: 
     else:
         raise KeyError(f"unknown input kind {kind!r}; known: {C8_KINDS + TOY_KINDS}")
     return tuple(map(f, (q, qd, tgt, eff, bp, bv, bw)))
+
+
+def paddle_sensor_scene(cfg, humanoids: int = 1):
+    """The pingpong scene of task config ``cfg`` with a force sensor on the
+    paddle: registered once on the humanoids' shared asset before the scene
+    is compiled, so every humanoid carries one."""
+    from isaacgym_tpu_torch.sim.asset_api import (create_asset_force_sensor,
+                                                  find_asset_rigid_body_index)
+    from isaacgym_tpu_torch.tasks.pingpong_common import build_pingpong_scene
+    spec = build_pingpong_scene(cfg["env"], cfg["sim"], humanoids=humanoids)
+    tree = spec.actors[0].tree
+    create_asset_force_sensor(tree, find_asset_rigid_body_index(tree, "pingpong_paddle"))
+    return compile_scene(spec)
+
+
+def strike_state(sim, kind: str, B: int, rng: np.random.RandomState, cfg=None):
+    """A batched ``SimState`` of ``sim``'s scene and its PD targets from the
+    scripted set ``kind`` (one humanoid: ``paddle_ball``; two:
+    ``paddle_ball1`` or ``paddle_ball2``; ``reset`` with the task config
+    ``cfg`` for its launch ranges): joints and balls from the set, every
+    other actor at its initial root. Returns ``(state, targets)`` on the
+    simulator's device."""
+    scene, dev = sim.scene, sim.device
+    env = types.SimpleNamespace(scene=scene, cfg=cfg)
+    multi = len(scene.articulations) > 1
+    q, qd, tgt, _, bp, bv, bw = (k3_inputs if multi else k2_inputs)(env, kind, B, rng)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    state = sim.initial_state(B)
+    root = state.root.clone()
+    balls = [b.actor_index for b in scene.free_bodies]
+    shape = (B, len(balls), 3)
+    root[:, balls, 0:3] = t(bp).reshape(shape)
+    root[:, balls, 7:10] = t(bv).reshape(shape)
+    root[:, balls, 10:13] = t(bw).reshape(shape)
+    return state._replace(root=root, dof_pos=t(q), dof_vel=t(qd)), t(tgt)

@@ -13,6 +13,15 @@ ball-quaternion integration and the net-contact-force writeback. Routing as
   The JAX package randomizes such scenes only on its non-kernel path, so
   ``step`` with ``dr`` raises here.
 
+A scene that registers a force sensor (``asset_api.create_asset_force_sensor``
+before it is compiled) is stepped through the kernels' torque-lane builds,
+K2-tau (K2-dr-tau under DR) and K3-tau (``_sensors_want_torque``,
+``:313-321``): their moment rows are written into ``net_contact_torque``, at
+each articulated geom's body its contact moments about the body's frame
+origin and at each ball its moments about its centre (``:653-684``,
+``:710-733``). Sensor-less scenes build the kernels without those lanes and
+leave ``net_contact_torque`` at zero.
+
 State layout (the reference tensor-API contract), batched over B envs:
   root (B, num_actors, 13) = pos(3) + quat(4, xyzw) + linvel(3) + angvel(3),
   dof_pos / dof_vel / dof_force (B, num_dofs), net contact force and torque
@@ -83,8 +92,10 @@ def fused_geom_lists(scene: CompiledScene):
     """The static and articulated geom lists ``_maybe_build_fused``
     (``simulator.py:435-535``) hands the kernels: true statics first, then
     every humanoid's base-welded geoms as statics at its own base pose; art
-    geoms with their offsets folded through the welded body transform and
-    the index of their articulation (``art``).
+    geoms with their offsets folded through the welded body transform, the
+    index of their articulation (``art``) and their body's frame origin in
+    the link frame (``body_off``, the point the torque lanes take moments
+    about).
 
     Returns ``(static_list, n_true_static, art_list, art_bodies)``."""
     static_list = []
@@ -112,7 +123,9 @@ def fused_geom_lists(scene: CompiledScene):
             art_list.append(dict(kind=g.kind, art=g.art_index, link=link,
                                  off_pos=offp, off_quat=offq,
                                  size=g.size, e=g.restitution, mu=g.friction,
-                                 radius_bound=rb))
+                                 radius_bound=rb,
+                                 body_off=np.asarray(tree.body_ref_pos[g.body_index],
+                                                     np.float32)))
             art_bodies.append(slot.body_start + g.body_index)
     return static_list, n_true_static, art_list, np.asarray(art_bodies, np.int64)
 
@@ -152,6 +165,9 @@ class Simulator:
         gravity = np.asarray(spec.gravity, np.float32)
         dt_s = self.dt / self.substeps
         self._art_bodies_t = torch.as_tensor(self.art_bodies, device=self.device)
+        #: the kernels carry the torque lanes only for a scene with sensors
+        self.with_torque = self._sensors_want_torque()
+        self._all_bodies_fn = None   # rigid_body_states, built at first use
         #: K2 and K2-dr (one humanoid, one ball) or K3 (the rest); the
         #: others are None. Each wrapper's ``launches`` counts its launches.
         self.fused_substep = self.fused_substep_dr = self.fused_substep_multi = None
@@ -163,8 +179,9 @@ class Simulator:
                 self.slot.model, init[0:3], init[3:7], self.slot.stiffness,
                 self.slot.damping, gravity, dt_s, fused_ball_cfg(scene), static_list,
                 art_list, **common)
-            self.fused_substep = FusedSubstep(self.constants)
-            self.fused_substep_dr = FusedSubstep(self.constants, with_dr=True)
+            self.fused_substep = FusedSubstep(self.constants, with_torque=self.with_torque)
+            self.fused_substep_dr = FusedSubstep(self.constants, with_dr=True,
+                                                 with_torque=self.with_torque)
         else:
             spec_of = lambda sl: dict(
                 model=sl.model, base_pos=scene.initial_root[sl.actor_index][0:3],
@@ -174,12 +191,19 @@ class Simulator:
                 [spec_of(sl) for sl in arts],
                 [fused_ball_cfg(scene, i) for i in range(len(scene.free_bodies))],
                 static_list, art_list, gravity, dt_s, **common)
-            self.fused_substep_multi = FusedSubstepMulti(self.constants)
+            self.fused_substep_multi = FusedSubstepMulti(self.constants,
+                                                         with_torque=self.with_torque)
             fb = scene.free_bodies
             self._ball_actors_t = torch.as_tensor([b.actor_index for b in fb],
                                                   device=self.device)
             self._ball_bodies_t = torch.as_tensor([b.body_start for b in fb],
                                                   device=self.device)
+
+    def _sensors_want_torque(self) -> bool:
+        """Whether the scene registers a force sensor
+        (``simulator.py:313-321``): only then are the kernels built with
+        their moment rows, so sensor-less scenes do no moment arithmetic."""
+        return self.scene.force_sensor_bodies.size > 0
 
     def initial_state(self, batch: int) -> SimState:
         sc, dev = self.scene, self.device
@@ -244,15 +268,22 @@ class Simulator:
         inv_dt = 1.0 / self.dt
         ncf = state.net_contact_force.clone()
         if ng:
-            ncf[:, self._art_bodies_t] += out.impulses[:, :ng] * inv_dt
+            ncf.index_add_(1, self._art_bodies_t, out.impulses[:, :ng] * inv_dt)
         # row ng is the ball's total contact impulse (plane + statics + art)
         ncf[:, self.ball.body_start] += out.impulses[:, ng] * inv_dt
+        nct = state.net_contact_torque
+        if self.with_torque:
+            # rows ng+1 .. 2ng: each geom body's moments; row 2ng+1: the ball's
+            nct = nct.clone()
+            if ng:
+                nct.index_add_(1, self._art_bodies_t, out.impulses[:, ng + 1:2 * ng + 1] * inv_dt)
+            nct[:, self.ball.body_start] += out.impulses[:, 2 * ng + 1] * inv_dt
         dof_pos, dof_vel, dof_force = (state.dof_pos.clone(), state.dof_vel.clone(),
                                        state.dof_force.clone())
         dof_pos[:, sl] = out.q_new
         dof_vel[:, sl] = out.qd_new
         dof_force[:, sl] = out.tau
-        return SimState(root, dof_pos, dof_vel, dof_force, ncf, state.net_contact_torque)
+        return SimState(root, dof_pos, dof_vel, dof_force, ncf, nct)
 
     def _substep_fused_multi(self, state: SimState, targets, efforts, dt_s) -> SimState:
         """One K3 launch (``simulator.py:643-684``): every DOF, every ball."""
@@ -275,7 +306,21 @@ class Simulator:
         # per ball: its plane and static row plus its art-reaction row
         ball_imp = out.impulses[:, ng:ng + nb] + out.impulses[:, ng + nb:ng + 2 * nb]
         ncf.index_add_(1, self._ball_bodies_t, ball_imp * inv_dt)
-        return SimState(root, out.q_new, out.qd_new, out.tau, ncf, state.net_contact_torque)
+        nct = state.net_contact_torque
+        if self.with_torque:
+            # after K3's rows: each geom body's moments, then each ball's
+            nct = nct.clone()
+            o = ng + 2 * nb
+            if ng:
+                nct.index_add_(1, self._art_bodies_t, out.impulses[:, o:o + ng] * inv_dt)
+            nct.index_add_(1, self._ball_bodies_t, out.impulses[:, o + ng:] * inv_dt)
+        return SimState(root, out.q_new, out.qd_new, out.tau, ncf, nct)
+
+    def rigid_body_states(self, state: SimState) -> torch.Tensor:
+        """(B, num_bodies, 13) states of every body (``simulator.py:1589``)."""
+        if self._all_bodies_fn is None:
+            self._all_bodies_fn = self.make_body_state_fn(np.arange(self.scene.num_bodies))
+        return self._all_bodies_fn(state)
 
     def make_body_state_fn(self, body_ids):
         """``state -> (B, len(body_ids), 13)`` for env-level body indices

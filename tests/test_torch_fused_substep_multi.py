@@ -225,7 +225,7 @@ def test_c8_geom_lists_and_pack_equal_the_jax_build_arguments(jax_c8_build):
     assert n_true == kw["n_true_static"] == 2
     assert len(static) == len(j_static) == 16 and len(art) == len(j_art) == 4
     for mine, theirs in zip(static + art, j_static + j_art):
-        assert set(mine) == set(theirs) - {"body_off"}
+        assert set(mine) == set(theirs)
         for k in mine:
             np.testing.assert_array_equal(np.asarray(mine[k]), np.asarray(theirs[k]), err_msg=k)
     np.testing.assert_array_equal(art_bodies, je.sim._fused_art_bodies)

@@ -2,8 +2,9 @@
 
 A subprocess with those modules made unimportable imports every module of
 ``isaacgym_tpu_torch`` and the top of ``chip_smoke.py`` and drives the env,
-the two-humanoid C8 env (K3), the DR env and one PPO epoch with a checkpoint
-on the CPU; an AST scan of
+the two-humanoid C8 env (K3), the flagship and C8 scenes with paddle force
+sensors (K2-tau, K3-tau) read through the tensor API, the DR env and one PPO
+epoch with a checkpoint on the CPU; an AST scan of
 every file finds no such import. The entry points default to the card and
 raise without one.
 """
@@ -66,6 +67,13 @@ state8, obs8 = env8.reset()
 state8, obs8, rew8, done8, info8 = env8.step(state8, torch.zeros(2, 14))
 assert obs8.shape == (2, 94) and bool(torch.isfinite(obs8).all())
 assert env8.sim.fused_substep is None and env8.sim.fused_substep_multi is not None
+from isaacgym_tpu_torch.sim import scripted, tensor_api
+from isaacgym_tpu_torch.sim.simulator import Simulator
+from isaacgym_tpu_torch.utils.config import load_task_config
+for task, humanoids in (("HumanoidPingpongTiltNoEarlyStopG1", 1), ("Humanoid12PingpongTiltG1", 2)):
+    sim = Simulator(scripted.paddle_sensor_scene(load_task_config(task), humanoids), device="cpu")
+    s = sim.step(sim.initial_state(2), torch.zeros(2, 7 * humanoids), torch.zeros(2, 7 * humanoids))
+    assert sim.with_torque and tensor_api.acquire_force_sensor_tensor(sim, s).shape == (2, humanoids, 6)
 import os, tempfile
 from isaacgym_tpu_torch.rl import checkpoint
 from isaacgym_tpu_torch.rl.ppo import PPOConfig, PPOTrainer

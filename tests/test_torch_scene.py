@@ -104,7 +104,7 @@ def test_fused_geom_lists_equal_the_pallas_build_arguments(envs):
     assert all(g["art"] == 0 for g in art)
     for mine, theirs in zip(static + [{k: v for k, v in g.items() if k != "art"} for g in art],
                             j_static + j_art):
-        assert set(mine) == set(theirs) - {"body_off"}
+        assert set(mine) == set(theirs)
         for k in mine:
             np.testing.assert_array_equal(np.asarray(mine[k]), np.asarray(theirs[k]), err_msg=k)
     np.testing.assert_array_equal(art_bodies, je.sim._fused_art_bodies)
@@ -115,7 +115,7 @@ def test_constant_pack_equals_one_built_from_the_jax_arguments(envs):
     _, pe, cap = envs
     args, kw = cap["args"], cap["kwargs"]
     assert kw["exact_support"] is True and kw["with_torque"] is False
-    j_art = [{k: v for k, v in g.items() if k != "body_off"} for g in args[9]]
+    j_art = args[9]   # with each geom's body origin, which the pack carries
     pack = F.build_constants(
         args[0], args[1], args[2], args[3], args[4], args[5], args[6], args[7],
         args[8], j_art, bounce_threshold=kw["bounce_threshold"],
