@@ -8,7 +8,7 @@ Each phase prints one JSON line with its seconds:
   build   one nvcc per csrc/*.cu, started together, into build/kernels/
           (and g++ the host loop that counts the kernels' operations), wall
           seconds, and ptxas's registers, stack and spills of K2, K2-dr,
-          K2-tau, K2-dr-tau, K3 and K3-tau;
+          K2-tau, K2-dr-tau, K3, K3-tau and K4;
   k2/*    the fused-substep kernel against its plain PyTorch version on the
           card, B = 4096, one substep from each state set (reset, rollout
           after 60 steps, paddle_ball, paddle_table, ball_rest), the plain
@@ -37,13 +37,28 @@ Each phase prints one JSON line with its seconds:
           for paddle_table), on K2's five sets under the same comparison and
           gates, the moment rows compared on their own (geom moments to
           1e-5, the ball's to 1e-7: TOL); k2drtau/* K2-dr-tau (DR and torque
-          lanes) on two of them; k2tau_timing its time and bound;
+          lanes) on two of them; k2tau_timing and k2drtau_timing their
+          times and bounds;
   k3tau/*  K3-tau on C8 with a sensor on each paddle (C8's five sets) and on
           the two-arm, two-ball scene with paddle sensors (ball_ball, whose
           ball-pair moments the JAX package's tests never reach, and
           effort); k3tau_timing its time and bound;
   tau_gates  each tau kernel's output with its geom or its ball moment rows
           zeroed, or negated, must fail the moment gates on some set;
+  k4/*    K4, the floating-base kernel, against its plain version on C10
+          at its 2048 envs under the same comparison, the base's pose and
+          velocities gated as q and qd are, flip rate at most 0.2 % as K2's:
+          stand (the neutral pose, the feet's resting contacts), random (60
+          env steps under random actions), strike (a paddle-ball strike),
+          fall (a falling humanoid hitting the ground), table (standing on
+          the raised table, art-vs-static);
+  k4_gates  K4's output with the base's linear velocity negated, and K4
+          run on the scene lifted 2 m above its ground (the ground contacts
+          dropped, everything else the same), must each fail the gates on
+          some set;
+  k4_timing  K4 per launch on the random-action states, its plain version,
+          its bound, ptxas's registers, stack and spills, and its blocks per
+          SM;
   main    make(seed=0, flagship, 4096 envs), reset, 5 warm-up steps, then
           3 windows of 100 steps under uniform actions in [-1, 1] from a
           seeded generator: launches must be exactly 2 per step, every
@@ -68,6 +83,11 @@ Each phase prints one JSON line with its seconds:
           strike step's sensor force and moment lanes against the same step
           through the plain version in float32 and float64 (SENSOR_TOL
           beyond the float32 run's rounding);
+  c10_main  make(seed=0, C10, 2048 envs), 3 windows of 100 steps under
+          random actions: K4 exactly 2 launches per step, every state
+          finite; env-steps/s and ms per step;
+  c10_profile  torch.profiler over 10 C10 steps: device kernels per step,
+          K4's share and the device busy share;
   train   PPOTrainer at the flagship's full width (4096 envs, horizon 32,
           minibatch 4096 x 5 mini-epochs, separate [2048,1536,1024,1024,512,512]
           bf16 trunks) with task.randomize=true, global step 3000 and
@@ -85,7 +105,9 @@ Each phase prints one JSON line with its seconds:
           episode of 4096 envs;
   c8_train  2 epochs on C8's own train config at 4096 envs: K3 exactly
           2 x 32 launches per epoch, every metric finite, a lower loss on
-          the first 4096 rows after the update than before it.
+          the first 4096 rows after the update than before it;
+  c10_train  the same for C10 on its own train config at 2048 envs, K4
+          exactly 2 x 32 launches per epoch.
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; with
 no CUDA device, or run outside the repository, it exits non-zero at once.
@@ -104,17 +126,21 @@ import types
 TASK = "HumanoidPingpongTiltNoEarlyStopG1"
 C6 = "HumanoidPingpongTiltG1"
 C8 = "Humanoid12PingpongTiltG1"
+C10 = "HumanoidPingpongTiltNESSparse27DOFG1"
 B = 4096
+B10 = 2048                     # C10's numEnvs (its config, and the reference's)
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_OPS_PER_S = 67e12    # H100 SXM FP32, non-tensor
 PEAK_BF16_OPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
-OUTPUTS = ("q_new", "ball_pos", "ball_vel", "qd_new", "tau", "impulses", "ball_omega")
 # impulses: the force rows; a torque build's moment rows are gated on their
 # own, by their size (tests/test_torch_force_torque.py's header): a ball's
 # moment about its centre is 0.02 m times a friction impulse (up to ~1e-4),
 # a geom body's up to ~6e-3 in a strike and ~0.4 at the raised table
+# K4's base pose and velocities are gated as q and qd are (the CPU tests'
+# tolerances, tests/test_torch_fused_substep_floating.py)
 TOL = dict(q_new=1e-4, ball_pos=1e-4, ball_vel=1e-4, qd_new=1e-3, tau=1e-3,
-           impulses=1e-3, ball_omega=1e-3, geom_moments=1e-5, ball_moments=1e-7)
+           impulses=1e-3, ball_omega=1e-3, geom_moments=1e-5, ball_moments=1e-7,
+           base_pos=1e-4, base_quat=1e-4, base_linvel=1e-3, base_angvel=1e-3)
 # the sensor path's step against the same step through the plain version:
 # force lanes in N, moment lanes in N m (the CPU test's port step against the
 # JAX package's step holds them so)
@@ -139,7 +165,7 @@ def split_rows(out, moments=None):
     (``moments`` = (ng, nb): ng geom moment rows, then nb ball moment rows,
     after the force rows) split into ``impulses`` (the force rows),
     ``geom_moments`` and ``ball_moments``."""
-    v = {f: getattr(out, f) for f in OUTPUTS}
+    v = {f: getattr(out, f) for f in out._fields}
     if moments:
         ng, nb = moments
         imp = out.impulses
@@ -274,10 +300,12 @@ def cuda_ms(fn, inner, repeats):
     return statistics.median(times)
 
 
-def time_kernel(phase, launch, wrapped, plain, ops, n_bytes, plain_repeats=10):
+def time_kernel(phase, launch, wrapped, plain, ops, n_bytes, plain_repeats=10, b=B,
+                fields=None):
     """A kernel's time per launch on a packed buffer and through its wrapper,
     its plain version's time and the bound: the larger of the bytes over the
-    memory rate and the counted FP32 operations over the FP32 peak."""
+    memory rate and the counted FP32 operations over the FP32 peak, at ``b``
+    envs."""
     t0 = time.perf_counter()
     k_ms = cuda_ms(launch, 20, 15)
     wrap_ms = cuda_ms(wrapped, 20, 15)
@@ -287,9 +315,9 @@ def time_kernel(phase, launch, wrapped, plain, ops, n_bytes, plain_repeats=10):
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_FP32_OPS_PER_S * 1e3
     out = {"kernel_ms": k_ms, "wrapper_ms": wrap_ms, "plain_ms": plain_ms, "bytes": n_bytes,
-           "fp32_ops": ops, "ops_per_env": ops / B, "bytes_bound_ms": bytes_ms,
+           "fp32_ops": ops, "ops_per_env": ops / b, "bytes_bound_ms": bytes_ms,
            "ops_bound_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", **(fields or {})}
     emit({"phase": phase, **out, "seconds": time.perf_counter() - t0})
     return out
 
@@ -422,6 +450,19 @@ def tau_checks(dev, host, k2_sets, rz):
         4 * B * (F.n_in(k.nd) + F.n_out(k.nd, k.ng, True)) + 4 * k.consts.size)
     k2.update(ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
               bound_by=t["bound_by"])
+    # K2-dr-tau on the same states with a full-strength DR channel
+    kd = sims[False].fused_substep_dr
+    chan = sims[False].dr_channel(rz.sample(gen, 3000, B))
+    xd = F.pack_inputs(*ins, chan)
+    xdc = xd.cpu()
+    t = time_kernel(
+        "k2drtau_timing", lambda: kd.launch(xd), lambda: kd(*ins, chan),
+        lambda: F.fused_substep_reference(consts, *ins, dr_chan=chan, with_torque=True),
+        host.igt_fused_substep_tau_count_ops(cc.data_ptr(), xdc.data_ptr(), yc.data_ptr(), B,
+                                             kd.nd, 1),
+        4 * B * (kd.n_in() + F.n_out(kd.nd, kd.ng, True)) + 4 * kd.consts.size)
+    k2dr.update(ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"])
 
     # K3-tau
     c8cfg = load_task_config(C8)
@@ -479,7 +520,7 @@ def tau_checks(dev, host, k2_sets, rz):
         + 4 * k.consts.size, plain_repeats=5)
     k3.update(ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
               bound_by=t["bound_by"])
-    return k2, k3
+    return k2, k2dr, k3
 
 
 def sensor_vs_plain(sim, state, tgt, eff):
@@ -529,7 +570,9 @@ def sensor_path(dev, steps=100, relaunch_every=10):
     force above 0.1 N) reads a non-zero moment, and after the run the first
     strike step's sensor lanes against the same step through the plain
     version (``sensor_vs_plain``). Returns the kernels' launch counts of
-    this run and the phase's numbers."""
+    this run (``flagship_dr``: K2-dr-tau's, the DR build of the flagship
+    sensor scene, which this path, with DR off, leaves at 0) and the
+    phase's numbers."""
     import numpy as np
     import torch
     from isaacgym_tpu_torch.sim import scripted
@@ -574,6 +617,8 @@ def sensor_path(dev, steps=100, relaunch_every=10):
             moments += int((hit & (w[..., 3:].norm(dim=-1) > 0)).sum())
         finite = all(bool(torch.isfinite(t).all()) for t in state)
         launches[label] = k.launches
+        if sim.fused_substep_dr is not None:   # K2-dr-tau: DR is off on this path
+            launches[f"{label}_dr"] = sim.fused_substep_dr.launches
         out[label] = {"num_envs": B, "steps": steps, "sensors": int(rows.numel()),
                       "launches": k.launches, "env_steps_per_s": B * steps / step_s,
                       "us_per_acquire_force_sensor_tensor": read_s / steps * 1e6,
@@ -584,6 +629,136 @@ def sensor_path(dev, steps=100, relaunch_every=10):
         out[label]["seconds"] = time.perf_counter() - t0
         emit({"phase": f"sensors/{label}", **out[label]})
     return launches, out
+
+
+def ptxas_usage(lib_name):
+    """Registers, stack frame and spill bytes of a library's kernels from
+    its ``ptxas -v`` output (the build of this run)."""
+    import re
+    from isaacgym_tpu_torch.ops import _build
+    log = _build.build_logs.get(lib_name, "")
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+    stack = [int(m) for m in re.findall(r"(\d+) bytes stack frame", log)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    return {"registers": max(regs, default=None), "stack_bytes": max(stack, default=None),
+            "spill_bytes": max(spills, default=None)}
+
+
+def k4_checks(dev, host):
+    """K4 against its plain version (float32 and float64) on C10 at 2048 envs,
+    five sets: stand (the neutral pose, resting foot contacts), random (60
+    env steps under random actions), strike (a paddle-ball strike), fall (a
+    falling humanoid hitting the ground) and table (standing on the raised
+    table, art-vs-static); then that the gates reject K4's output with the
+    base's linear velocity negated, and K4's output on the scene lifted above
+    its ground (k4_gates); then its timing, bound and ptxas usage (k4_timing). Returns
+    the kernels-line numbers; raises on any failed gate."""
+    import numpy as np
+    import torch
+    import isaacgym_tpu_torch
+    from isaacgym_tpu_torch.ops import fused_substep_floating as FF
+    from isaacgym_tpu_torch.sim import scripted
+    from isaacgym_tpu_torch.utils.config import load_task_config
+
+    env = isaacgym_tpu_torch.make(seed=0, task=C10, num_envs=B10)
+    env_raised = isaacgym_tpu_torch.make(
+        seed=0, task=C10, num_envs=B10, cfg=scripted.raised_table_cfg(load_task_config(C10)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    lift = 2.0
+
+    def lifted(k):
+        """K4 on a copy of the scene's pack whose statics stand ``lift`` m
+        higher (its own wrapper and count)."""
+        consts = k.consts.copy()
+        lay = FF.layout(k.nd)
+        for si in range(int(consts[FF.C_NSTATIC])):
+            consts[lay["static"] + si * FF.STATIC_STRIDE + FF.G_POS + 2] += lift
+        return FF.FusedSubstepFloating(consts)
+
+    def no_ground(k_lifted, ins):
+        """The wrong form the gates must reject: K4 with its ground contacts
+        dropped. The scene, humanoid and ball included, is run ``lift`` m
+        above its ground and brought back down; gravity is uniform, so only
+        the ground contacts (feet and ball) differ from the real step."""
+        ins = list(ins)
+        for i in (4, 8):   # base pos, ball pos
+            ins[i] = ins[i] + torch.tensor([0.0, 0.0, lift], device=dev)
+        out = k_lifted(*ins)
+        down = torch.tensor([0.0, 0.0, lift], device=dev)
+        return out._replace(base_pos=out.base_pos - down, ball_pos=out.ball_pos - down)
+
+    def random_inputs():
+        state, _ = env.reset()
+        for _ in range(60):
+            state, *_ = env.step(state, torch.rand((B10, 27), generator=gen, device=dev) * 2 - 1)
+        tgt, eff = env.action_to_drive(torch.rand((B10, 27), generator=gen, device=dev) * 2 - 1)
+        s = state.sim
+        return tuple(t.contiguous() for t in (
+            s.dof_pos, s.dof_vel, tgt, eff, s.root[:, 0, 0:3], s.root[:, 0, 3:7],
+            s.root[:, 0, 7:10], s.root[:, 0, 10:13], s.root[:, 2, 0:3], s.root[:, 2, 7:10],
+            s.root[:, 2, 10:13]))
+
+    acc, sets = {"max_err": {}, "excess": {}}, {}
+    wrong = {"base_linvel negated": [], "ground contacts dropped": []}
+    bad_forms = {}
+    for i, name in enumerate(("stand", "random", "strike", "fall", "table")):
+        t0 = time.perf_counter()
+        e = env_raised if name == "table" else env
+        if name == "random":
+            ins = random_inputs()
+        else:
+            ins = tuple(torch.as_tensor(a, device=dev) for a in
+                        scripted.k4_inputs(e, name, B10, np.random.RandomState(400 + i)))
+        k = e.sim.fused_substep_floating
+        consts = k.device_consts(dev)
+        got = k(*ins)
+        want = FF.floating_substep_plain(consts, *ins)
+        want64 = FF.floating_substep_plain(consts, *[t.double() for t in ins])
+        torch.cuda.synchronize()
+        res = compare(got, want, want64)
+        emit({"phase": f"k4/{name}", **res,
+              "contact_rows_active": (got.impulses.abs().sum(-1) > 0).float().mean(0).tolist(),
+              "seconds": time.perf_counter() - t0})
+        gate(f"k4/{name}", res)
+        fold(acc, res)
+        sets[name] = (e, ins)
+        if e not in bad_forms:
+            bad_forms[e] = lifted(k)
+        for form, out in (("base_linvel negated", got._replace(base_linvel=-got.base_linvel)),
+                          ("ground contacts dropped", no_ground(bad_forms[e], ins))):
+            r = compare(out, want, want64)
+            if (any(not v <= TOL[f] for f, v in r["excess"].items())
+                    or r["flip_rate"] > MAX_FLIP_RATE):
+                wrong[form].append(name)
+    emit({"phase": "k4_gates", "rejected_on_sets": wrong})
+    if not all(wrong.values()):
+        raise SystemExit(f"k4_gates: the gates let a wrong K4 output pass on every set: {wrong}")
+
+    # timing at the main path's shape, on the random-action states
+    e, ins = sets["random"]
+    k = e.sim.fused_substep_floating
+    x = FF.pack_inputs(*ins)
+    consts = k.device_consts(dev)
+    xc, cc = x.cpu(), torch.as_tensor(k.consts)
+    yc = torch.empty((FF.n_out(k.nd, k.ng), B10))
+    usage = ptxas_usage("libigt_fused_substep_floating.so")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = (B10 + 31) // 32
+    t = time_kernel(
+        "k4_timing", lambda: k.launch(x), lambda: k(*ins),
+        lambda: FF.floating_substep_plain(consts, *ins),
+        host.igt_fused_substep_floating_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(),
+                                                  B10, k.nd),
+        4 * B10 * (FF.n_in(k.nd) + FF.n_out(k.nd, k.ng)) + 4 * k.consts.size,
+        plain_repeats=3, b=B10,
+        fields={"num_envs": B10, **usage, "blocks_of_32": blocks, "sms": sms,
+                "sms_with_a_warp": min(blocks, sms),
+                "warps_per_busy_sm": blocks / min(blocks, sms)})
+    return dict(acc, ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], **usage)
 
 
 def main():
@@ -603,6 +778,7 @@ def main():
     from isaacgym_tpu_torch.env.randomize import DomainRandomizer
     from isaacgym_tpu_torch.ops import _build
     from isaacgym_tpu_torch.ops import fused_substep as F
+    from isaacgym_tpu_torch.ops import fused_substep_floating as FL
     from isaacgym_tpu_torch.ops import fused_substep_multi as M
     from isaacgym_tpu_torch.sim import scripted
     from isaacgym_tpu_torch.utils.config import load_task_config
@@ -627,6 +803,8 @@ def main():
     for lib in (libs["fused_substep_multi"], host):
         for nd in (7, 3):
             M.check_library_layout(lib, nd, 2)
+    for lib in (libs["fused_substep_floating"], host):
+        FL.check_library_layout(lib, 27)
     ptxas = [ln.strip() for log in _build.build_logs.values() for ln in log.splitlines()
              if "registers" in ln or "bytes stack frame" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -715,7 +893,10 @@ def main():
     k3 = k3_checks(dev, host)
 
     # ---- 2d: K2-tau, K2-dr-tau and K3-tau against their plain versions, timings
-    k2tau, k3tau = tau_checks(dev, host, sets, rz)
+    k2tau, k2drtau, k3tau = tau_checks(dev, host, sets, rz)
+
+    # ---- 2e: K4 against its plain version on C10, the gates' bite, its timing
+    k4 = k4_checks(dev, host)
 
     # ---- 3: the main path
     t0 = time.perf_counter()
@@ -865,14 +1046,68 @@ def main():
     # ---- 4d: the force-sensor path through K2-tau and K3-tau
     tau_launches, _ = sensor_path(dev)
 
+    # ---- 4e: the C10 env step through K4, at its 2048 envs
+    t0 = time.perf_counter()
+    env10 = isaacgym_tpu_torch.make(seed=0, task=C10, num_envs=B10)
+    k4k = env10.sim.fused_substep_floating
+    gen.manual_seed(0)
+    act10 = lambda: torch.rand((B10, 27), generator=gen, device=dev) * 2 - 1
+    state, obs = env10.reset()
+    for _ in range(5):
+        state, obs, rew, done, info = env10.step(state, act10())
+    torch.cuda.synchronize()
+    k4k.launches = 0
+    windows, steps = [], 0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        for _ in range(100):
+            state, obs, rew, done, info = env10.step(state, act10())
+            steps += 1
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - tw)
+    c10_launches = k4k.launches
+    finite = all(bool(torch.isfinite(t).all()) for t in state.sim) and bool(
+        torch.isfinite(obs).all() and torch.isfinite(rew).all())
+    rates = [B10 * 100 / w for w in windows]
+    emit({"phase": "c10_main", "num_envs": B10, "steps": steps, "k4_launches": c10_launches,
+          "env_steps_per_s": rates, "env_steps_per_s_median": statistics.median(rates),
+          "ms_per_step": [w * 10 for w in windows], "finite": finite,
+          "obs_shape": list(obs.shape),
+          "fallen_share": float(state.flags["humanoid_die_calculated"].float().mean()),
+          "pelvis_z_mean": float(state.sim.root[:, 0, 2].mean()),
+          "seconds": time.perf_counter() - t0})
+    if c10_launches != 2 * steps or not finite or tuple(obs.shape) != (B10, 313):
+        raise SystemExit(f"c10_main: K4 launched {c10_launches} times in {steps} steps, "
+                         f"finite={finite}")
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tw = time.perf_counter()
+        for _ in range(10):
+            state, *_ = env10.step(state, act10())
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - tw) * 1e6
+    kernels = [(name, n, t) for name, (n, t) in device_kernels(prof).items()]
+    busy_us = sum(t for _, _, t in kernels)
+    k4_us = sum(t for n, _, t in kernels if "fused_substep_floating" in n)
+    top = sorted(kernels, key=lambda r: -r[2])[:6]
+    emit({"phase": "c10_profile", "steps": 10, "wall_ms_per_step": wall_us / 1e4,
+          "device_busy_ms_per_step": busy_us / 1e4, "device_busy_share": busy_us / wall_us,
+          "device_kernels_per_step": sum(c for _, c, _ in kernels) / 10,
+          "k4_ms_per_step": k4_us / 1e4, "k4_share_of_busy": k4_us / busy_us,
+          "top_kernels": [{"name": n[:70], "launches": c, "ms": t / 1e3} for n, c, t in top],
+          "seconds": time.perf_counter() - t0})
+    del env10, state, obs
+
     # ---- 5: training at full width with DR, through K2-dr
     from isaacgym_tpu_torch.rl import checkpoint
     from isaacgym_tpu_torch.rl.player import play
     from isaacgym_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
     from isaacgym_tpu_torch.utils.config import compose
 
-    def trainer_for(overrides, task=TASK):
-        cfg = compose(task, [f"num_envs={B}"] + overrides)
+    def trainer_for(overrides, task=TASK, b=B):
+        cfg = compose(task, [f"num_envs={b}"] + overrides)
         env = isaacgym_tpu_torch.make(seed=0, task=task, cfg=cfg["task"])
         return env, PPOTrainer(env, PPOConfig.from_train_cfg(cfg["train"]), seed=0)
 
@@ -1058,6 +1293,50 @@ def main():
           "seconds": time.perf_counter() - t0})
     del env_c8, trainer_c8, ts8, state8, obs8
 
+    # ---- 7c: C10 training through K4, at its 2048 envs
+    t0 = time.perf_counter()
+    env_c10, trainer_c10 = trainer_for([], task=C10, b=B10)
+    ts10 = trainer_c10.init_state()
+    state10, obs10 = env_c10.reset()
+    k4t = env_c10.sim.fused_substep_floating
+    real_update10 = trainer_c10._update
+    c10_losses = []
+
+    def update_checked10(ts_, batch, obs_stats):
+        mb0 = {k_: v[:trainer_c10.cfg.minibatch_size] for k_, v in batch.items()}
+        with torch.no_grad():
+            before = float(trainer_c10.loss(ts_.params, obs_stats, mb0)[0])
+        out = real_update10(ts_, batch, obs_stats)
+        with torch.no_grad():
+            after = float(trainer_c10.loss(out[0], obs_stats, mb0)[0])
+        c10_losses.append((before, after))
+        return out
+
+    trainer_c10._update = update_checked10
+    c10_epochs = []
+    for it in range(2):
+        torch.cuda.synchronize()
+        k4t.launches = 0
+        te = time.perf_counter()
+        ts10, state10, obs10, metrics10 = trainer_c10.train_epoch(ts10, state10, obs10)
+        m = {k_: float(v) for k_, v in metrics10.items()}
+        row = {"epoch": it, "epoch_s": time.perf_counter() - te, "k4_launches": k4t.launches,
+               "loss_first_mb_before_after": c10_losses[-1],
+               **{k_: m[k_] for k_ in ("reward_mean", "a_loss", "c_loss", "kl", "last_lr")}}
+        emit({"phase": "c10_train/epoch", **row})
+        if (k4t.launches != 2 * trainer_c10.cfg.horizon_length
+                or not all(math.isfinite(v) for v in m.values())
+                or not c10_losses[-1][1] < c10_losses[-1][0]):
+            raise SystemExit(f"c10_train: epoch {it}: {row} {m}")
+        c10_epochs.append(row)
+    c10_train_launches = sum(r["k4_launches"] for r in c10_epochs)
+    emit({"phase": "c10_train", "epochs": 2, "num_envs": B10, "k4_launches": c10_train_launches,
+          "epoch_s": [r["epoch_s"] for r in c10_epochs],
+          "env_steps_per_s": [B10 * trainer_c10.cfg.horizon_length / r["epoch_s"]
+                              for r in c10_epochs],
+          "seconds": time.perf_counter() - t0})
+    del env_c10, trainer_c10, ts10, state10, obs10
+
     # ---- 8: the kernels line, the card, the verdict
     emit({"kernels": [{
         "name": "fused_substep", "route": "cuda",
@@ -1093,12 +1372,26 @@ def main():
         "launches_by_path": {"sensors": tau_launches["flagship"]},
         **k2tau, "library_ms": None, "us": k2tau["ms"] * 1e3,
         "plain_us": k2tau["plain_ms"] * 1e3, "bound_us": k2tau["bound_ms"] * 1e3}, {
+        "name": "fused_substep_dr_tau", "route": "cuda",
+        "source": "isaacgym_tpu_torch/csrc/fused_substep.cu",
+        "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:754 (with_dr=True, with_torque=True)",
+        "launches": tau_launches["flagship_dr"],
+        "launches_by_path": {"sensors": tau_launches["flagship_dr"]},
+        **k2drtau, "library_ms": None, "us": k2drtau["ms"] * 1e3,
+        "plain_us": k2drtau["plain_ms"] * 1e3, "bound_us": k2drtau["bound_ms"] * 1e3}, {
         "name": "fused_substep_multi_tau", "route": "cuda",
         "source": "isaacgym_tpu_torch/csrc/fused_substep_multi.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:1477 (with_torque=True)",
         "launches": tau_launches["c8"], "launches_by_path": {"sensors": tau_launches["c8"]},
         **k3tau, "library_ms": None, "us": k3tau["ms"] * 1e3,
-        "plain_us": k3tau["plain_ms"] * 1e3, "bound_us": k3tau["bound_ms"] * 1e3}]})
+        "plain_us": k3tau["plain_ms"] * 1e3, "bound_us": k3tau["bound_ms"] * 1e3}, {
+        "name": "fused_substep_floating", "route": "cuda",
+        "source": "isaacgym_tpu_torch/csrc/fused_substep_floating.cu",
+        "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:2225",
+        "launches": c10_launches, "launches_by_path": {
+            "c10_main": c10_launches, "c10_train": c10_train_launches},
+        **k4, "library_ms": None, "us": k4["ms"] * 1e3, "plain_us": k4["plain_ms"] * 1e3,
+        "bound_us": k4["bound_ms"] * 1e3}]})
     print(f"total seconds {time.perf_counter() - t_all:.1f}", file=sys.stderr)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,5 +1,6 @@
 // Host loops over the kernels' per-env bodies (fused_substep.cuh for K2,
-// K2-dr and K2-tau, fused_substep_multi.cuh for K3 and K3-tau), for the CPU
+// K2-dr and K2-tau, fused_substep_multi.cuh for K3 and K3-tau,
+// fused_substep_floating.cuh for K4), for the CPU
 // tests and for counting the operations the kernels do on given inputs.
 // Never on the main path.
 //
@@ -37,6 +38,7 @@ inline float to_f(CountF a) { return a.v; }
 }  // namespace igt
 
 #include "fused_substep_multi.cuh"
+#include "fused_substep_floating.cuh"
 
 namespace {
 
@@ -74,6 +76,23 @@ long long run_multi(const float* consts, const float* x, float* y, int B, int nd
   } else if (nd == 3 && k == 2 && nb == 2) {
     for (int b = 0; b < B; ++b)
       igt::fused_substep_multi_env<T, 3, 2, 2, WITH_TORQUE>(consts, x, y, b, B);
+  } else {
+    return -1;
+  }
+  return igt::g_ops;
+}
+
+// K4 over every env, in float or with the counting float: ND 27 (C10) and 4
+// (the CPU tests' toy biped). Returns 0 (or the operation count), or -1 on
+// another DOF count.
+template <class T>
+long long run_floating(const float* consts, const float* x, float* y, int B, int nd) {
+  if (B < 1) return -1;
+  igt::g_ops = 0;
+  if (nd == 27) {
+    for (int b = 0; b < B; ++b) igt::fused_substep_floating_env<T, 27>(consts, x, y, b, B);
+  } else if (nd == 4) {
+    for (int b = 0; b < B; ++b) igt::fused_substep_floating_env<T, 4>(consts, x, y, b, B);
   } else {
     return -1;
   }
@@ -145,4 +164,19 @@ extern "C" long long igt_fused_substep_multi_tau_count_ops(const float* consts, 
 
 extern "C" int igt_multi_layout(int nd, int k, int* out, int n) {
   return igt::fill_multi_layout(nd, k, out, n);
+}
+
+// K4: x is (fl_n_in(nd), B), y is (fl_n_out(nd, ng), B)
+extern "C" int igt_fused_substep_floating_host(const float* consts, const float* x, float* y,
+                                               int B, int nd) {
+  return run_floating<float>(consts, x, y, B, nd) == 0 ? 0 : 1;
+}
+
+extern "C" long long igt_fused_substep_floating_count_ops(const float* consts, const float* x,
+                                                          float* y, int B, int nd) {
+  return run_floating<igt::CountF>(consts, x, y, B, nd);
+}
+
+extern "C" int igt_floating_layout(int nd, int* out, int n) {
+  return igt::fill_floating_layout(nd, out, n);
 }

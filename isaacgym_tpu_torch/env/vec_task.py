@@ -21,7 +21,9 @@ import torch
 
 from isaacgym_tpu_torch.env.randomize import DomainRandomizer, DRParams
 from isaacgym_tpu_torch.sim.scene import SceneSpec, compile_scene
-from isaacgym_tpu_torch.sim.simulator import MULTI_DR_REFUSAL, SimState, Simulator
+from isaacgym_tpu_torch.sim.simulator import (
+    FLOATING_DR_REFUSAL, MULTI_DR_REFUSAL, SimState, Simulator,
+)
 
 
 class EnvState(NamedTuple):
@@ -72,6 +74,8 @@ class TorchVecTask:
         self.randomize = bool(task_cfg.get("randomize", False))
         if self.randomize and self.sim.fused_substep_multi is not None:
             raise NotImplementedError(MULTI_DR_REFUSAL)
+        if self.randomize and self.sim.fused_substep_floating is not None:
+            raise NotImplementedError(FLOATING_DR_REFUSAL)
         self.randomizer = (DomainRandomizer(task_cfg.get("randomization_params", {}),
                                             self.scene.num_dofs)
                            if self.randomize else None)

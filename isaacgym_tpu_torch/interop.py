@@ -4,8 +4,9 @@ The arrays of the JAX package's ``SimState``, ``EnvState`` (with its
 domain-randomization fields), ``DRParams``, ``RunningStats`` and flax
 actor-critic parameters, handed over as numpy, become the port's tensors and
 modules, so a check can start both packages from one state and one set of
-weights. ``SimState`` carries the contact moments (``net_contact_torque``)
-with the forces. The force sensors registered on a JAX asset
+weights, for every task of the port (C10's floating base rides in its root
+row; its policy is obs 313, act 27). ``SimState`` carries the contact
+moments (``net_contact_torque``) with the forces. The force sensors registered on a JAX asset
 (``create_asset_force_sensor``, kept on the asset as ``_force_sensors``)
 carry over to the port's asset with :func:`copy_force_sensors`. The JAX
 package's per-env PRNG keys have no counterpart (the port keeps one

@@ -381,18 +381,22 @@ def fk_dof_velocities(tree: KinematicTree, dof_pos_w, dof_quat_w, qd,
 
 
 def fk_body_states(tree: KinematicTree, base_pos, base_quat, q, qd,
-                   body_ids=None):
-    """Rigid-body states (B, nb, 13), pos(3)+quat(4,xyzw)+linvel(3)+angvel(3),
-    of a fixed-base tree; ``body_ids`` (numpy) restricts the rows."""
+                   base_linvel=None, base_angvel=None, body_ids=None):
+    """Rigid-body states (B, nb, 13), pos(3)+quat(4,xyzw)+linvel(3)+angvel(3);
+    ``base_linvel`` and ``base_angvel`` (B, 3) are a floating base's
+    velocity (zero, a fixed base's, when None); ``body_ids`` (numpy)
+    restricts the rows."""
     zeros = torch.zeros_like(base_pos)
+    base_linvel = zeros if base_linvel is None else base_linvel
+    base_angvel = zeros if base_angvel is None else base_angvel
     dof_pos_w, dof_quat_w = fk_dof_frames(tree, base_pos, base_quat, q)
     omega, vel = fk_dof_velocities(tree, dof_pos_w, dof_quat_w, qd,
-                                   base_pos, zeros, zeros)
+                                   base_pos, base_linvel, base_angvel)
     nd = tree.n_dof
     pos_ext = torch.cat([dof_pos_w, base_pos[:, None]], dim=1)
     quat_ext = torch.cat([dof_quat_w, base_quat[:, None]], dim=1)
-    w_ext = torch.cat([omega, zeros[:, None]], dim=1)
-    v_ext = torch.cat([vel, zeros[:, None]], dim=1)
+    w_ext = torch.cat([omega, base_angvel[:, None]], dim=1)
+    v_ext = torch.cat([vel, base_linvel[:, None]], dim=1)
 
     body_ref_dof = tree.body_ref_dof
     body_ref_pos = tree.body_ref_pos

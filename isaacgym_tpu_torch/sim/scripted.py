@@ -1,4 +1,4 @@
-"""Scripted inputs for holding K2 and K3 (the fused substeps) against a
+"""Scripted inputs for holding K2, K3 and K4 (the fused substeps) against a
 reference.
 
 Random-action states rarely bring the paddle into the narrowphase, so the
@@ -26,6 +26,18 @@ check scene of ``toy_multi_scene`` (the JAX package's own test scene):
   ball_rest    C8 only: the ball resting on the table top
   ball_ball    toy only: the two balls about to collide, one spinning
 
+K4 (``k4_inputs``, eleven (B, n) arrays: q, qd, targets, efforts, the
+base's pos, quat, linvel, angvel, the ball's pos, vel, omega), on C10:
+  stand        the neutral pose at the standing height, the feet's bounding
+               spheres within a few mm of the ground (resting contacts at
+               the activation margin), the ball launched
+  strike       standing, the paddle face in front of an incoming ball
+  fall         the humanoid tilted up to 86 deg and falling, its geoms
+               hitting the ground
+  table        standing on the table slab, many feet within 2 mm of it
+               (art-vs-static); needs the scene of ``raised_table_cfg``,
+               whose table top is high enough that only the feet reach it
+
 The force-sensor path (K2-tau, K3-tau): ``paddle_sensor_scene`` compiles a
 task's scene with a force sensor on each humanoid's paddle, and
 ``strike_state`` makes a ``SimState`` of it from a paddle_ball set: each
@@ -42,12 +54,13 @@ import torch
 from isaacgym_tpu_torch.models import urdf as U
 from isaacgym_tpu_torch.models.kinematics import compile_tree, fk_dof_frames
 from isaacgym_tpu_torch.sim.scene import ActorSpec, PlaneParams, SceneSpec, compile_scene
-from isaacgym_tpu_torch.sim.simulator import fused_geom_lists
+from isaacgym_tpu_torch.sim.simulator import floating_geom_lists, fused_geom_lists, true_statics
 from isaacgym_tpu_torch.utils import rotations as rot
 
 KINDS = ("reset", "paddle_ball", "paddle_table", "ball_rest")
 C8_KINDS = ("reset", "paddle_ball1", "paddle_ball2", "ball_rest")
 TOY_KINDS = ("reset", "paddle_ball1", "paddle_ball2", "ball_ball")
+K4_KINDS = ("stand", "strike", "fall", "table")
 TABLE_RAISE = 0.49   # m: puts the table top where the paddle reaches it
 
 
@@ -357,3 +370,124 @@ def strike_state(sim, kind: str, B: int, rng: np.random.RandomState, cfg=None):
     root[:, balls, 7:10] = t(bv).reshape(shape)
     root[:, balls, 10:13] = t(bw).reshape(shape)
     return state._replace(root=root, dof_pos=t(q), dof_vel=t(qd)), t(tgt)
+
+
+def floating_geom_poses(scene, q, base_pos, base_quat):
+    """World centres (B, ng, 3) and orientations (B, ng, 4) of K4's
+    articulated geoms (``floating_geom_lists`` order) at joint values ``q``
+    and the base pose, numpy in and out; and the geom list."""
+    _, geoms, _ = floating_geom_lists(scene)
+    tree = scene.articulations[0].model.tree
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    bp, bq = t(base_pos), t(base_quat)
+    fp, fq = fk_dof_frames(tree, bp, bq, t(q))
+    centers, quats = [], []
+    for g in geoms:
+        lp, lq = (bp, bq) if g["link"] < 0 else (fp[:, g["link"]], fq[:, g["link"]])
+        centers.append(lp + rot.quat_rotate(lq, t(g["off_pos"]).expand_as(lp)))
+        quats.append(rot.quat_mul(lq, t(g["off_quat"]).expand_as(lq)))
+    return torch.stack(centers, 1).numpy(), torch.stack(quats, 1).numpy(), geoms
+
+
+def standing_height(scene, exact: bool = False) -> float:
+    """The base height at which the lowest articulated geom touches a
+    horizontal surface at the neutral pose and the spawn attitude: its
+    bounding sphere (the ground contact) or, with ``exact``, its exact
+    support along the vertical (a box's or cylinder's contact with the
+    table slab)."""
+    init = scene.initial_root[scene.articulations[0].actor_index]
+    nd = scene.articulations[0].model.tree.n_dof
+    centers, quats, geoms = floating_geom_poses(scene, np.zeros((1, nd)), np.zeros((1, 3)),
+                                                init[None, 3:7])
+    low = []
+    for i, g in enumerate(geoms):
+        n = rot.quat_rotate(rot.quat_conjugate(torch.as_tensor(quats[:, i])),
+                            torch.tensor([[0.0, 0.0, 1.0]])).numpy()[0]
+        size = np.asarray(g["size"], np.float64)
+        if not exact or g["kind"] == U.GEOM_SPHERE:
+            sup = g["radius_bound"]
+        elif g["kind"] == U.GEOM_CYLINDER:
+            sup = abs(n[2]) * size[1] + np.sqrt(max(1.0 - n[2] ** 2, 0.0)) * size[0]
+        else:
+            sup = float(np.abs(n) @ size)
+        low.append(centers[0, i, 2] - sup)
+    return float(-min(low))
+
+
+def _launch(cfg, B, rng):
+    ball = cfg["env"]["ball"]
+    s = rng.uniform(*ball["initialSpeedRange"], B)
+    a = np.radians(rng.uniform(*ball["tiltAngleRange"], B))
+    b = np.radians(rng.uniform(*ball["tiltZAngleRange"], B))
+    return np.stack([-s * np.cos(a) * np.cos(b), s * np.sin(a) * np.cos(b), s * np.sin(b)], 1)
+
+
+def k4_inputs(env, kind: str, B: int, rng: np.random.RandomState):
+    """K4's eleven inputs for ``kind`` (``K4_KINDS``) on ``env``, a C10 env
+    (``table``: one of the ``raised_table_cfg`` scene)."""
+    scene = env.scene
+    slot = scene.articulations[0]
+    tree = slot.model.tree
+    nd = tree.n_dof
+    lo, hi = tree.lower.astype(np.float64), tree.upper.astype(np.float64)
+    init = scene.initial_root[slot.actor_index].astype(np.float64)
+    binit = scene.initial_root[scene.free_bodies[0].actor_index].astype(np.float64)
+    f = lambda a: np.ascontiguousarray(a, dtype=np.float32)
+    h = standing_height(scene)
+    small = lambda sd, *shape: rng.normal(0.0, sd, (B,) + shape)
+    q = np.clip(small(0.02, nd), lo, hi)
+    qd = small(0.05, nd)
+    tgt, eff = np.zeros((B, nd)), np.zeros((B, nd))
+    bp = np.broadcast_to(init[0:3], (B, 3)).copy()
+    bp[:, 2] = h + rng.uniform(-0.004, 0.001, B)
+    bq = np.broadcast_to(init[3:7], (B, 4)).copy()
+    blv, bav = small(0.02, 3), small(0.02, 3)
+    pos = np.broadcast_to(binit[0:3], (B, 3)).copy()
+    vel = _launch(env.cfg, B, rng)
+    omg = np.zeros((B, 3))
+    if kind == "stand":
+        pass
+    elif kind == "strike":
+        arm = slice(nd - 5, nd)   # the right arm's five DOFs end the DOF list
+        q[:, arm] = rng.uniform(lo[arm], hi[arm], (B, 5))
+        tgt[:, arm] = rng.uniform(lo[arm], hi[arm], (B, 5))
+        qd[:, arm] = rng.uniform(-3.0, 3.0, (B, 5))
+        centers, quats, geoms = floating_geom_poses(scene, q, bp, bq)
+        gi = next(i for i, g in enumerate(geoms) if g["kind"] == U.GEOM_CYLINDER)
+        g = geoms[gi]
+        axis = rot.quat_rotate(torch.as_tensor(quats[:, gi]),
+                               torch.tensor([0.0, 0.0, 1.0]).expand(B, 3)).numpy()
+        nrm = axis * np.where(rng.uniform(size=(B, 1)) < 0.5, -1.0, 1.0)
+        lateral = np.cross(nrm, rng.normal(size=(B, 3)))
+        lateral *= rng.uniform(0.0, 0.9 * g["size"][0], (B, 1)) / np.maximum(
+            np.linalg.norm(lateral, axis=1, keepdims=True), 1e-9)
+        rb = scene.free_bodies[0].radius
+        pos = centers[:, gi] + nrm * (g["size"][1] + rb + rng.uniform(-0.004, 0.03, (B, 1))) \
+            + lateral
+        vel = -nrm * rng.uniform(1.0, 8.0, (B, 1)) + rng.normal(0.0, 1.0, (B, 3))
+        omg = rng.uniform(-20.0, 20.0, (B, 3))
+    elif kind == "fall":
+        q = 0.5 * rng.uniform(lo, hi, (B, nd))
+        qd = rng.uniform(-2.0, 2.0, (B, nd))
+        tgt = rng.uniform(lo, hi, (B, nd))
+        ang = rng.uniform(0.3, 1.5, B)
+        yaw = rng.uniform(0.0, 2.0 * np.pi, B)
+        tilt = np.stack([np.cos(yaw) * np.sin(ang / 2), np.sin(yaw) * np.sin(ang / 2),
+                         np.zeros(B), np.cos(ang / 2)], 1)
+        bq = rot.quat_mul(torch.as_tensor(tilt), torch.as_tensor(bq)).numpy()
+        bp[:, 2] = rng.uniform(0.15, 0.6, B)
+        blv = np.stack([rng.normal(0.0, 0.5, B), rng.normal(0.0, 0.5, B),
+                        rng.uniform(-3.0, -0.5, B)], 1)
+        bav = rng.normal(0.0, 1.5, (B, 3))
+    elif kind == "table":
+        slab = true_statics(scene)[0]
+        top = float(slab["pos"][2] + slab["size"][2])
+        side = np.where(rng.uniform(size=B) < 0.5, -1.0, 1.0)
+        bp[:, 0] = slab["pos"][0] + side * rng.uniform(0.35, 0.9, B)   # clear of the net
+        bp[:, 1] = rng.uniform(-0.4, 0.4, B)
+        bp[:, 2] = top + standing_height(scene, exact=True) + rng.uniform(-0.004, 0.001, B)
+        pos = np.broadcast_to(np.asarray([0.0, 0.0, 0.3]), (B, 3)).copy()
+        vel = small(0.5, 3)
+    else:
+        raise KeyError(f"unknown input kind {kind!r}; known: {K4_KINDS}")
+    return tuple(map(f, (q, qd, tgt, eff, bp, bq, blv, bav, pos, vel, omg)))

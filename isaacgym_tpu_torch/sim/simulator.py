@@ -11,7 +11,15 @@ ball-quaternion integration and the net-contact-force writeback. Routing as
 * K fixed-base articulations (position or effort drive) and up to two balls
   (C8): ``_substep_fused_multi`` (``:643-684``), one K3 launch per substep.
   The JAX package randomizes such scenes only on its non-kernel path, so
-  ``step`` with ``dr`` raises here.
+  ``step`` with ``dr`` raises here;
+* one floating-base articulation (revolute and prismatic DOFs, at most 32)
+  with one ball over the plane and no terrain or link collision (C10, the
+  gate of ``_maybe_build_pallas``, ``:288-295``): ``_substep_fused_floating``
+  (``:388-433``), one K4 launch per substep, which writes back the base's
+  root, the ball's root (quaternion by ``_integrate_quat``), the DOF state
+  and the impulse rows into ``net_contact_force``. The JAX package
+  randomizes such scenes and runs their force sensors only on other paths
+  (``:594-624``; K4-tau), so DR and sensors raise here.
 
 A scene that registers a force sensor (``asset_api.create_asset_force_sensor``
 before it is compiled) is stepped through the kernels' torque-lane builds,
@@ -29,11 +37,14 @@ State layout (the reference tensor-API contract), batched over B envs:
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): the non-kernel path for other scene classes and for DR on
-multi-articulation scenes, link-vs-link contacts, terrain. The JAX package also guards the kernels' folded base and static
-poses (``_baked_roots_moved``, ``:568``) in ``step`` and ``step_dr`` and
-falls back to its XLA path when a root is rewritten at run time; the port
-has no such path yet, and nothing in the port moves a baked root (the reset
-writes ``initial_root``), so the guard is left out (ROADMAP, modules).
+multi-articulation and floating-base scenes, force sensors on a
+floating-base scene (K4-tau), link-vs-link contacts, terrain. The JAX
+package also guards the kernels' folded base and static poses
+(``_baked_roots_moved``, ``:568``) in ``step`` and ``step_dr`` and falls
+back to its XLA path when a root is rewritten at run time; the port has no
+such path yet, and nothing in the port moves a baked root (the reset writes
+``initial_root``), so the guard is left out (ROADMAP, modules). K4 folds
+only the true statics (table, net), which nothing moves either.
 """
 
 from __future__ import annotations
@@ -47,6 +58,9 @@ from isaacgym_tpu_torch.models import urdf as U
 from isaacgym_tpu_torch.env.randomize import DRParams
 from isaacgym_tpu_torch.models.kinematics import _qmul, _qrot, fk_body_states
 from isaacgym_tpu_torch.ops.fused_substep import FusedSubstep, build_constants
+from isaacgym_tpu_torch.ops.fused_substep_floating import (
+    FusedSubstepFloating, build_floating_constants,
+)
 from isaacgym_tpu_torch.ops.fused_substep_multi import FusedSubstepMulti, build_multi_constants
 from isaacgym_tpu_torch.sim.scene import DRIVE_EFFORT, DRIVE_POS, CompiledScene
 from isaacgym_tpu_torch.utils import rotations as rot
@@ -54,6 +68,11 @@ from isaacgym_tpu_torch.utils import rotations as rot
 
 MULTI_DR_REFUSAL = ("domain randomization of a multi-articulation scene is not ported: the "
                     "JAX package runs it on its non-kernel path (ROADMAP, module 10)")
+FLOATING_DR_REFUSAL = ("domain randomization of a floating-base scene is not ported: the JAX "
+                       "package runs it on its non-kernel path, simulator.py:594-624 "
+                       "(ROADMAP, module 10)")
+FLOATING_SENSOR_REFUSAL = ("force sensors on a floating-base scene are not ported: they need "
+                           "K4-tau, the torque-lane build of K4 (ROADMAP, queued)")
 
 
 class SimState(NamedTuple):
@@ -88,6 +107,18 @@ def _compose(p1, q1, p2, q2):
     return p.astype(np.float32), q.astype(np.float32)
 
 
+def true_statics(scene: CompiledScene):
+    """The static actors' geoms at their actors' initial poses, as the
+    kernels' static entries (kind, pos, quat, size, e, mu)."""
+    out = []
+    for g in scene.static_geoms:
+        sroot = scene.initial_root[g.actor_index]
+        gp, gq = _compose(sroot[0:3], sroot[3:7], g.local_pos, g.local_quat)
+        out.append(dict(kind=g.kind, pos=gp, quat=gq, size=g.size, e=g.restitution,
+                        mu=g.friction))
+    return out
+
+
 def fused_geom_lists(scene: CompiledScene):
     """The static and articulated geom lists ``_maybe_build_fused``
     (``simulator.py:435-535``) hands the kernels: true statics first, then
@@ -98,12 +129,7 @@ def fused_geom_lists(scene: CompiledScene):
     about).
 
     Returns ``(static_list, n_true_static, art_list, art_bodies)``."""
-    static_list = []
-    for g in scene.static_geoms:
-        sroot = scene.initial_root[g.actor_index]
-        gp, gq = _compose(sroot[0:3], sroot[3:7], g.local_pos, g.local_quat)
-        static_list.append(dict(kind=g.kind, pos=gp, quat=gq, size=g.size,
-                                e=g.restitution, mu=g.friction))
+    static_list = true_statics(scene)
     n_true_static = len(static_list)
     art_list, art_bodies = [], []
     for g in scene.art_geoms:
@@ -130,6 +156,30 @@ def fused_geom_lists(scene: CompiledScene):
     return static_list, n_true_static, art_list, np.asarray(art_bodies, np.int64)
 
 
+def floating_geom_lists(scene: CompiledScene):
+    """The geom lists ``_build_fused_floating`` (``simulator.py:323-372``)
+    hands K4: the true statics at their actors' poses, and every articulated
+    geom of the one floating articulation, base-welded ones included (link
+    -1), with its offset folded through the welded body transform and its
+    body's frame origin in the link frame (``body_off``).
+
+    Returns ``(static_list, art_list, art_bodies)``."""
+    static_list = true_statics(scene)
+    slot = scene.articulations[0]
+    tree = slot.model.tree
+    art_list, art_bodies = [], []
+    for g in scene.art_geoms:
+        offp, offq = _compose(tree.body_ref_pos[g.body_index], tree.body_ref_quat[g.body_index],
+                              g.local_pos, g.local_quat)
+        rb = float(g.size[0]) if g.kind == U.GEOM_SPHERE else float(np.max(g.size))
+        art_list.append(dict(kind=g.kind, link=int(tree.body_ref_dof[g.body_index]),
+                             off_pos=offp, off_quat=offq, size=g.size, e=g.restitution,
+                             mu=g.friction, radius_bound=rb,
+                             body_off=np.asarray(tree.body_ref_pos[g.body_index], np.float32)))
+        art_bodies.append(slot.body_start + g.body_index)
+    return static_list, art_list, np.asarray(art_bodies, np.int64)
+
+
 def fused_ball_cfg(scene: CompiledScene, index: int = 0) -> dict:
     ball, plane = scene.free_bodies[index], scene.spec.plane
     return dict(mass=ball.mass, radius=ball.radius, restitution=ball.restitution,
@@ -150,27 +200,53 @@ class Simulator:
         self.dt = float(spec.dt)
         self.substeps = int(spec.substeps)
         arts = scene.articulations
-        if (not arts or not scene.free_bodies or spec.terrain is not None
-                or spec.plane is None or spec.link_collision
-                or any(s.model.floating or s.drive_mode not in (DRIVE_POS, DRIVE_EFFORT)
-                       for s in arts)):
+        flat = (bool(arts) and bool(scene.free_bodies) and spec.terrain is None
+                and spec.plane is not None and not spec.link_collision
+                and all(s.drive_mode in (DRIVE_POS, DRIVE_EFFORT) for s in arts))
+        # one floating articulation with one ball: K4 (``:288-295``)
+        floating = (flat and len(arts) == 1 and len(scene.free_bodies) == 1
+                    and arts[0].model.floating and arts[0].model.tree.n_dof <= 32
+                    and bool(np.all((arts[0].model.tree.dof_type == U.JOINT_REVOLUTE)
+                                    | (arts[0].model.tree.dof_type == U.JOINT_PRISMATIC))))
+        if not flat or (any(s.model.floating for s in arts) and not floating):
             raise NotImplementedError(
-                "the port simulates only fixed-base articulations with balls and a flat "
-                "plane on the fused kernels (ROADMAP, modules 8-11)")
+                "the port simulates fixed-base articulations with balls, or one floating-base "
+                "articulation with one ball, over a flat plane on the fused kernels "
+                "(ROADMAP, modules 8-11)")
+        gravity = np.asarray(spec.gravity, np.float32)
+        dt_s = self.dt / self.substeps
+        #: the kernels carry the torque lanes only for a scene with sensors
+        self.with_torque = self._sensors_want_torque()
+        self._all_bodies_fn = None   # rigid_body_states, built at first use
+        #: K2 and K2-dr (one humanoid, one ball), K3 (fixed bases otherwise)
+        #: or K4 (a floating base); the others are None. Each wrapper's
+        #: ``launches`` counts its launches.
+        self.fused_substep = self.fused_substep_dr = self.fused_substep_multi = None
+        self.fused_substep_floating = None
+        if floating:
+            if self.with_torque:
+                raise NotImplementedError(FLOATING_SENSOR_REFUSAL)
+            self.slot, self.ball = arts[0], scene.free_bodies[0]
+            static_list, art_list, self.art_bodies = floating_geom_lists(scene)
+            self._art_bodies_t = torch.as_tensor(self.art_bodies, device=self.device)
+            self.constants = build_floating_constants(
+                self.slot.model, self.slot.stiffness, self.slot.damping, gravity, dt_s,
+                fused_ball_cfg(scene), static_list, art_list,
+                dict(e=spec.plane.restitution, mu=spec.plane.dynamic_friction,
+                     max_depen=float(spec.max_depenetration_velocity)),
+                bounce_threshold=float(spec.bounce_threshold_velocity),
+                drive_mode=self.slot.drive_mode,
+                max_angular_velocity=self.slot.max_angular_velocity,
+                max_linear_velocity=self.slot.max_linear_velocity,
+                exact_support=bool(spec.exact_link_support))
+            self.fused_substep_floating = FusedSubstepFloating(self.constants)
+            return
         static_list, n_true, art_list, self.art_bodies = fused_geom_lists(scene)
         common = dict(bounce_threshold=float(spec.bounce_threshold_velocity),
                       n_true_static=n_true,
                       max_depenetration=float(spec.max_depenetration_velocity),
                       exact_support=bool(spec.exact_link_support))
-        gravity = np.asarray(spec.gravity, np.float32)
-        dt_s = self.dt / self.substeps
         self._art_bodies_t = torch.as_tensor(self.art_bodies, device=self.device)
-        #: the kernels carry the torque lanes only for a scene with sensors
-        self.with_torque = self._sensors_want_torque()
-        self._all_bodies_fn = None   # rigid_body_states, built at first use
-        #: K2 and K2-dr (one humanoid, one ball) or K3 (the rest); the
-        #: others are None. Each wrapper's ``launches`` counts its launches.
-        self.fused_substep = self.fused_substep_dr = self.fused_substep_multi = None
         if len(arts) == 1 and len(scene.free_bodies) == 1 and arts[0].drive_mode == DRIVE_POS:
             self.slot = arts[0]
             self.ball = scene.free_bodies[0]
@@ -217,11 +293,17 @@ class Simulator:
         With ``dr``, every substep runs K2-dr on the per-env channel packed
         in the JAX package's order (kp, kd, lower, upper, mass, gravity
         offset, friction, restitution); without, K2, or K3 on a
-        multi-articulation scene. The baked-root guard is left out (module
-        docstring)."""
+        multi-articulation scene, or K4 on a floating-base one. The
+        baked-root guard is left out (module docstring)."""
         dt_s = self.dt / self.substeps
         state = state._replace(net_contact_force=torch.zeros_like(state.net_contact_force),
                                net_contact_torque=torch.zeros_like(state.net_contact_torque))
+        if self.fused_substep_floating is not None:
+            if dr is not None:
+                raise NotImplementedError(FLOATING_DR_REFUSAL)
+            for _ in range(self.substeps):
+                state = self._substep_fused_floating(state, targets, efforts, dt_s)
+            return state
         if self.fused_substep_multi is not None:
             if dr is not None:
                 raise NotImplementedError(MULTI_DR_REFUSAL)
@@ -285,6 +367,39 @@ class Simulator:
         dof_force[:, sl] = out.tau
         return SimState(root, dof_pos, dof_vel, dof_force, ncf, nct)
 
+    def _substep_fused_floating(self, state: SimState, targets, efforts, dt_s) -> SimState:
+        """One K4 launch (``simulator.py:388-433``): the base's and the ball's
+        roots, the DOF state, and the impulse rows into ``net_contact_force``
+        (each articulated geom's body, then the ball's total)."""
+        slot, ai, ba = self.slot, self.slot.actor_index, self.ball.actor_index
+        sl = slice(slot.dof_start, slot.dof_end)
+        root = state.root
+        hr = root[:, ai]
+        out = self.fused_substep_floating(
+            state.dof_pos[:, sl].contiguous(), state.dof_vel[:, sl].contiguous(),
+            targets[:, sl].contiguous(), efforts[:, sl].contiguous(),
+            hr[:, 0:3].contiguous(), hr[:, 3:7].contiguous(), hr[:, 7:10].contiguous(),
+            hr[:, 10:13].contiguous(), root[:, ba, 0:3].contiguous(),
+            root[:, ba, 7:10].contiguous(), root[:, ba, 10:13].contiguous())
+        root = root.clone()
+        root[:, ai] = torch.cat([out.base_pos, out.base_quat, out.base_linvel,
+                                 out.base_angvel], dim=1)
+        root[:, ba, 3:7] = _integrate_quat(root[:, ba, 3:7], out.ball_omega, dt_s)
+        root[:, ba, 0:3] = out.ball_pos
+        root[:, ba, 7:10] = out.ball_vel
+        root[:, ba, 10:13] = out.ball_omega
+        ng = len(self.art_bodies)
+        inv_dt = 1.0 / self.dt
+        ncf = state.net_contact_force.clone()
+        ncf.index_add_(1, self._art_bodies_t, out.impulses[:, :ng] * inv_dt)
+        ncf[:, self.ball.body_start] += out.impulses[:, ng] * inv_dt
+        dof_pos, dof_vel, dof_force = (state.dof_pos.clone(), state.dof_vel.clone(),
+                                       state.dof_force.clone())
+        dof_pos[:, sl] = out.q_new
+        dof_vel[:, sl] = out.qd_new
+        dof_force[:, sl] = out.tau
+        return SimState(root, dof_pos, dof_vel, dof_force, ncf, state.net_contact_torque)
+
     def _substep_fused_multi(self, state: SimState, targets, efforts, dt_s) -> SimState:
         """One K3 launch (``simulator.py:643-684``): every DOF, every ball."""
         ba = self._ball_actors_t
@@ -346,9 +461,12 @@ class Simulator:
                 ra = state.root[:, ai]
                 if slot is not None:
                     sl = slice(slot.dof_start, slot.dof_end)
+                    # a floating base moves: its root velocity (``:1614-1618``)
+                    vel = ((ra[:, 7:10], ra[:, 10:13]) if slot.model.floating
+                           else (None, None))
                     parts.append(fk_body_states(slot.model.tree, ra[:, 0:3], ra[:, 3:7],
                                                 state.dof_pos[:, sl], state.dof_vel[:, sl],
-                                                body_ids=local_ids))
+                                                *vel, body_ids=local_ids))
                 else:
                     parts.append(ra[:, None].expand(-1, len(local_ids), -1))
             out = torch.cat(parts, dim=1)

@@ -1,6 +1,8 @@
 """Shared base of the pingpong task family (``isaacgym_tpu/tasks/base.py``):
-the 3- or 4-actor scene, the randomized ball launch at reset, heading-local
-observations and PD position drive over the right-arm DOFs."""
+the 3- or 4-actor scene, the randomized 3-D ball launch at reset (and, for
+C10, a randomized ball start height and side, ``BALL_START_YZ``),
+heading-local observations and PD position drive over the humanoid's
+DOFs."""
 
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ class PingpongFamilyTask(TorchVecTask):
     HUMANOIDS = 1
     PADDLE_BODY = 39             # paddle body index within a humanoid
     RESTORE_DOF_ON_RESET = True  # False: the flagship keeps the pose
+    BALL_START_YZ = False        # True: the ball starts at a random y, z (C10)
 
     def __init__(self, cfg, seed: int = 42, device="cuda"):
         env = cfg["env"]
@@ -28,6 +31,8 @@ class PingpongFamilyTask(TorchVecTask):
         self.initial_speed_range = tuple(ball["initialSpeedRange"])
         self.tilt_angle_range = tuple(ball["tiltAngleRange"])
         self.tilt_z_angle_range = tuple(ball.get("tiltZAngleRange", (0.0, 0.0)))
+        self.initial_pos_y_range = tuple(ball.get("initialPosYRange", (-0.5, 0.1)))
+        self.initial_pos_z_range = tuple(ball.get("initialPosZRange", (0.96, 1.05)))
         self.body_states_id = np.asarray(env["bodyStatesId"], dtype=np.int64)
         self._paddle_row = int(np.nonzero(self.body_states_id == self.PADDLE_BODY)[0][0])
         self.ball_actor = self.HUMANOIDS + 1   # [h1(, h2), table, ball]
@@ -46,11 +51,24 @@ class PingpongFamilyTask(TorchVecTask):
         return P.sample_ball_velocity(n, self.initial_speed_range, self.tilt_angle_range,
                                       self.tilt_z_angle_range, self.generator, self.device)
 
+    def sample_ball_start(self, n):
+        """(n, 2) ball start y, z, uniform in ``initialPosYRange`` and
+        ``initialPosZRange`` (C10's ``reset_sim_single``, ``:112-129``)."""
+        u = torch.rand((n, 2), generator=self.generator, device=self.device)
+        lo = torch.tensor([self.initial_pos_y_range[0], self.initial_pos_z_range[0]],
+                          device=self.device)
+        hi = torch.tensor([self.initial_pos_y_range[1], self.initial_pos_z_range[1]],
+                          device=self.device)
+        return lo + (hi - lo) * u
+
     def reset_sim(self, sim: SimState) -> SimState:
-        """Root states to initial + a fresh ball launch for every env."""
+        """Root states to initial + a fresh ball launch for every env (from a
+        random start height and side with ``BALL_START_YZ``)."""
         B = sim.root.shape[0]
         root = self._init_root.expand(B, -1, -1).clone()
         root[:, self.ball_actor, 7:10] = self.sample_ball_velocity(B)
+        if self.BALL_START_YZ:
+            root[:, self.ball_actor, 1:3] = self.sample_ball_start(B)
         out = sim._replace(root=root)
         if self.RESTORE_DOF_ON_RESET:
             out = out._replace(dof_pos=torch.zeros_like(sim.dof_pos),

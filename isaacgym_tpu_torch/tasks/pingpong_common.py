@@ -2,9 +2,10 @@
 family, batched in torch.
 
 Counterpart of ``isaacgym_tpu/tasks/pingpong_common.py``: the 3- or 4-actor
-scene (``build_pingpong_scene``, ``:41``), the launch-velocity sampler (``:129``)
-and the heading-local observation blocks (``:145``, ``:165``), written over a
-leading batch dimension instead of per env.
+scene (``build_pingpong_scene``, ``:41``, with a fixed or a floating base),
+the launch-velocity sampler (``:129``) and the heading-local observation
+blocks (``:145``, ``:165``), written over a leading batch dimension instead
+of per env.
 """
 
 from __future__ import annotations
@@ -29,16 +30,17 @@ def quat_from_yaw_deg(deg: float):
     return (0.0, 0.0, float(np.sin(half)), float(np.cos(half)))
 
 
-def build_pingpong_scene(env_cfg, sim_cfg, *, humanoids=1) -> SceneSpec:
-    """The 3-actor (or 4-actor) scene: fixed-base humanoid(s) + table + ball,
-    in that actor order. The second humanoid stands at ``humanoid2Pos`` with
-    yaw ``humanoid2YawDeg``."""
+def build_pingpong_scene(env_cfg, sim_cfg, *, humanoids=1, floating_base=False) -> SceneSpec:
+    """The 3-actor (or 4-actor) scene: humanoid(s) + table + ball, in that
+    actor order. The second humanoid stands at ``humanoid2Pos`` with yaw
+    ``humanoid2YawDeg``. The humanoids' bases are fixed unless
+    ``floating_base`` (C10's whole-body humanoid balances on its feet)."""
     sc = env_cfg["scene"]
     plane_cfg = env_cfg.get("plane", {})
     if plane_cfg.get("terrain") or (env_cfg.get("heightmap") or {}).get("enabled"):
         raise NotImplementedError("terrain and heightmap obs are not ported yet "
                                   "(ROADMAP, module 9)")
-    g1 = load_tree(env_cfg["asset"]["assetFileName"])
+    g1 = load_tree(env_cfg["asset"]["assetFileName"], floating_base=floating_base)
     table = load_tree("pingpong_table.urdf")
     ball = load_tree("small_ball.urdf")
     kp = np.asarray(sc["pdGains"], np.float32)
@@ -49,7 +51,7 @@ def build_pingpong_scene(env_cfg, sim_cfg, *, humanoids=1) -> SceneSpec:
                   pos=tuple(sc["humanoidPos"] if h == 0 else sc["humanoid2Pos"]),
                   quat=quat_from_yaw_deg(sc.get("humanoidYawDeg", 0.0) if h == 0
                                          else sc.get("humanoid2YawDeg", 180.0)),
-                  fixed_base=True, restitution=sc["humanoidRestitution"],
+                  fixed_base=not floating_base, restitution=sc["humanoidRestitution"],
                   friction=sc["humanoidFriction"], drive_mode=DRIVE_POS,
                   stiffness=kp, damping=kd, max_angular_velocity=100.0)
         for h in range(humanoids)

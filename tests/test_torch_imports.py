@@ -2,11 +2,11 @@
 
 A subprocess with those modules made unimportable imports every module of
 ``isaacgym_tpu_torch`` and the top of ``chip_smoke.py`` and drives the env,
-the two-humanoid C8 env (K3), the flagship and C8 scenes with paddle force
-sensors (K2-tau, K3-tau) read through the tensor API, the DR env and one PPO
-epoch with a checkpoint on the CPU; an AST scan of
-every file finds no such import. The entry points default to the card and
-raise without one.
+the two-humanoid C8 env (K3), the floating-base 27-DOF C10 env (K4), the
+flagship and C8 scenes with paddle force sensors (K2-tau, K3-tau) read
+through the tensor API, the DR env and one PPO epoch with a checkpoint on
+the CPU; an AST scan of every file finds no such import. The entry points
+default to the card and raise without one.
 """
 
 import ast
@@ -67,6 +67,12 @@ state8, obs8 = env8.reset()
 state8, obs8, rew8, done8, info8 = env8.step(state8, torch.zeros(2, 14))
 assert obs8.shape == (2, 94) and bool(torch.isfinite(obs8).all())
 assert env8.sim.fused_substep is None and env8.sim.fused_substep_multi is not None
+env10 = isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpongTiltNESSparse27DOFG1",
+                                num_envs=2, device="cpu")
+state10, obs10 = env10.reset()
+state10, obs10, rew10, done10, info10 = env10.step(state10, torch.zeros(2, 27))
+assert obs10.shape == (2, 313) and bool(torch.isfinite(obs10).all())
+assert env10.sim.fused_substep_floating is not None
 from isaacgym_tpu_torch.sim import scripted, tensor_api
 from isaacgym_tpu_torch.sim.simulator import Simulator
 from isaacgym_tpu_torch.utils.config import load_task_config
@@ -129,6 +135,14 @@ def test_c8_make_on_cuda_without_a_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         isaacgym_tpu_torch.make(seed=0, task="Humanoid12PingpongTiltG1", num_envs=4)
+
+
+def test_c10_make_on_cuda_without_a_gpu_raises(monkeypatch):
+    import isaacgym_tpu_torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpongTiltNESSparse27DOFG1",
+                                num_envs=4)
 
 
 def test_launcher_defaults_to_the_card_and_raises_without_one(monkeypatch, tmp_path):
