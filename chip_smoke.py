@@ -7,8 +7,8 @@ Each phase prints one JSON line with its seconds:
   device  the card's name, and its name and power limit from nvidia-smi;
   build   one nvcc per csrc/*.cu, started together, into build/kernels/
           (and g++ the host loop that counts the kernels' operations), wall
-          seconds, and ptxas's registers, stack and spills of K2, K2-dr,
-          K2-tau, K2-dr-tau, K3, K3-tau and K4;
+          seconds, and ptxas's registers, stack and spills of K1, K2,
+          K2-dr, K2-tau, K2-dr-tau, K3, K3-tau and K4;
   k2/*    the fused-substep kernel against its plain PyTorch version on the
           card, B = 4096, one substep from each state set (reset, rollout
           after 60 steps, paddle_ball, paddle_table, ball_rest), the plain
@@ -59,6 +59,15 @@ Each phase prints one JSON line with its seconds:
   k4_timing  K4 per launch on the random-action states, its plain version,
           its bound, ptxas's registers, stack and spills, and its blocks per
           SM;
+  k1/*    K1, the arm step, against its plain version on the flagship arm at
+          4096 envs under the same comparison (its frames and factor gated
+          as q is; a flip is an env whose set of clamped joints differs):
+          random (joints, velocities and targets within the limits),
+          limits (every joint at or just past a limit, moving outward),
+          terrain (60 steps of the terrain flagship under random actions);
+  k1_gates  K1's output with qd_new negated must fail the gates on some set;
+  k1_timing  K1 per launch, its plain version, its bound (counted ops) and
+          ptxas's registers, stack and spills;
   main    make(seed=0, flagship, 4096 envs), reset, 5 warm-up steps, then
           3 windows of 100 steps under uniform actions in [-1, 1] from a
           seeded generator: launches must be exactly 2 per step, every
@@ -66,6 +75,10 @@ Each phase prints one JSON line with its seconds:
           env-steps/s and ms per step per window;
   profile torch.profiler over 10 more steps: device busy share, device
           kernels per step, K2's share, the top kernels by device time;
+  guard_cost  the baked-root guard's cost on the main cell: windows of 100
+          steps through the guarded Simulator.step and through step_kernel,
+          in turns guarded, unguarded, unguarded, guarded, and the compare
+          with its sync alone per call;
   c8_main make(seed=0, C8, 4096 envs), 3 windows of 100 steps as main: K3
           exactly 2 launches per step and K2 none, every state finite, a
           ball bounces; then 10 steps with twoPlayer on, obs 188 finite;
@@ -88,6 +101,18 @@ Each phase prints one JSON line with its seconds:
           finite; env-steps/s and ms per step;
   c10_profile  torch.profiler over 10 C10 steps: device kernels per step,
           K4's share and the device busy share;
+  terrain_main  the flagship on the seeded 8 m x 6 m rough heightfield with
+          the heightmap block (obs 305) at 4096 envs, 3 windows of 100 steps
+          under random actions: K1 exactly 2 launches per step and K2 none,
+          every state finite, a ball bounces; env-steps/s; terrain_profile
+          torch.profiler over 10 steps (device kernels per step, busy
+          share, K1's share);
+  baked_guard/flagship, baked_guard/c10  the table root written in every env
+          (flagship at 4096 envs with the ball resting on the table; C10 at
+          2048 standing on the raised table): the guarded step equals the
+          non-kernel step exactly and differs from the unguarded kernel step
+          (the guard dropped is rejected); untouched, it equals the kernel
+          step exactly;
   train   PPOTrainer at the flagship's full width (4096 envs, horizon 32,
           minibatch 4096 x 5 mini-epochs, separate [2048,1536,1024,1024,512,512]
           bf16 trunks) with task.randomize=true, global step 3000 and
@@ -107,7 +132,11 @@ Each phase prints one JSON line with its seconds:
           2 x 32 launches per epoch, every metric finite, a lower loss on
           the first 4096 rows after the update than before it;
   c10_train  the same for C10 on its own train config at 2048 envs, K4
-          exactly 2 x 32 launches per epoch.
+          exactly 2 x 32 launches per epoch;
+  terrain_train  2 epochs of the terrain flagship without DR at 4096 envs,
+          every env 29 steps from its episode's end: K1 exactly 2 x 32
+          launches per epoch, episodes of 169, every metric finite, the loss
+          on the first minibatch falls.
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; with
 no CUDA device, or run outside the repository, it exits non-zero at once.
@@ -138,9 +167,11 @@ PEAK_BF16_OPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 # a geom body's up to ~6e-3 in a strike and ~0.4 at the raised table
 # K4's base pose and velocities are gated as q and qd are (the CPU tests'
 # tolerances, tests/test_torch_fused_substep_floating.py)
+# K1's post-step frames and packed Cholesky factor are gated as q is
 TOL = dict(q_new=1e-4, ball_pos=1e-4, ball_vel=1e-4, qd_new=1e-3, tau=1e-3,
            impulses=1e-3, ball_omega=1e-3, geom_moments=1e-5, ball_moments=1e-7,
-           base_pos=1e-4, base_quat=1e-4, base_linvel=1e-3, base_angvel=1e-3)
+           base_pos=1e-4, base_quat=1e-4, base_linvel=1e-3, base_angvel=1e-3,
+           frame_pos=1e-4, frame_quat=1e-4, chol=1e-4)
 # the sensor path's step against the same step through the plain version:
 # force lanes in N, moment lanes in N m (the CPU test's port step against the
 # JAX package's step holds them so)
@@ -174,7 +205,7 @@ def split_rows(out, moments=None):
     return v
 
 
-def compare(got, want32, want64, moments=None):
+def compare(got, want32, want64, moments=None, pattern=None):
     """A kernel against its plain version, run in float32 and in float64 on
     the same inputs (a torque build's moment rows as their own outputs, see
     split_rows). Flips (envs whose contact pattern, the force rows, differs
@@ -195,8 +226,9 @@ def compare(got, want32, want64, moments=None):
     each plain run and the float32-to-float64 gap."""
     import torch
     g_, w32_, w64_ = (split_rows(o, moments) for o in (got, want32, want64))
-    fa = g_["impulses"].abs().sum(-1) > 0
-    fb = w32_["impulses"].abs().sum(-1) > 0
+    if pattern is None:   # the contact pattern: which impulse rows are active
+        pattern = lambda o: o["impulses"].abs().sum(-1) > 0
+    fa, fb = pattern(g_), pattern(w32_)
     keep = ~(fa != fb).any(dim=1)
     flat = lambda t: t.reshape(keep.shape[0], -1)[keep]
     kept_max = lambda d: float(flat(d).max()) if bool(keep.any()) else 0.0
@@ -761,6 +793,311 @@ def k4_checks(dev, host):
                 bound_by=t["bound_by"], **usage)
 
 
+def terrain_env(b, seed=0):
+    """The flagship on the seeded rough heightfield with the heightmap block
+    (``rough_terrain_cfg``): K1 and the non-kernel contact phase."""
+    import isaacgym_tpu_torch
+    from isaacgym_tpu_torch.tasks.pingpong_common import rough_terrain_cfg
+    from isaacgym_tpu_torch.utils.config import load_task_config
+    return isaacgym_tpu_torch.make(seed=seed, task=TASK, num_envs=b,
+                                   cfg=rough_terrain_cfg(load_task_config(TASK), seed=seed))
+
+
+def k1_checks(dev, host, env_t):
+    """K1 against its plain version (float32 and float64) on the flagship arm
+    at 4096 envs, three sets: random (joints, velocities and PD targets
+    uniform within the limits and +-3 rad/s), limits (every joint at or
+    just past a limit, moving outward, so the clamp acts), terrain (60 env
+    steps of the terrain flagship ``env_t`` under random actions). Flips
+    are envs whose set of clamped joints differs from the float32 plain
+    run's. Then that the gates reject K1's output with qd_new negated
+    (k1_gates), and its timing, bound and ptxas usage (k1_timing). Returns
+    the kernels-line numbers; raises on any failed gate."""
+    import numpy as np
+    import torch
+    from isaacgym_tpu_torch.ops import arm_step as A
+    sim = env_t.sim
+    k = sim.arm_steps[0]
+    slot = sim.scene.articulations[0]
+    tree = slot.model.tree
+    lo_np, hi_np = tree.lower.astype(np.float64), tree.upper.astype(np.float64)
+    lo, hi = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (lo_np, hi_np))
+    init = torch.as_tensor(sim.scene.initial_root[slot.actor_index], device=dev)
+    base = (init[0:3].expand(B, 3).contiguous(), init[3:7].expand(B, 4).contiguous())
+    limit_pattern = lambda o: (o["q_new"] <= lo) | (o["q_new"] >= hi)
+    plain = lambda *a: A.arm_step_plain(k.device_consts(dev), *a)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    rng = np.random.RandomState(11)
+    sets = {}
+    sets["random"] = (t(rng.uniform(lo_np, hi_np, (B, 7))), t(rng.uniform(-3, 3, (B, 7))),
+                      t(rng.uniform(lo_np, hi_np, (B, 7))), t(np.zeros((B, 7))))
+    side = rng.uniform(size=(B, 7)) < 0.5
+    q = np.where(side, lo_np, hi_np) + np.where(side, -1, 1) * rng.uniform(-0.01, 0.02, (B, 7))
+    sets["limits"] = (t(q), t(np.where(side, -1, 1) * rng.uniform(0.0, 4.0, (B, 7))),
+                      t(np.where(side, lo_np, hi_np) + np.where(side, -0.5, 0.5)),
+                      t(np.zeros((B, 7))))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    state, _ = env_t.reset()
+    for _ in range(60):
+        state, *_ = env_t.step(state, torch.rand((B, 7), generator=gen, device=dev) * 2 - 1)
+    tgt, eff = env_t.action_to_drive(torch.rand((B, 7), generator=gen, device=dev) * 2 - 1)
+    sets["terrain"] = (state.sim.dof_pos.contiguous(), state.sim.dof_vel.contiguous(),
+                       tgt.contiguous(), eff.contiguous())
+    acc, rejected = {"max_err": {}, "excess": {}}, []
+    for name, ins in sets.items():
+        t0 = time.perf_counter()
+        ins = ins + base
+        got = k(*ins)
+        want, want64 = plain(*ins), plain(*[x.double() for x in ins])
+        torch.cuda.synchronize()
+        res = compare(got, want, want64, pattern=limit_pattern)
+        emit({"phase": f"k1/{name}", **res,
+              "clamped_share": float(limit_pattern({"q_new": got.q_new}).float().mean()),
+              "seconds": time.perf_counter() - t0})
+        gate(f"k1/{name}", res)
+        fold(acc, res)
+        bad = compare(got._replace(qd_new=-got.qd_new), want, want64, pattern=limit_pattern)
+        if not bad["excess"]["qd_new"] <= TOL["qd_new"]:
+            rejected.append(name)
+        if name == "random":
+            timing_ins = ins
+    emit({"phase": "k1_gates", "negated_qd_new_rejected_on": rejected})
+    if not rejected:
+        raise SystemExit("k1_gates: the gates let K1 with a negated qd_new pass")
+    x = A.pack_inputs(*timing_ins)
+    xc, cc = x.cpu(), torch.as_tensor(k.consts)
+    yc = torch.empty((A.n_out(7), B))
+    tk = time_kernel(
+        "k1_timing", lambda: k.launch(x), lambda: k(*timing_ins),
+        lambda: A.arm_step_plain(k.device_consts(dev), *timing_ins),
+        host.igt_arm_step_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(), B, 7),
+        4 * B * (A.n_in(7) + A.n_out(7)) + 4 * k.consts.size,
+        fields=ptxas_usage("libigt_arm_step.so"))
+    return {**acc, "ms": tk["kernel_ms"], "plain_ms": tk["plain_ms"],
+            "bound_ms": tk["bound_ms"], "bound_by": tk["bound_by"],
+            "ptxas": ptxas_usage("libigt_arm_step.so")}
+
+
+def terrain_main(dev, env_t):
+    """The terrain flagship at 4096 envs through K1: 3 windows of 100 steps
+    under uniform random actions, K1 exactly 2 launches per step and K2
+    none, every state finite, some ball bounces; then torch.profiler over
+    10 steps. Returns K1's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    sim = env_t.sim
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    act = lambda: torch.rand((B, 7), generator=gen, device=dev) * 2 - 1
+    k1 = sim.arm_steps[0]
+    state, obs = env_t.reset()
+    for _ in range(5):
+        state, obs, rew, done, info = env_t.step(state, act())
+    torch.cuda.synchronize()
+    k1.launches = 0
+    windows, zs, steps = [], [], 0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        for _ in range(100):
+            state, obs, rew, done, info = env_t.step(state, act())
+            zs.append(state.sim.root[:, 2, 2].clone())
+            steps += 1
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - tw)
+    launches = k1.launches
+    k2 = 0 if sim.fused_substep is None else sim.fused_substep.launches
+    finite = all(bool(torch.isfinite(t_).all()) for t_ in state.sim) and bool(
+        torch.isfinite(obs).all() and torch.isfinite(rew).all())
+    bounced = bounced_envs(zs, dev)
+    rates = [B * 100 / w for w in windows]
+    emit({"phase": "terrain_main", "num_envs": B, "steps": steps, "k1_launches": launches,
+          "k2_launches": k2, "route": sim.route, "obs_shape": list(obs.shape),
+          "env_steps_per_s": rates, "env_steps_per_s_median": statistics.median(rates),
+          "ms_per_step": [w * 10 for w in windows], "bounced_envs": bounced,
+          "ball_z_min": float(torch.stack(zs).min()),
+          "seconds": time.perf_counter() - t0})
+    if (launches != 2 * steps or k2 != 0 or not finite or bounced == 0
+            or tuple(obs.shape) != (B, 305)):
+        raise SystemExit(f"terrain_main: K1 {launches} and K2 {k2} launches in {steps} steps, "
+                         f"finite={finite} bounced={bounced} obs {tuple(obs.shape)}")
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tw = time.perf_counter()
+        for _ in range(10):
+            state, *_ = env_t.step(state, act())
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - tw) * 1e6
+    kernels = [(n, c, t_) for n, (c, t_) in device_kernels(prof).items()]
+    busy_us = sum(t_ for _, _, t_ in kernels)
+    k1_us = sum(t_ for n, _, t_ in kernels if "arm_step" in n)
+    top = sorted(kernels, key=lambda r: -r[2])[:6]
+    emit({"phase": "terrain_profile", "steps": 10, "wall_ms_per_step": wall_us / 1e4,
+          "device_busy_ms_per_step": busy_us / 1e4, "device_busy_share": busy_us / wall_us,
+          "device_kernels_per_step": sum(c for _, c, _ in kernels) / 10,
+          "k1_ms_per_step": k1_us / 1e4, "k1_share_of_busy": k1_us / busy_us,
+          "top_kernels": [{"name": n[:70], "launches": c, "ms": t_ / 1e3} for n, c, t_ in top],
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def guard_cost(dev, env):
+    """The baked-root guard's cost on the flagship's main cell: windows of
+    100 env steps through the guarded ``Simulator.step`` and through
+    ``step_kernel`` (no compare, no sync), in turns guarded, unguarded,
+    unguarded, guarded, and the compare alone per call."""
+    import torch
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    act = lambda: torch.rand((B, 7), generator=gen, device=dev) * 2 - 1
+    sim = env.sim
+    guarded = sim.step   # the class's method, bound
+    rates = {"guarded": [], "unguarded": []}
+    state, _ = env.reset()
+    for mode in ("guarded", "unguarded", "unguarded", "guarded"):
+        sim.step = guarded if mode == "guarded" else sim.step_kernel
+        for _ in range(3):
+            state, *_ = env.step(state, act())
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        for _ in range(100):
+            state, *_ = env.step(state, act())
+        torch.cuda.synchronize()
+        rates[mode].append(B * 100 / (time.perf_counter() - tw))
+    del sim.step   # back to the class's method
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    for _ in range(200):
+        sim.baked_roots_moved(state.sim)
+    compare_us = (time.perf_counter() - tw) / 200 * 1e6
+    med = {k_: statistics.median(v) for k_, v in rates.items()}
+    emit({"phase": "guard_cost", "env_steps_per_s": rates,
+          "ms_per_step_guarded": B / med["guarded"] * 1e3,
+          "ms_per_step_unguarded": B / med["unguarded"] * 1e3,
+          "guard_ms_per_step": B / med["guarded"] * 1e3 - B / med["unguarded"] * 1e3,
+          "compare_and_sync_us_per_call": compare_us,
+          "seconds": time.perf_counter() - t0})
+
+
+def baked_guard(dev):
+    """The baked-root guard on the card: on the flagship (K2, 4096 envs, the
+    ball resting on the table) and on C10 (K4, 2048 envs, standing on the
+    raised table) the table root written in every env (raised 4 cm, or
+    lowered 4 cm under C10's feet). The guarded ``Simulator.step`` must
+    equal ``step_nonkernel`` and differ from the unguarded ``step_kernel``
+    (the guard dropped, which the check must reject); with the roots
+    untouched it must equal ``step_kernel`` exactly."""
+    import numpy as np
+    import torch
+    import isaacgym_tpu_torch
+    from isaacgym_tpu_torch.sim import scripted
+    from isaacgym_tpu_torch.sim import tensor_api as T
+    from isaacgym_tpu_torch.utils.config import load_task_config
+    out = {}
+    for name, task, b, cfg_fn, inputs, to_state, delta in (
+            ("flagship", TASK, B, lambda c: c, scripted.k2_inputs, scripted.k2_state, 0.04),
+            ("c10", C10, B10, scripted.raised_table_cfg, scripted.k4_inputs, scripted.k4_state,
+             -0.04)):
+        t0 = time.perf_counter()
+        env = isaacgym_tpu_torch.make(seed=0, task=task, num_envs=b,
+                                      cfg=cfg_fn(load_task_config(task)))
+        sim = env.sim
+        kind = "ball_rest" if name == "flagship" else "table"
+        state, tgt, eff = to_state(sim, inputs(env, kind, b, np.random.RandomState(9)))
+        same = lambda a, c: all(torch.equal(getattr(a, f), getattr(c, f)) for f in a._fields)
+        untouched_ok = same(sim.step(state, tgt, eff), sim.step_kernel(state, tgt, eff))
+        table = state.root[:, [1]].clone()
+        table[:, 0, 2] += delta
+        moved = T.set_actor_root_state_tensor_indexed(state, table, torch.arange(b, device=dev),
+                                                      actor_ids=[1])
+        guarded = sim.step(moved, tgt, eff)
+        nonkernel = sim.step_nonkernel(moved, tgt, eff)
+        unguarded = sim.step_kernel(moved, tgt, eff)
+        guarded_ok = same(guarded, nonkernel)
+        dropped_rejected = not same(unguarded, nonkernel)
+        diff = {f: float((getattr(unguarded, f) - getattr(nonkernel, f)).abs().max())
+                for f in ("root", "dof_vel", "net_contact_force")}
+        finite = all(bool(torch.isfinite(t_).all()) for t_ in guarded)
+        emit({"phase": f"baked_guard/{name}", "route": sim.route, "num_envs": b,
+              "untouched_equals_kernel_step": untouched_ok,
+              "moved_equals_nonkernel_step": guarded_ok,
+              "guard_dropped_rejected": dropped_rejected,
+              "kernel_vs_nonkernel_on_moved": diff, "finite": finite,
+              "seconds": time.perf_counter() - t0})
+        if not (untouched_ok and guarded_ok and dropped_rejected and finite):
+            raise SystemExit(f"baked_guard/{name}: untouched {untouched_ok} moved {guarded_ok} "
+                             f"dropped rejected {dropped_rejected} finite {finite}")
+        out[name] = diff
+        del env, sim
+    return out
+
+
+def terrain_train(dev):
+    """2 PPO epochs of the terrain flagship at 4096 envs on its train config,
+    without DR, every env 29 steps from its episode's end at the start (so
+    episodes finish in the first epoch): K1 exactly 2 x 32 launches per
+    epoch, every metric finite, a lower loss on the epoch's first minibatch
+    after the update than before it, and episodes of 169 steps. Returns
+    K1's launches."""
+    import torch
+    import isaacgym_tpu_torch
+    from isaacgym_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
+    from isaacgym_tpu_torch.tasks.pingpong_common import rough_terrain_cfg
+    from isaacgym_tpu_torch.utils.config import compose
+    t0 = time.perf_counter()
+    cfg = compose(TASK, [f"num_envs={B}"])
+    env = isaacgym_tpu_torch.make(seed=0, task=TASK, cfg=rough_terrain_cfg(cfg["task"], seed=0))
+    trainer = PPOTrainer(env, PPOConfig.from_train_cfg(cfg["train"]), seed=0)
+    k1 = env.sim.arm_steps[0]
+    ts = trainer.init_state()
+    state, obs = env.reset()
+    state = state._replace(progress=torch.full_like(state.progress,
+                                                    env.max_episode_length - 30))
+    real_update, losses = trainer._update, []
+
+    def update_checked(ts_, batch, obs_stats):
+        mb0 = {k_: v[:trainer.cfg.minibatch_size] for k_, v in batch.items()}
+        with torch.no_grad():
+            before = float(trainer.loss(ts_.params, obs_stats, mb0)[0])
+        out = real_update(ts_, batch, obs_stats)
+        with torch.no_grad():
+            after = float(trainer.loss(out[0], obs_stats, mb0)[0])
+        losses.append((before, after))
+        return out
+
+    trainer._update = update_checked
+    epochs = []
+    for it in range(2):
+        torch.cuda.synchronize()
+        k1.launches = 0
+        te = time.perf_counter()
+        ts, state, obs, metrics = trainer.train_epoch(ts, state, obs)
+        m = {k_: float(v) for k_, v in metrics.items()}
+        n_ep = m["episode_count"]
+        row = {"epoch": it, "epoch_s": time.perf_counter() - te, "k1_launches": k1.launches,
+               "loss_first_mb_before_after": losses[-1], "episode_count": n_ep,
+               "episode_length_mean": m["episode_length_sum"] / n_ep if n_ep else None,
+               **{k_: m[k_] for k_ in ("reward_mean", "a_loss", "c_loss", "kl", "last_lr")}}
+        emit({"phase": "terrain_train/epoch", **row})
+        if (k1.launches != 2 * trainer.cfg.horizon_length
+                or not all(math.isfinite(v) for v in m.values())
+                or not losses[-1][1] < losses[-1][0]
+                or (n_ep and m["episode_length_sum"] / n_ep != 169.0)):
+            raise SystemExit(f"terrain_train: epoch {it}: {row} {m}")
+        epochs.append(row)
+    if not epochs[0]["episode_count"]:
+        raise SystemExit("terrain_train: no episode finished in the first epoch")
+    launches = sum(r["k1_launches"] for r in epochs)
+    emit({"phase": "terrain_train", "epochs": 2, "num_envs": B, "k1_launches": launches,
+          "epoch_s": [r["epoch_s"] for r in epochs],
+          "env_steps_per_s": [B * trainer.cfg.horizon_length / r["epoch_s"] for r in epochs],
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main():
     t_all = time.perf_counter()
     import torch
@@ -777,6 +1114,7 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
     from isaacgym_tpu_torch.env.randomize import DomainRandomizer
     from isaacgym_tpu_torch.ops import _build
+    from isaacgym_tpu_torch.ops import arm_step as A
     from isaacgym_tpu_torch.ops import fused_substep as F
     from isaacgym_tpu_torch.ops import fused_substep_floating as FL
     from isaacgym_tpu_torch.ops import fused_substep_multi as M
@@ -805,6 +1143,7 @@ def main():
             M.check_library_layout(lib, nd, 2)
     for lib in (libs["fused_substep_floating"], host):
         FL.check_library_layout(lib, 27)
+    A.check_library_layout(libs["arm_step"], 7)
     ptxas = [ln.strip() for log in _build.build_logs.values() for ln in log.splitlines()
              if "registers" in ln or "bytes stack frame" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -898,6 +1237,10 @@ def main():
     # ---- 2e: K4 against its plain version on C10, the gates' bite, its timing
     k4 = k4_checks(dev, host)
 
+    # ---- 2f: K1 against its plain version on the flagship arm, its timing
+    env_t = terrain_env(B)
+    k1 = k1_checks(dev, host, env_t)
+
     # ---- 3: the main path
     t0 = time.perf_counter()
     env = isaacgym_tpu_torch.make(seed=0, task=TASK, num_envs=B)
@@ -955,6 +1298,9 @@ def main():
           "k2_ms_per_step": sum(t for n, _, t in kernels if "fused_substep" in n) / 1e4,
           "top_kernels": [{"name": n[:70], "launches": c, "ms": t / 1e3} for n, c, t in top],
           "seconds": time.perf_counter() - t0})
+
+    # ---- 4a: the baked-root guard's cost on the main cell
+    guard_cost(dev, env)
 
     # ---- 4b: the C8 env step through K3
     t0 = time.perf_counter()
@@ -1099,6 +1445,13 @@ def main():
           "top_kernels": [{"name": n[:70], "launches": c, "ms": t / 1e3} for n, c, t in top],
           "seconds": time.perf_counter() - t0})
     del env10, state, obs
+
+    # ---- 4f: the terrain flagship through K1 and the torch contact phase
+    k1_launches = terrain_main(dev, env_t)
+    del env_t
+
+    # ---- 4g: the baked-root guard on the flagship (K2) and C10 (K4)
+    baked_guard(dev)
 
     # ---- 5: training at full width with DR, through K2-dr
     from isaacgym_tpu_torch.rl import checkpoint
@@ -1337,8 +1690,19 @@ def main():
           "seconds": time.perf_counter() - t0})
     del env_c10, trainer_c10, ts10, state10, obs10
 
+    # ---- 7d: terrain training through K1, without DR
+    k1_train_launches = terrain_train(dev)
+
     # ---- 8: the kernels line, the card, the verdict
     emit({"kernels": [{
+        "name": "arm_step", "route": "cuda",
+        "source": "isaacgym_tpu_torch/csrc/arm_step.cu",
+        "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:447",
+        "launches": k1_launches, "launches_by_path": {
+            "terrain_main": k1_launches, "terrain_train": k1_train_launches},
+        **{k_: v for k_, v in k1.items() if k_ != "ptxas"}, "library_ms": None,
+        "us": k1["ms"] * 1e3, "plain_us": k1["plain_ms"] * 1e3,
+        "bound_us": k1["bound_ms"] * 1e3, **k1["ptxas"]}, {
         "name": "fused_substep", "route": "cuda",
         "source": "isaacgym_tpu_torch/csrc/fused_substep.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:754",

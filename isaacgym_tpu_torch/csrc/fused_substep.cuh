@@ -283,10 +283,10 @@ IGT_HD V3<T> resolve_static(const float* c, V3<T>& vel, V3<T>& omg, V3<T>& pos, 
 }
 
 // ------------------------------------------------------------- dynamics --
+// DOF frames and world axes at joint values q, from the base pose (bp, bq)
 template <class T, int ND>
-IGT_HD void fk(const float* c, const T* q, V3<T>* fp, Q4<T>* fq, V3<T>* axw) {
-  const V3<T> bp = cv3<T>(c + C_BASE_P);
-  const Q4<T> bq = cq4<T>(c + C_BASE_Q);
+IGT_HD void fk(const float* c, const T* q, V3<T> bp, Q4<T> bq, V3<T>* fp, Q4<T>* fq,
+               V3<T>* axw) {
 #pragma unroll
   for (int d = 0; d < ND; ++d) {
     const float* dc = c + DOF_OFF + d * DOF_STRIDE;
@@ -361,10 +361,13 @@ IGT_HD V3<T> jac_col(const float* c, const float* mask, int link, int i, V3<T> p
 // nd_tot rows); q and tau are written to the same rows of y's q and tau
 // blocks. Leaves the packed lower factor in L, the joint velocities in u and
 // the post-step frames. ``dr``: env b's first K2-dr channel row (WITH_DR).
+// (bp, bq): the base pose, the block's C_BASE_P/C_BASE_Q slots for K2 and
+// K3, which fold it, or a per-env input for K1 (arm_step.cuh).
 template <class T, int ND, bool WITH_DR>
 IGT_HD void art_dynamics(const float* __restrict__ c, const float* __restrict__ x,
                          float* __restrict__ y, int b, size_t sB, int row0, int nd_tot,
-                         const float* dr, T* L, T* u, V3<T>* fp, Q4<T>* fq, V3<T>* axw) {
+                         const float* dr, T* L, T* u, V3<T>* fp, Q4<T>* fq, V3<T>* axw,
+                         V3<T> bp, Q4<T> bq) {
   const float* mask = c + mask_off(ND);
   const T dt = T(ldc(c + C_DT));
 #define IGT_IN(blk, d) T(x[(size_t)((blk) * nd_tot + row0 + (d)) * sB + b])
@@ -395,7 +398,7 @@ IGT_HD void art_dynamics(const float* __restrict__ c, const float* __restrict__ 
     tau[d] = clip_(t, -eff, eff);
   }
 
-  fk<T, ND>(c, q, fp, fq, axw);
+  fk<T, ND>(c, q, bp, bq, fp, fq, axw);
 
   // velocity / bias propagation, RNEA with qdd = 0 in the world frame
   const V3<T> zero3 = v3<T>(T(0.0f), T(0.0f), T(0.0f));
@@ -404,7 +407,7 @@ IGT_HD void art_dynamics(const float* __restrict__ c, const float* __restrict__ 
   for (int d = 0; d < ND; ++d) {
     const float* dc = c + DOF_OFF + d * DOF_STRIDE;
     const int par = (int)ldc(dc + D_PARENT);
-    V3<T> w_p = zero3, wd_p = zero3, ao_p = zero3, o_p = cv3<T>(c + C_BASE_P);
+    V3<T> w_p = zero3, wd_p = zero3, ao_p = zero3, o_p = bp;
 #pragma unroll
     for (int k = 0; k < d; ++k)
       if (k == par) { w_p = w[k]; wd_p = wd[k]; ao_p = ao[k]; o_p = fp[k]; }
@@ -562,7 +565,7 @@ IGT_HD void art_dynamics(const float* __restrict__ c, const float* __restrict__ 
     IGT_OUT(0, d, p);
     IGT_OUT(2, d, tau[d]);
   }
-  fk<T, ND>(c, q, fp, fq, axw);
+  fk<T, ND>(c, q, bp, bq, fp, fq, axw);
 #undef IGT_IN
 #undef IGT_OUT
 #undef IGT_DR
@@ -838,7 +841,8 @@ IGT_HD void fused_substep_env(const float* __restrict__ c, const float* __restri
   T L[ND * (ND + 1) / 2], u[ND];
   V3<T> fp[ND], axw[ND];
   Q4<T> fq[ND];
-  art_dynamics<T, ND, WITH_DR>(c, x, y, b, sB, 0, ND, dr, L, u, fp, fq, axw);
+  art_dynamics<T, ND, WITH_DR>(c, x, y, b, sB, 0, ND, dr, L, u, fp, fq, axw,
+                               cv3<T>(c + C_BASE_P), cq4<T>(c + C_BASE_Q));
 
   // ------------------------------------------------------------- ball --
   const T inv_mb = T(ldc(c + C_INV_MB));

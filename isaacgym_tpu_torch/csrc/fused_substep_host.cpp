@@ -1,6 +1,6 @@
-// Host loops over the kernels' per-env bodies (fused_substep.cuh for K2,
-// K2-dr and K2-tau, fused_substep_multi.cuh for K3 and K3-tau,
-// fused_substep_floating.cuh for K4), for the CPU
+// Host loops over the kernels' per-env bodies (arm_step.cuh for K1,
+// fused_substep.cuh for K2, K2-dr and K2-tau, fused_substep_multi.cuh for K3
+// and K3-tau, fused_substep_floating.cuh for K4), for the CPU
 // tests and for counting the operations the kernels do on given inputs.
 // Never on the main path.
 //
@@ -37,6 +37,7 @@ inline float to_f(CountF a) { return a.v; }
 
 }  // namespace igt
 
+#include "arm_step.cuh"
 #include "fused_substep_multi.cuh"
 #include "fused_substep_floating.cuh"
 
@@ -99,7 +100,27 @@ long long run_floating(const float* consts, const float* x, float* y, int B, int
   return igt::g_ops;
 }
 
+// K1 over every env, in float or with the counting float (nd 7). Returns 0
+// (or the operation count), or -1 on another DOF count.
+template <class T>
+long long run_arm(const float* consts, const float* x, float* y, int B, int nd) {
+  if (nd != 7 || B < 1) return -1;
+  igt::g_ops = 0;
+  for (int b = 0; b < B; ++b) igt::arm_step_env<T, 7>(consts, x, y, b, B);
+  return igt::g_ops;
+}
+
 }  // namespace
+
+// K1: x is (arm_n_in(7), B), y is (arm_n_out(7), B)
+extern "C" int igt_arm_step_host(const float* consts, const float* x, float* y, int B, int nd) {
+  return run_arm<float>(consts, x, y, B, nd) == 0 ? 0 : 1;
+}
+
+extern "C" long long igt_arm_step_count_ops(const float* consts, const float* x, float* y,
+                                            int B, int nd) {
+  return run_arm<igt::CountF>(consts, x, y, B, nd);
+}
 
 // K2: x is (n_in(7), B)
 extern "C" int igt_fused_substep_host(const float* consts, const float* x, float* y,

@@ -156,7 +156,8 @@ IGT_HD void fused_substep_multi_env(const float* __restrict__ c, const float* __
 #pragma unroll
   for (int a = 0; a < K; ++a)
     art_dynamics<T, ND, false>(IGT_ART(a), x, y, b, sB, a * ND, NDT, nullptr, L[a], u[a],
-                               fp[a], fq[a], axw[a]);
+                               fp[a], fq[a], axw[a], cv3<T>(IGT_ART(a) + C_BASE_P),
+                               cq4<T>(IGT_ART(a) + C_BASE_Q));
 
   const int n_static = (int)ldc(c + C_NSTATIC);
   const int ng = (int)ldc(c + C_NART);

@@ -8,7 +8,8 @@ weights, for every task of the port (C10's floating base rides in its root
 row; its policy is obs 313, act 27). ``SimState`` carries the contact
 moments (``net_contact_torque``) with the forces. The force sensors registered on a JAX asset
 (``create_asset_force_sensor``, kept on the asset as ``_force_sensors``)
-carry over to the port's asset with :func:`copy_force_sensors`. The JAX
+carry over to the port's asset with :func:`copy_force_sensors`, and a JAX
+scene's heightfield terrain (numpy arrays) with :func:`heightfield_from_jax`. The JAX
 package's per-env PRNG keys have no counterpart (the port keeps one
 ``torch.Generator`` per env object) and are dropped.
 """
@@ -22,6 +23,7 @@ import torch
 
 from isaacgym_tpu_torch.env.randomize import DRParams
 from isaacgym_tpu_torch.env.vec_task import EnvState
+from isaacgym_tpu_torch.models.terrain import Heightfield
 from isaacgym_tpu_torch.rl.normalizer import RunningStats
 from isaacgym_tpu_torch.sim.simulator import SimState
 
@@ -100,6 +102,13 @@ def copy_force_sensors(src_asset, dst_asset) -> int:
     for body, local_pos in sensors:
         create_asset_force_sensor(dst_asset, body, local_pos)
     return len(sensors)
+
+
+def heightfield_from_jax(field) -> Heightfield:
+    """The JAX package's ``Heightfield`` (numpy ``heights``, ``origin`` and
+    ``scale``) -> the port's."""
+    return Heightfield(np.asarray(field.heights, np.float32),
+                       np.asarray(field.origin, np.float32), float(field.scale))
 
 
 def to_numpy(state) -> Dict[str, Any]:

@@ -100,6 +100,10 @@ _SIGNATURES = {
     "igt_fused_substep_dr_launch": ([_VP, _VP, _VP, _IP, _IP, _IP, _VP], _IP),
     "igt_fused_substep_multi_launch": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP, _IP, _VP], _IP),
     "igt_fused_layout": ([_IP, _VP, _IP], _IP),
+    "igt_arm_step_launch": ([_VP, _VP, _VP, _IP, _IP, _VP], _IP),
+    "igt_arm_layout": ([_IP, _VP, _IP], _IP),
+    "igt_arm_step_host": ([_VP, _VP, _VP, _IP, _IP], _IP),
+    "igt_arm_step_count_ops": ([_VP, _VP, _VP, _IP, _IP], ctypes.c_longlong),
     "igt_multi_layout": ([_IP, _IP, _VP, _IP], _IP),
     "igt_fused_substep_floating_launch": ([_VP, _VP, _VP, _IP, _IP, _IP, _VP], _IP),
     "igt_floating_layout": ([_IP, _VP, _IP], _IP),

@@ -38,6 +38,12 @@ base's pos, quat, linvel, angvel, the ball's pos, vel, omega), on C10:
                (art-vs-static); needs the scene of ``raised_table_cfg``,
                whose table top is high enough that only the feet reach it
 
+``k2_state`` and ``k4_state`` make a batched ``SimState`` of a scene from
+such inputs (the non-kernel path's and the baked-root guard's checks);
+``terrain_ball_state`` puts the ball just above a heightfield terrain,
+falling onto it, over the whole field and past its edges (the ground
+contact's sampling and its clamp to the field).
+
 The force-sensor path (K2-tau, K3-tau): ``paddle_sensor_scene`` compiles a
 task's scene with a force sensor on each humanoid's paddle, and
 ``strike_state`` makes a ``SimState`` of it from a paddle_ball set: each
@@ -370,6 +376,58 @@ def strike_state(sim, kind: str, B: int, rng: np.random.RandomState, cfg=None):
     root[:, balls, 7:10] = t(bv).reshape(shape)
     root[:, balls, 10:13] = t(bw).reshape(shape)
     return state._replace(root=root, dof_pos=t(q), dof_vel=t(qd)), t(tgt)
+
+
+def k2_state(sim, ins):
+    """``(state, targets, efforts)`` on ``sim``'s device from a one-humanoid
+    scene's K2 inputs ``ins`` (numpy): the joints and the ball from ``ins``,
+    every other actor at its initial root."""
+    q, qd, tgt, eff, bp, bv, bw = (torch.as_tensor(a, device=sim.device) for a in ins)
+    state = sim.initial_state(q.shape[0])
+    root = state.root.clone()
+    ba = sim.scene.free_bodies[0].actor_index
+    root[:, ba, 0:3], root[:, ba, 7:10], root[:, ba, 10:13] = bp, bv, bw
+    return state._replace(root=root, dof_pos=q, dof_vel=qd), tgt, eff
+
+
+def k4_state(sim, ins):
+    """``(state, targets, efforts)`` from C10's K4 inputs ``ins`` (numpy):
+    the base's root, the joints and the ball from ``ins``."""
+    q, qd, tgt, eff, bp, bq, blv, bav, pos, vel, omg = (torch.as_tensor(a, device=sim.device)
+                                                       for a in ins)
+    state = sim.initial_state(q.shape[0])
+    root = state.root.clone()
+    ai = sim.scene.articulations[0].actor_index
+    ba = sim.scene.free_bodies[0].actor_index
+    root[:, ai] = torch.cat([bp, bq, blv, bav], dim=1)
+    root[:, ba, 0:3], root[:, ba, 7:10], root[:, ba, 10:13] = pos, vel, omg
+    return state._replace(root=root, dof_pos=q, dof_vel=qd), tgt, eff
+
+
+def terrain_ball_state(sim, B: int, rng: np.random.RandomState):
+    """``(state, targets, efforts)`` of a one-humanoid scene on heightfield
+    terrain: random joints and PD targets, the ball 4 mm inside to 30 mm
+    above the terrain surface at a uniform x, y over the field and 0.2 m
+    past its edges, falling onto it (vz in [-6, -1] m/s, a horizontal
+    velocity up to 2 m/s) and spinning."""
+    margin = 0.2
+    field = sim.scene.spec.terrain
+    tree = sim.scene.articulations[0].model.tree
+    lo, hi = tree.lower.astype(np.float64), tree.upper.astype(np.float64)
+    nd = tree.n_dof
+    R, Cc = field.heights.shape
+    x = rng.uniform(field.origin[0] - margin, field.origin[0] + (R - 1) * field.scale + margin, B)
+    y = rng.uniform(field.origin[1] - margin, field.origin[1] + (Cc - 1) * field.scale + margin,
+                    B)
+    h = field.sample(torch.as_tensor(np.stack([x, y], 1), dtype=torch.float32)).numpy()
+    rb = sim.scene.free_bodies[0].radius
+    bp = np.stack([x, y, h + rb + rng.uniform(-0.004, 0.03, B)], 1)
+    bv = np.stack([rng.uniform(-2.0, 2.0, B), rng.uniform(-2.0, 2.0, B),
+                   rng.uniform(-6.0, -1.0, B)], 1)
+    ins = (rng.uniform(lo, hi, (B, nd)), rng.uniform(-2.0, 2.0, (B, nd)),
+           rng.uniform(lo, hi, (B, nd)), np.zeros((B, nd)), bp, bv,
+           rng.uniform(-20.0, 20.0, (B, 3)))
+    return k2_state(sim, tuple(np.ascontiguousarray(a, dtype=np.float32) for a in ins))
 
 
 def floating_geom_poses(scene, q, base_pos, base_quat):

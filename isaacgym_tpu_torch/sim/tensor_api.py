@@ -28,6 +28,9 @@ from isaacgym_tpu_torch.sim.simulator import SimState, Simulator
 
 
 def _ids(x, like: torch.Tensor) -> torch.Tensor:
+    """Indices (a list, numpy array or tensor on any device) beside ``like``."""
+    if torch.is_tensor(x):
+        return x.to(device=like.device, dtype=torch.long)
     return torch.as_tensor(np.asarray(x), dtype=torch.long, device=like.device)
 
 

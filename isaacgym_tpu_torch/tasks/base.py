@@ -2,7 +2,10 @@
 the 3- or 4-actor scene, the randomized 3-D ball launch at reset (and, for
 C10, a randomized ball start height and side, ``BALL_START_YZ``),
 heading-local observations and PD position drive over the humanoid's
-DOFs."""
+DOFs. With ``heightmap.enabled`` the observation gains the heading-local
+terrain height grid (``:43-55``, ``:95-104``; 15 x 15 points over +-0.6 m by
+default), read from the scene's heightfield, or on a flat world the
+constant-height branch (offset minus the root height)."""
 
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ import numpy as np
 import torch
 
 from isaacgym_tpu_torch.env.vec_task import TorchVecTask
+from isaacgym_tpu_torch.models.terrain import compute_heightmap_observations, make_meshgrid
 from isaacgym_tpu_torch.sim.simulator import SimState
 from isaacgym_tpu_torch.tasks import pingpong_common as P
 
@@ -37,8 +41,18 @@ class PingpongFamilyTask(TorchVecTask):
         self._paddle_row = int(np.nonzero(self.body_states_id == self.PADDLE_BODY)[0][0])
         self.ball_actor = self.HUMANOIDS + 1   # [h1(, h2), table, ball]
         self.table_actor = self.HUMANOIDS
+        hm = env.get("heightmap") or {}
+        self._heightmap_enabled = bool(hm.get("enabled", False))
+        if self._heightmap_enabled:
+            self._hm_grid = make_meshgrid(
+                float(hm.get("xRange", 0.6)), float(hm.get("yRange", 0.6)),
+                int(hm.get("xSplit", 15)), int(hm.get("ySplit", 15)))
+            self._hm_offset = float(hm.get("heightOffset", 0.9))
+            env["numObservations"] = int(env["numObservations"]) + int(self._hm_grid.shape[0])
         super().__init__(cfg, seed=seed, device=device)
         self._init_root = torch.as_tensor(self.scene.initial_root, device=self.device)
+        if self._heightmap_enabled:
+            self._hm_grid = self._hm_grid.to(self.device)
 
     def create_scene(self):
         return P.build_pingpong_scene(self.cfg["env"], self.cfg["sim"],
@@ -78,7 +92,19 @@ class PingpongFamilyTask(TorchVecTask):
     def observe(self, sim: SimState, rb_states, flags) -> torch.Tensor:
         hum = P.compute_humanoid_observations(rb_states, sim.dof_pos, sim.dof_vel)
         ball = P.compute_pingpong_observations(rb_states, sim.root[:, self.ball_actor])
-        return torch.cat([hum, ball], dim=-1)
+        return torch.cat([hum, ball] + self.heightmap_obs(rb_states), dim=-1)
+
+    def heightmap_obs(self, rb_states):
+        """[] or [the (B, G) heightmap block] (``:95-104``)."""
+        if not self._heightmap_enabled:
+            return []
+        field = self.scene.spec.terrain
+        if field is None:   # flat world: heights are 0
+            G = self._hm_grid.shape[0]
+            return [torch.zeros_like(rb_states[:, 0, 2:3]).expand(-1, G)
+                    - rb_states[:, 0, 2:3] + self._hm_offset]
+        return [compute_heightmap_observations(rb_states, self._hm_grid, field,
+                                               height_offset=self._hm_offset)]
 
     def _common_reward_inputs(self, pre_ball_root, sim: SimState, rb_states):
         ball = sim.root[:, self.ball_actor]

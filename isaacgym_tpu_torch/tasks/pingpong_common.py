@@ -5,7 +5,10 @@ Counterpart of ``isaacgym_tpu/tasks/pingpong_common.py``: the 3- or 4-actor
 scene (``build_pingpong_scene``, ``:41``, with a fixed or a floating base),
 the launch-velocity sampler (``:129``) and the heading-local observation
 blocks (``:145``, ``:165``), written over a leading batch dimension instead
-of per env.
+of per env. ``plane.terrain`` (``:83-98``, the reference's npy path, or the
+npy's array itself) makes the scene's ground a heightfield;
+``rough_terrain_cfg`` sets a seeded one (``models/terrain.py``) over the
+floor the ball reaches.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from isaacgym_tpu_torch.models import kinematics as K
 from isaacgym_tpu_torch.models.assets import ASSET_DIR
+from isaacgym_tpu_torch.models.terrain import Heightfield, rough_heightfield_raw
 from isaacgym_tpu_torch.sim.scene import DRIVE_POS, ActorSpec, PlaneParams, SceneSpec
 from isaacgym_tpu_torch.utils import rotations as rot
 
@@ -37,9 +41,6 @@ def build_pingpong_scene(env_cfg, sim_cfg, *, humanoids=1, floating_base=False) 
     ``floating_base`` (C10's whole-body humanoid balances on its feet)."""
     sc = env_cfg["scene"]
     plane_cfg = env_cfg.get("plane", {})
-    if plane_cfg.get("terrain") or (env_cfg.get("heightmap") or {}).get("enabled"):
-        raise NotImplementedError("terrain and heightmap obs are not ported yet "
-                                  "(ROADMAP, module 9)")
     g1 = load_tree(env_cfg["asset"]["assetFileName"], floating_base=floating_base)
     table = load_tree("pingpong_table.urdf")
     ball = load_tree("small_ball.urdf")
@@ -70,6 +71,7 @@ def build_pingpong_scene(env_cfg, sim_cfg, *, humanoids=1, floating_base=False) 
         link_collision=bool(sc.get("linkCollision", env_cfg.get("linkCollision", False))),
         exact_link_support=bool(sc.get("exactLinkSupport",
                                        env_cfg.get("exactLinkSupport", True))),
+        terrain=load_terrain(env_cfg),
         plane=PlaneParams(
             static_friction=plane_cfg.get("staticFriction", 1.0),
             dynamic_friction=plane_cfg.get("dynamicFriction", 1.0),
@@ -82,6 +84,50 @@ def build_pingpong_scene(env_cfg, sim_cfg, *, humanoids=1, floating_base=False) 
         max_depenetration_velocity=float(
             sim_cfg.get("physx", {}).get("max_depenetration_velocity", 10.0)),
     )
+
+
+def load_terrain(env_cfg):
+    """The heightfield of ``plane.terrain`` (``:83-98``), or None: an npy path
+    (a missing file raises) or the npy's array, loaded transposed, with
+    ``horizontal_scale`` (0.015), the G1's vertical scale 0.75 (1.0 for
+    other assets) and the ``transform_x/y`` offsets."""
+    plane_cfg = env_cfg.get("plane", {}) or {}
+    src = plane_cfg.get("terrain")
+    if src is None or (isinstance(src, str) and not src):
+        return None
+    raw = np.load(str(src)) if isinstance(src, (str, os.PathLike)) else np.asarray(src)
+    return Heightfield.from_raw(
+        raw.T, horizontal_scale=float(plane_cfg.get("horizontal_scale", 0.015)),
+        vertical_scale=0.75 if env_cfg.get("is_g1") else 1.0,
+        transform_x=float(plane_cfg.get("transform_x", 0.0)),
+        transform_y=float(plane_cfg.get("transform_y", 0.0)))
+
+
+#: the terrain cell's field: 8 m x 6 m at the reference's 0.015 m cells,
+#: from x = -4 m (behind the humanoid, where missed balls land) to 4 m (past
+#: the ball's start at 2.9 m), y in [-3, 3] m
+TERRAIN_SIZE_M = (8.0, 6.0)
+TERRAIN_ORIGIN_M = (-4.0, -3.0)
+
+
+def rough_terrain_cfg(cfg, seed: int, size_m=TERRAIN_SIZE_M):
+    """A copy of a task config on the seeded rough heightfield
+    (``rough_heightfield_raw``) of ``size_m`` from ``TERRAIN_ORIGIN_M``, with
+    the heightmap observation block at the reference's defaults (15 x 15
+    points, +-0.6 m, height offset 0.9)."""
+    import copy
+    out = copy.deepcopy(cfg)
+    env = out["env"]
+    plane = dict(env.get("plane", {}) or {})
+    hs = float(plane.get("horizontal_scale", 0.015))
+    rows = int(np.ceil(size_m[0] / hs)) + 1
+    cols = int(np.ceil(size_m[1] / hs)) + 1
+    # the npy holds the transposed grid: (cols, rows)
+    plane.update(terrain=rough_heightfield_raw(seed, rows, cols, hs).T, horizontal_scale=hs,
+                 transform_x=TERRAIN_ORIGIN_M[0], transform_y=TERRAIN_ORIGIN_M[1])
+    env["plane"] = plane
+    env["heightmap"] = {"enabled": True}
+    return out
 
 
 def sample_ball_velocity(n, speed_range, tilt_range_deg, tilt_z_range_deg,

@@ -73,6 +73,15 @@ state10, obs10 = env10.reset()
 state10, obs10, rew10, done10, info10 = env10.step(state10, torch.zeros(2, 27))
 assert obs10.shape == (2, 313) and bool(torch.isfinite(obs10).all())
 assert env10.sim.fused_substep_floating is not None
+from isaacgym_tpu_torch.tasks.pingpong_common import rough_terrain_cfg
+from isaacgym_tpu_torch.utils.config import load_task_config
+envt = isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpongTiltNoEarlyStopG1", num_envs=2,
+                               device="cpu", cfg=rough_terrain_cfg(load_task_config(
+                                   "HumanoidPingpongTiltNoEarlyStopG1"), 0, size_m=(1.0, 1.0)))
+statet, obst = envt.reset()
+statet, obst, rewt, donet, infot = envt.step(statet, torch.zeros(2, 7))
+assert obst.shape == (2, 305) and bool(torch.isfinite(obst).all())
+assert envt.sim.route == "k1" and envt.sim.arm_steps is not None
 from isaacgym_tpu_torch.sim import scripted, tensor_api
 from isaacgym_tpu_torch.sim.simulator import Simulator
 from isaacgym_tpu_torch.utils.config import load_task_config
