@@ -8,7 +8,7 @@ Each phase prints one JSON line with its seconds:
   build   one nvcc per csrc/*.cu, started together, into build/kernels/
           (and g++ the host loop that counts the kernels' operations), wall
           seconds, and ptxas's registers, stack and spills of K1, K2,
-          K2-dr, K2-tau, K2-dr-tau, K3, K3-tau and K4;
+          K2-dr, K2-tau, K2-dr-tau, K3, K3-tau, K4 and K4-tau;
   k2/*    the fused-substep kernel against its plain PyTorch version on the
           card, B = 4096, one substep from each state set (reset, rollout
           after 60 steps, paddle_ball, paddle_table, ball_rest), the plain
@@ -43,8 +43,15 @@ Each phase prints one JSON line with its seconds:
           the two-arm, two-ball scene with paddle sensors (ball_ball, whose
           ball-pair moments the JAX package's tests never reach, and
           effort); k3tau_timing its time and bound;
-  tau_gates  each tau kernel's output with its geom or its ball moment rows
-          zeroed, or negated, must fail the moment gates on some set;
+  k4tau/*  K4-tau, the torque-lane build of K4, on C10 with a paddle sensor
+          (raised table for table) at 2048 envs, on K4's five sets (below)
+          under k4/*'s comparison, the moment rows compared on their own at
+          TOL; strike and table must reach non-zero geom moments (the ball's
+          reactions, art-vs-static); k4tau_timing its time, plain version,
+          bound and ptxas usage;
+  tau_gates  each tau kernel's (K2-tau, K2-dr-tau, K3-tau, K4-tau) output
+          with its geom or its ball moment rows zeroed, or negated, must
+          fail the moment gates on some set;
   k4/*    K4, the floating-base kernel, against its plain version on C10
           at its 2048 envs under the same comparison, the base's pose and
           velocities gated as q and qd are, flip rate at most 0.2 % as K2's:
@@ -86,16 +93,17 @@ Each phase prints one JSON line with its seconds:
           K3's share;
   c6_main 100 steps of C6 (HumanoidPingpongTiltG1) at 4096 envs: K2
           exactly 2 per step, every state finite;
-  sensors/flagship, sensors/c8  the force-sensor path at 4096 envs: the
-          scene with a sensor on each paddle (create_asset_force_sensor), 100
-          Simulator.step calls from scripted off-centre strikes re-launched
-          every 10 steps, each read with acquire_force_sensor_tensor: K2-tau
-          (K3-tau on C8) exactly 2 launches per step, every strike (force
-          above 0.1 N) reads a non-zero moment; env-steps/s and
-          microseconds per acquire_force_sensor_tensor; then the first
-          strike step's sensor force and moment lanes against the same step
-          through the plain version in float32 and float64 (SENSOR_TOL
-          beyond the float32 run's rounding);
+  sensors/flagship, sensors/c8, sensors/c10  the force-sensor path at
+          4096 envs (C10 at 2048): the scene with a sensor on each paddle
+          (create_asset_force_sensor), 100 Simulator.step calls from scripted
+          off-centre strikes re-launched every 10 steps, each read with
+          acquire_force_sensor_tensor: K2-tau (K3-tau on C8, K4-tau on C10)
+          exactly 2 launches per step, every strike (force above 0.1 N)
+          reads a non-zero moment; env-steps/s and microseconds per
+          acquire_force_sensor_tensor; then the first strike step's sensor
+          force and moment lanes against the same step through the plain
+          version in float32 and float64 (SENSOR_TOL beyond the float32
+          run's rounding);
   c10_main  make(seed=0, C10, 2048 envs), 3 windows of 100 steps under
           random actions: K4 exactly 2 launches per step, every state
           finite; env-steps/s and ms per step;
@@ -136,7 +144,23 @@ Each phase prints one JSON line with its seconds:
   terrain_train  2 epochs of the terrain flagship without DR at 4096 envs,
           every env 29 steps from its episode's end: K1 exactly 2 x 32
           launches per epoch, episodes of 169, every metric finite, the loss
-          on the first minibatch falls.
+          on the first minibatch falls;
+  dr/c8, dr/c10  make(..., task.randomize=true) at 4096 and 2048 envs, DR
+          at full strength (global step 3000), 20 env steps under random
+          actions: the non-kernel step, K3 and K4 launched 0 times, every
+          state finite, env-steps/s; then from the last state one
+          Simulator.step with an identity DR channel against the kernel
+          route's step (within NONKERNEL_GATE, flip-aware; not the contact
+          moments, which the sensor-less kernel route leaves at zero) and
+          one with the full-strength channel, which must fail that gate;
+  dr_train/c8, dr_train/c10  one PPO epoch each on its train config with
+          task.randomize=true: every metric finite, K3 and K4 launched 0
+          times, seconds per epoch;
+  routes/biped, routes/arm3  the JAX tests' 4-DOF floating biped and a
+          3-DOF single-ball arm, shapes no kernel library is built for:
+          Simulator on the card takes "nonkernel" and holds no kernel, and
+          one step from a seeded random state equals the CPU's non-kernel
+          step within NONKERNEL_GATE, flip-aware.
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; with
 no CUDA device, or run outside the repository, it exits non-zero at once.
@@ -177,6 +201,14 @@ TOL = dict(q_new=1e-4, ball_pos=1e-4, ball_vel=1e-4, qd_new=1e-3, tau=1e-3,
 # JAX package's step holds them so)
 SENSOR_TOL = dict(force=1e-2, moment=1e-3)
 MAX_FLIP_RATE = 0.002
+# the non-kernel step against another route's step or another device's,
+# per SimState field (tests/test_torch_nonkernel.py's GATE and GATE_C10,
+# which hold it to the JAX package's XLA step); an env whose root lands more
+# than 0.1 apart is a flip
+NONKERNEL_GATE = dict(root=1e-2, dof_pos=1e-5, dof_vel=2e-3, dof_force=1e-3,
+                      net_contact_force=0.05, net_contact_torque=2e-3)
+NONKERNEL_GATE_C10 = dict(root=5e-3, dof_pos=1e-5, dof_vel=3e-3, dof_force=5e-3,
+                          net_contact_force=0.1, net_contact_torque=5e-3)
 C_F32 = 1.0                    # see compare
 
 
@@ -276,7 +308,8 @@ def check_kernel(phase, kernel, plain, ins, extra=(), fields=None, ok=True, why=
     if moments:
         ng, nb = moments
         rows = {"geom_moments": slice(-(ng + nb), -nb), "ball_moments": slice(-nb, None)}
-        out["max_moment"] = {f: float(got.impulses[:, r].abs().max()) for f, r in rows.items()}
+        out["max_moment"] = res["max_moment"] = {f: float(got.impulses[:, r].abs().max())
+                                                 for f, r in rows.items()}
         res["wrong_moments_rejected"] = []
         for how, scale in (("zeroed", 0.0), ("negated", -1.0)):
             for f, r in rows.items():
@@ -426,19 +459,22 @@ def k3_checks(dev, host):
                 bound_by=t["bound_by"])
 
 
-def tau_checks(dev, host, k2_sets, rz):
+def tau_checks(dev, host, k2_sets, rz, k4_sets):
     """K2-tau (the torque lanes of K2, for scenes with a force sensor) against
     its plain version in float32 and float64 on K2's five state sets, on the
     flagship scene with a paddle sensor (raised-table scene for
     paddle_table); K2-dr-tau on two of them; then K3-tau on C8 with a sensor
     on each paddle (C8's five sets) and on the two-arm, two-ball scene with
-    paddle sensors (ball_ball, effort). Then each kernel's timing and bound,
-    and a check that the moment gates reject each kernel's output with its
-    geom or its ball moment rows zeroed or negated. Returns the kernels-line
-    numbers of K2-tau and K3-tau; raises on any failed gate."""
+    paddle sensors (ball_ball, effort); then K4-tau on C10 with a paddle
+    sensor on K4's five sets (``k4_sets``; raised-table scene for table).
+    Then each kernel's timing and bound, and a check that the moment gates
+    reject each kernel's output with its geom or its ball moment rows zeroed
+    or negated. Returns the kernels-line numbers of K2-tau, K2-dr-tau, K3-tau
+    and K4-tau; raises on any failed gate."""
     import numpy as np
     import torch
     from isaacgym_tpu_torch.ops import fused_substep as F
+    from isaacgym_tpu_torch.ops import fused_substep_floating as FF
     from isaacgym_tpu_torch.ops import fused_substep_multi as M
     from isaacgym_tpu_torch.sim import scripted
     from isaacgym_tpu_torch.sim.scene import DRIVE_EFFORT, DRIVE_POS
@@ -529,10 +565,26 @@ def tau_checks(dev, host, k2_sets, rz):
         plain = lambda *a, k=k: M.fused_substep_multi_reference(k.device_consts(dev), *a,
                                                                 with_torque=True)
         fold(k3, check_kernel(f"k3tau/{name}", k, plain, ins))
+
+    # K4-tau on C10 with a paddle sensor, on K4's sets (the same packs)
+    c10sims = {raised: Simulator(scripted.paddle_sensor_scene(
+        scripted.raised_table_cfg(load_task_config(C10)) if raised else load_task_config(C10),
+        floating_base=True), device=dev) for raised in (False, True)}
+    k4 = {"max_err": {}, "excess": {}}
+    for name, (e, ins) in k4_sets.items():
+        k = c10sims[name == "table"].fused_substep_floating
+        if not k.with_torque or not np.array_equal(k.consts, e.sim.fused_substep_floating.consts):
+            raise SystemExit("k4tau: the sensor scene's pack differs from C10's")
+        plain = lambda *a, k=k: FF.floating_substep_plain(k.device_consts(dev), *a,
+                                                          with_torque=True)
+        res = check_kernel(f"k4tau/{name}", k, plain, ins, fields={"num_envs": B10})
+        if name in ("strike", "table") and not res["max_moment"]["geom_moments"] > 0:
+            raise SystemExit(f"k4tau/{name}: no geom moment reached: {res['max_moment']}")
+        fold(k4, res)
     # the moment gates bite: each kernel's output with its geom or its ball
     # moment rows zeroed, or negated, fails them on some set
     rejected = {n: acc.pop("wrong_moments_rejected")
-                for n, acc in (("k2tau", k2), ("k2drtau", k2dr), ("k3tau", k3))}
+                for n, acc in (("k2tau", k2), ("k2drtau", k2dr), ("k3tau", k3), ("k4tau", k4))}
     emit({"phase": "tau_gates", "wrong_moments_rejected": rejected})
     wrong = {f"{f} {how}" for how in ("zeroed", "negated")
              for f in ("geom_moments", "ball_moments")}
@@ -552,7 +604,25 @@ def tau_checks(dev, host, k2_sets, rz):
         + 4 * k.consts.size, plain_repeats=5)
     k3.update(ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
               bound_by=t["bound_by"])
-    return k2, k2dr, k3
+
+    # K4-tau timing on K4's random-action states
+    _, ins = k4_sets["random"]
+    k = c10sims[False].fused_substep_floating
+    x = FF.pack_inputs(*ins)
+    xc, cc = x.cpu(), torch.as_tensor(k.consts)
+    yc = torch.empty((FF.n_out(k.nd, k.ng, True), B10))
+    consts = k.device_consts(dev)
+    usage = ptxas_usage("libigt_fused_substep_floating.so", "Lb1E")
+    t = time_kernel(
+        "k4tau_timing", lambda: k.launch(x), lambda: k(*ins),
+        lambda: FF.floating_substep_plain(consts, *ins, with_torque=True),
+        host.igt_fused_substep_floating_tau_count_ops(cc.data_ptr(), xc.data_ptr(),
+                                                      yc.data_ptr(), B10, k.nd),
+        4 * B10 * (FF.n_in(k.nd) + FF.n_out(k.nd, k.ng, True)) + 4 * k.consts.size,
+        plain_repeats=3, b=B10, fields={"num_envs": B10, **usage})
+    k4.update(ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+              bound_by=t["bound_by"], **usage)
+    return k2, k2dr, k3, k4
 
 
 def sensor_vs_plain(sim, state, tgt, eff):
@@ -565,12 +635,14 @@ def sensor_vs_plain(sim, state, tgt, eff):
     |plain32 - plain64|``. Raises if they disagree."""
     import copy
     from isaacgym_tpu_torch.ops import fused_substep as F
+    from isaacgym_tpu_torch.ops import fused_substep_floating as FF
     from isaacgym_tpu_torch.ops import fused_substep_multi as M
     from isaacgym_tpu_torch.sim import tensor_api as T
-    name = "fused_substep" if sim.fused_substep_multi is None else "fused_substep_multi"
+    name, ref = next((n, r) for n, r in (
+        ("fused_substep_floating", FF.floating_substep_plain),
+        ("fused_substep_multi", M.fused_substep_multi_reference),
+        ("fused_substep", F.fused_substep_reference)) if getattr(sim, n) is not None)
     consts = getattr(sim, name).device_consts(state.root.device)
-    ref = F.fused_substep_reference if name == "fused_substep" else \
-        M.fused_substep_multi_reference
     plain = copy.copy(sim)
     setattr(plain, name, lambda *a: ref(consts, *a, with_torque=True))
     w = T.acquire_force_sensor_tensor(sim, sim.step(state, tgt, eff))
@@ -594,11 +666,11 @@ def sensor_vs_plain(sim, state, tgt, eff):
 
 
 def sensor_path(dev, steps=100, relaunch_every=10):
-    """The force-sensor path at full width: the flagship scene, then C8, each
-    with a sensor on every paddle (``create_asset_force_sensor``), 4096
-    envs, ``steps`` calls of ``Simulator.step`` from scripted off-centre
-    strikes (re-launched every ``relaunch_every`` steps), each read through
-    ``acquire_force_sensor_tensor``. Checks that every strike (a sensor
+    """The force-sensor path at full width: the flagship scene, then C8 (4096
+    envs), then C10 (2048), each with a sensor on every paddle
+    (``create_asset_force_sensor``), ``steps`` calls of ``Simulator.step``
+    from scripted off-centre strikes (re-launched every ``relaunch_every``
+    steps), each read through ``acquire_force_sensor_tensor``. Checks that every strike (a sensor
     force above 0.1 N) reads a non-zero moment, and after the run the first
     strike step's sensor lanes against the same step through the plain
     version (``sensor_vs_plain``). Returns the kernels' launch counts of
@@ -613,28 +685,42 @@ def sensor_path(dev, steps=100, relaunch_every=10):
     from isaacgym_tpu_torch.utils.config import load_task_config
 
     out, launches = {}, {}
-    for label, task, humanoids, kinds in (("flagship", TASK, 1, ("paddle_ball",)),
-                                          ("c8", C8, 2, ("paddle_ball1", "paddle_ball2"))):
+    for label, task, humanoids, kinds, b in (
+            ("flagship", TASK, 1, ("paddle_ball",), B),
+            ("c8", C8, 2, ("paddle_ball1", "paddle_ball2"), B),
+            ("c10", C10, 1, ("strike",), B10)):
         t0 = time.perf_counter()
-        sim = Simulator(scripted.paddle_sensor_scene(load_task_config(task), humanoids),
+        cfg = load_task_config(task)
+        floating = label == "c10"
+        sim = Simulator(scripted.paddle_sensor_scene(cfg, humanoids, floating_base=floating),
                         device=dev)
-        k = sim.fused_substep if humanoids == 1 else sim.fused_substep_multi
+        k = (sim.fused_substep_floating if floating else
+             sim.fused_substep if humanoids == 1 else sim.fused_substep_multi)
         rng = np.random.RandomState(7)
-        state, tgt = scripted.strike_state(sim, kinds[0], B, rng)
-        eff = torch.zeros_like(tgt)
+
+        def strike(kind):
+            """A strike state, its targets and efforts."""
+            if floating:
+                env = types.SimpleNamespace(scene=sim.scene, cfg=cfg)
+                return scripted.k4_state(sim, scripted.k4_inputs(env, kind, b, rng))
+            state, tgt = scripted.strike_state(sim, kind, b, rng)
+            return state, tgt, torch.zeros_like(tgt)
+
+        state, tgt, eff = strike(kinds[0])
         sim.step(state, tgt, eff)   # warm-up
         torch.cuda.synchronize()
-        for kk in (sim.fused_substep, sim.fused_substep_dr, sim.fused_substep_multi):
+        wrappers = (sim.fused_substep, sim.fused_substep_dr, sim.fused_substep_multi,
+                    sim.fused_substep_floating)
+        for kk in wrappers:
             if kk is not None:
                 kk.launches = 0
         step_s, read_s, strikes, moments = 0.0, 0.0, 0, 0
         rows = torch.as_tensor(sim.scene.force_sensor_bodies, device=dev)
         for i in range(steps):
             if i % relaunch_every == 0:
-                state, tgt = scripted.strike_state(sim, kinds[(i // relaunch_every) % len(kinds)],
-                                                   B, rng)
+                state, tgt, eff = strike(kinds[(i // relaunch_every) % len(kinds)])
                 if i == 0:
-                    first = (state, tgt)
+                    first = (state, tgt, eff)
             torch.cuda.synchronize()
             ts = time.perf_counter()
             state = sim.step(state, tgt, eff)
@@ -651,24 +737,31 @@ def sensor_path(dev, steps=100, relaunch_every=10):
         launches[label] = k.launches
         if sim.fused_substep_dr is not None:   # K2-dr-tau: DR is off on this path
             launches[f"{label}_dr"] = sim.fused_substep_dr.launches
-        out[label] = {"num_envs": B, "steps": steps, "sensors": int(rows.numel()),
-                      "launches": k.launches, "env_steps_per_s": B * steps / step_s,
+        # every kernel of the scene is the torque build: no sensor-less one ran
+        sensorless = sum(kk.launches for kk in wrappers
+                         if kk is not None and not kk.with_torque)
+        out[label] = {"num_envs": b, "steps": steps, "sensors": int(rows.numel()),
+                      "launches": k.launches, "sensorless_launches": sensorless,
+                      "env_steps_per_s": b * steps / step_s,
                       "us_per_acquire_force_sensor_tensor": read_s / steps * 1e6,
                       "strikes": strikes, "strikes_with_moment": moments, "finite": finite}
-        if k.launches != 2 * steps or not finite or strikes == 0 or moments != strikes:
+        if (k.launches != 2 * steps or sensorless or not finite or strikes == 0
+                or moments != strikes):
             raise SystemExit(f"sensors/{label}: {out[label]}")
-        out[label]["vs_plain_step"] = sensor_vs_plain(sim, *first, eff)
+        out[label]["vs_plain_step"] = sensor_vs_plain(sim, *first)
         out[label]["seconds"] = time.perf_counter() - t0
         emit({"phase": f"sensors/{label}", **out[label]})
     return launches, out
 
 
-def ptxas_usage(lib_name):
-    """Registers, stack frame and spill bytes of a library's kernels from
-    its ``ptxas -v`` output (the build of this run)."""
+def ptxas_usage(lib_name, entry=""):
+    """Registers, stack frame and spill bytes of a library's kernels whose
+    mangled name holds ``entry`` (all by default), from its ``ptxas -v``
+    output (the build of this run)."""
     import re
     from isaacgym_tpu_torch.ops import _build
-    log = _build.build_logs.get(lib_name, "")
+    blocks = _build.build_logs.get(lib_name, "").split("Compiling entry function")[1:]
+    log = "".join(b for b in blocks if entry in b.splitlines()[0])
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
     stack = [int(m) for m in re.findall(r"(\d+) bytes stack frame", log)]
     spills = [int(a) + int(b) for a, b in re.findall(
@@ -776,7 +869,7 @@ def k4_checks(dev, host):
     consts = k.device_consts(dev)
     xc, cc = x.cpu(), torch.as_tensor(k.consts)
     yc = torch.empty((FF.n_out(k.nd, k.ng), B10))
-    usage = ptxas_usage("libigt_fused_substep_floating.so")
+    usage = ptxas_usage("libigt_fused_substep_floating.so", "Lb0E")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = (B10 + 31) // 32
     t = time_kernel(
@@ -790,7 +883,120 @@ def k4_checks(dev, host):
                 "sms_with_a_warp": min(blocks, sms),
                 "warps_per_busy_sm": blocks / min(blocks, sms)})
     return dict(acc, ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                bound_by=t["bound_by"], **usage)
+                bound_by=t["bound_by"], **usage), sets
+
+
+def nonkernel_compare(got, want, gate):
+    """Two ``SimState``s, the non-kernel step's and another route's or
+    device's, per field over the envs that are not flips (root more than 0.1
+    apart): the largest deviation, whether every field is within ``gate``,
+    and the flip rate (``tests/test_torch_nonkernel.py``'s ``_compare``)."""
+    import torch
+    n = got.root.shape[0]
+    d_root = (got.root - want.root.to(got.root.device)).abs().reshape(n, -1).max(dim=1).values
+    clean = d_root <= 0.1
+    dev = {}
+    for f in got._fields:
+        d = (getattr(got, f) - getattr(want, f).to(got.root.device)).abs()[clean]
+        dev[f] = float(d.max()) if d.numel() else 0.0
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    flip_rate = float((~clean).float().mean())
+    within = (all(dev[f] <= gate[f] for f in gate) and flip_rate <= MAX_FLIP_RATE
+              and finite)
+    return {"max_dev": dev, "flip_rate": flip_rate, "finite": finite, "within_gate": within}
+
+
+def dr_checks(dev, steps=20):
+    """Domain randomization on C8 (4096 envs) and C10 (2048): ``make`` with
+    ``task.randomize=true``, every DR term at full strength (global step
+    3000), ``steps`` env steps under random actions through the non-kernel
+    step (K3 and K4 launched 0 times), every state finite; then from the
+    last state one ``Simulator.step`` with an identity channel against the
+    kernel route's step (within the non-kernel gate) and one with the
+    full-strength channel, which must differ beyond it. Returns the phases'
+    numbers; raises on any failed check."""
+    import copy
+    import torch
+    import isaacgym_tpu_torch
+    from isaacgym_tpu_torch.env.randomize import identity_params
+    from isaacgym_tpu_torch.utils.config import load_task_config
+
+    out = {}
+    for label, task, b, act, gate in (("c8", C8, B, 14, NONKERNEL_GATE),
+                                      ("c10", C10, B10, 27, NONKERNEL_GATE_C10)):
+        t0 = time.perf_counter()
+        cfg = copy.deepcopy(load_task_config(task))
+        cfg["task"]["randomize"] = True
+        env = isaacgym_tpu_torch.make(seed=0, task=task, num_envs=b, cfg=cfg)
+        sim = env.sim
+        k = sim.fused_substep_multi if label == "c8" else sim.fused_substep_floating
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(9)
+        act_fn = lambda: torch.rand((b, act), generator=gen, device=dev) * 2 - 1
+        state, obs = env.reset()
+        state = state._replace(global_step=torch.full_like(state.global_step, 3000),
+                               dr=env.randomizer.sample(env.generator, 3000, b))
+        state, *_ = env.step(state, act_fn())   # warm-up
+        torch.cuda.synchronize()
+        k.launches = 0
+        tw = time.perf_counter()
+        for _ in range(steps):
+            state, obs, rew, done, info = env.step(state, act_fn())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tw
+        launches = k.launches
+        finite = all(bool(torch.isfinite(t).all()) for t in state.sim) and bool(
+            torch.isfinite(obs).all() and torch.isfinite(rew).all())
+        tgt, eff = env.action_to_drive(act_fn())
+        kernel_step = sim.step(state.sim, tgt, eff)
+        # the sensor-less kernel route leaves net_contact_torque at zero and
+        # the non-kernel step fills it: every other field is compared
+        gate = {f: v for f, v in gate.items() if f != "net_contact_torque"}
+        ident = nonkernel_compare(sim.step(state.sim, tgt, eff,
+                                           identity_params(env.scene.num_dofs, b, dev)),
+                                  kernel_step, gate)
+        full = nonkernel_compare(sim.step(state.sim, tgt, eff, state.dr), kernel_step, gate)
+        out[label] = {"num_envs": b, "steps": steps, "route": sim.route,
+                      "kernel_launches": launches, "finite": finite,
+                      "env_steps_per_s": b * steps / wall, "ms_per_step": wall / steps * 1e3,
+                      "identity_vs_kernel_step": ident, "full_strength_vs_kernel_step": full,
+                      "seconds": time.perf_counter() - t0}
+        emit({"phase": f"dr/{label}", **out[label]})
+        if launches or not finite or not ident["within_gate"] or full["within_gate"]:
+            raise SystemExit(f"dr/{label}: {out[label]}")
+    return out
+
+
+def route_checks(dev, b=1024):
+    """Scenes at shapes no kernel library is built for, the JAX tests' 4-DOF
+    floating biped and a 3-DOF single-ball arm: on the card the simulator
+    takes the non-kernel route and holds no kernel, and one step from a
+    seeded random state equals the CPU's non-kernel step from the same
+    state within the non-kernel gate. Raises on any failed check."""
+    import numpy as np
+    import torch
+    from isaacgym_tpu_torch.sim import scripted
+    from isaacgym_tpu_torch.sim.simulator import Simulator
+
+    for label, scene_fn, gate in (("biped", scripted.toy_biped_scene, NONKERNEL_GATE_C10),
+                                  ("arm3", scripted.toy_arm_scene, NONKERNEL_GATE)):
+        t0 = time.perf_counter()
+        scene = scene_fn()
+        sim, cpu = Simulator(scene, device=dev), Simulator(scene, device="cpu")
+        kernels = [n for n in ("arm_steps", "fused_substep", "fused_substep_dr",
+                               "fused_substep_multi", "fused_substep_floating")
+                   if getattr(sim, n) is not None]
+        state, tgt, eff = scripted.random_state(cpu, b, np.random.RandomState(11))
+        want = cpu.step_nonkernel(state, tgt, eff)
+        got = sim.step(type(state)(*[t.to(dev) for t in state]), tgt.to(dev), eff.to(dev))
+        res = nonkernel_compare(got, want, gate)
+        emit({"phase": f"routes/{label}", "num_envs": b, "route": sim.route,
+              "route_on_cpu": cpu.route, "kernels_held": kernels,
+              "dofs": [sl.model.tree.n_dof for sl in scene.articulations],
+              "contact_envs": int((got.net_contact_force.abs().sum((1, 2)) > 0).sum()),
+              **res, "seconds": time.perf_counter() - t0})
+        if sim.route != "nonkernel" or kernels or not res["within_gate"]:
+            raise SystemExit(f"routes/{label}: route {sim.route}, kernels {kernels}, {res}")
 
 
 def terrain_env(b, seed=0):
@@ -1231,11 +1437,13 @@ def main():
     # ---- 2c: K3 against its plain version, and its timing
     k3 = k3_checks(dev, host)
 
-    # ---- 2d: K2-tau, K2-dr-tau and K3-tau against their plain versions, timings
-    k2tau, k2drtau, k3tau = tau_checks(dev, host, sets, rz)
+    # ---- 2d: K4 against its plain version on C10, the gates' bite, its timing
+    k4, k4_sets = k4_checks(dev, host)
 
-    # ---- 2e: K4 against its plain version on C10, the gates' bite, its timing
-    k4 = k4_checks(dev, host)
+    # ---- 2e: K2-tau, K2-dr-tau, K3-tau and K4-tau against their plain
+    # versions, the moment gates' bite, timings
+    k2tau, k2drtau, k3tau, k4tau = tau_checks(dev, host, sets, rz, k4_sets)
+    del k4_sets
 
     # ---- 2f: K1 against its plain version on the flagship arm, its timing
     env_t = terrain_env(B)
@@ -1389,7 +1597,7 @@ def main():
                          f"finite={finite}")
     del env6, state, obs
 
-    # ---- 4d: the force-sensor path through K2-tau and K3-tau
+    # ---- 4d: the force-sensor path through K2-tau, K3-tau and K4-tau
     tau_launches, _ = sensor_path(dev)
 
     # ---- 4e: the C10 env step through K4, at its 2048 envs
@@ -1693,6 +1901,33 @@ def main():
     # ---- 7d: terrain training through K1, without DR
     k1_train_launches = terrain_train(dev)
 
+    # ---- 7e: DR on C8 and C10 through the non-kernel step: env steps, then
+    # one PPO epoch each
+    dr_checks(dev)
+    for label, task, b in (("c8", C8, B), ("c10", C10, B10)):
+        t0 = time.perf_counter()
+        env_d, trainer_d = trainer_for(["task.randomize=true"], task=task, b=b)
+        ts_d = trainer_d.init_state()
+        state_d, obs_d = env_d.reset()
+        k_d = env_d.sim.fused_substep_multi if label == "c8" else env_d.sim.fused_substep_floating
+        torch.cuda.synchronize()
+        k_d.launches = 0
+        te = time.perf_counter()
+        ts_d, state_d, obs_d, metrics_d = trainer_d.train_epoch(ts_d, state_d, obs_d)
+        torch.cuda.synchronize()
+        m = {k_: float(v) for k_, v in metrics_d.items()}
+        row = {"num_envs": b, "route": env_d.sim.route, "kernel_launches": k_d.launches,
+               "epoch_s": time.perf_counter() - te,
+               "finite": all(math.isfinite(v) for v in m.values()),
+               **{k_: m[k_] for k_ in ("reward_mean", "a_loss", "c_loss", "kl")}}
+        emit({"phase": f"dr_train/{label}", **row, "seconds": time.perf_counter() - t0})
+        if k_d.launches or not row["finite"]:
+            raise SystemExit(f"dr_train/{label}: {row}")
+        del env_d, trainer_d, ts_d, state_d, obs_d
+
+    # ---- 7f: shapes no kernel library is built for take the non-kernel step
+    route_checks(dev)
+
     # ---- 8: the kernels line, the card, the verdict
     emit({"kernels": [{
         "name": "arm_step", "route": "cuda",
@@ -1755,7 +1990,13 @@ def main():
         "launches": c10_launches, "launches_by_path": {
             "c10_main": c10_launches, "c10_train": c10_train_launches},
         **k4, "library_ms": None, "us": k4["ms"] * 1e3, "plain_us": k4["plain_ms"] * 1e3,
-        "bound_us": k4["bound_ms"] * 1e3}]})
+        "bound_us": k4["bound_ms"] * 1e3}, {
+        "name": "fused_substep_floating_tau", "route": "cuda",
+        "source": "isaacgym_tpu_torch/csrc/fused_substep_floating.cu",
+        "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:2225 (with_torque=True)",
+        "launches": tau_launches["c10"], "launches_by_path": {"sensors": tau_launches["c10"]},
+        **k4tau, "library_ms": None, "us": k4tau["ms"] * 1e3,
+        "plain_us": k4tau["plain_ms"] * 1e3, "bound_us": k4tau["bound_ms"] * 1e3}]})
     print(f"total seconds {time.perf_counter() - t_all:.1f}", file=sys.stderr)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,8 +1,10 @@
 // K4, the fused physics substep of one floating-base humanoid with one ball
-// (the 27-DOF whole-body C10 scene): the per-env body.
+// (the 27-DOF whole-body C10 scene), and its torque-lane build K4-tau: the
+// per-env body.
 //
 // Replaces isaacgym_tpu/ops/pallas_dynamics.py:2225
-// (build_fused_substep_floating, with_torque=False), in its order:
+// (build_fused_substep_floating; K4 with with_torque=False, K4-tau with
+// with_torque=True, the compile-time WITH_TORQUE), in its order:
 // PD or effort drive with the effort clamp -> FK from the runtime base pose
 // -> velocity and bias propagation with the base composite link (link ND,
 // moved only by the six base columns) -> per link its world COM, inertia,
@@ -17,6 +19,17 @@
 // every articulated geom against the true statics (Baumgarte with exact
 // support and K2's 2 mm resting band) -> every articulated geom's bounding
 // sphere against the ground (the feet) -> the ball's caps and integration.
+//
+// K4-tau (WITH_TORQUE) also writes the force sensors' moment rows after the
+// impulse rows (pallas_dynamics.py:2652-2658, :2693-2696, :2762-2767,
+// :2834-2837, :2879-2884): each articulated geom body's contact moment about
+// its frame origin (the link's post-step origin plus its rotated body_off,
+// A_BODY_OFF) from the ball's reactions and the art-vs-static impulses, and
+// the ball's moment about its centre from the plane, the statics and the
+// articulation; the articulated geoms' ground contacts stay unrecorded, as
+// in the JAX package. It is built only for scenes that register a force
+// sensor; WITH_TORQUE = false compiles to K4 unchanged. Its moment
+// accumulators add 3 FL_MAX_ART floats to the thread's local memory.
 //
 // The same header is compiled two ways, as K2's: inside the __global__
 // wrapper of fused_substep_floating.cu (one thread per env, nvcc, sm_90a)
@@ -69,9 +82,12 @@ IGT_HD constexpr int fl_pair_off(int nd) { return fl_art_off(nd) + FL_MAX_ART * 
 IGT_HD constexpr int fl_total(int nd) { return fl_pair_off(nd) + FL_MAX_PAIRS * PAIR_STRIDE; }
 // inputs: q, qd, targets, efforts (nd each), base pos, quat, linvel, angvel,
 // ball pos, vel, omega; outputs: q, qd, tau, the base's and the ball's
-// state (22 rows), then ng + 1 impulse rows
+// state (22 rows), then ng + 1 impulse rows, and with the torque lanes ng + 1
+// moment rows
 IGT_HD constexpr int fl_n_in(int nd) { return 4 * nd + 22; }
-IGT_HD constexpr int fl_n_out(int nd, int ng) { return 3 * nd + 22 + 3 * (ng + 1); }
+IGT_HD constexpr int fl_n_out(int nd, int ng, bool with_torque = false) {
+  return 3 * nd + 22 + 3 * (ng + 1) * (with_torque ? 2 : 1);
+}
 
 // Fills ``out`` with the layout in the order of fused_substep_floating.py's
 // _LAYOUT_KEYS, so the Python side can check it.
@@ -158,6 +174,16 @@ IGT_HD void geom_pose(const FloatArt<T, ND>& a, const float* g, V3<T>& gp, Q4<T>
   const Q4<T> lq = link < 0 ? a.bq : a.fq[link];
   gp = add(lp, qrot(lq, cv3<T>(g + A_OFF_POS)));
   gq = qmul(lq, cq4<T>(g + A_OFF_QUAT));
+}
+
+// The world position of entry g's body frame origin, the point its moments
+// are taken about (borg_of, pallas_dynamics.py:2660-2664).
+template <class T, int ND>
+IGT_HD V3<T> body_origin(const FloatArt<T, ND>& a, const float* g) {
+  const int link = (int)ldc(g + A_LINK);
+  const V3<T> lp = link < 0 ? a.bp : a.fp[link];
+  const Q4<T> lq = link < 0 ? a.bq : a.fq[link];
+  return add(lp, qrot(lq, cv3<T>(g + A_BODY_OFF)));
 }
 
 // The NV Jacobian columns of world point p on ``link`` (-1: the base).
@@ -470,10 +496,13 @@ IGT_HD void floating_dynamics(const float* __restrict__ c, const float* __restri
 // The ball against articulated geom entry g: swept CCD along the relative
 // motion, gated restitution, spin friction, the reaction through the factor
 // into the whole generalized velocity. Returns whether it acted; P is the
-// impulse on the ball.
-template <class T, int ND>
+// impulse on the ball. With WITH_TORQUE the contact's moments are added:
+// about the ball's centre (lever -r n_now) to ball_tq, and about the geom
+// body's frame origin (lever to the contact point) to geom_tq.
+template <class T, int ND, bool WITH_TORQUE = false>
 IGT_HD bool ball_art_floating(const float* c, const float* g, FloatArt<T, ND>& a, V3<T>& pos,
-                              V3<T>& vel, V3<T>& omg, V3<T>& P) {
+                              V3<T>& vel, V3<T>& omg, V3<T>& P, V3<T>* ball_tq = nullptr,
+                              V3<T>* geom_tq = nullptr) {
   constexpr int NV = ND + 6;
   const T rb = T(ldc(c + C_RB)), inv_mb = T(ldc(c + C_INV_MB));
   const int kind = (int)ldc(g + A_KIND);
@@ -513,6 +542,10 @@ IGT_HD bool ball_art_floating(const float* c, const float* g, FloatArt<T, ND>& a
   omg = add(omg, scale(cross(n, t_hat), T(ldc(c + C_KAPPA_INVMB_OVER_RB)) * Pt));
   apply_impulse<T, NV>(a.L, yn, -Pn, yt, Pt, jv, du, a.u);
   pos = add(pos, scale(n, max_(-d_now, T(0.0f))));
+  if constexpr (WITH_TORQUE) {
+    *ball_tq = add(*ball_tq, scale(cross(n_now, P), -rb));
+    *geom_tq = add(*geom_tq, cross(sub(cp, body_origin<T, ND>(a, g)), scale(P, T(-1.0f))));
+  }
   return true;
 }
 
@@ -552,10 +585,13 @@ IGT_HD bool baumgarte_floating(const float* c, FloatArt<T, ND>& a, int link, V3<
 
 // Articulated geom entry g against true static sg, pair entry pr: the
 // bounding sphere's narrowphase (exact support of a cylinder or box along
-// the normal where the pair says so), then the Baumgarte impulse.
-template <class T, int ND>
+// the normal where the pair says so), then the Baumgarte impulse. With
+// WITH_TORQUE the impulse's moment about the geom body's frame origin is
+// added to geom_tq.
+template <class T, int ND, bool WITH_TORQUE = false>
 IGT_HD bool art_static_floating(const float* c, const float* pr, const float* g,
-                                const float* sg, FloatArt<T, ND>& a, V3<T>& P) {
+                                const float* sg, FloatArt<T, ND>& a, V3<T>& P,
+                                V3<T>* geom_tq = nullptr) {
   const T rbound = T(ldc(g + A_RBOUND));
   V3<T> center;
   Q4<T> gq;
@@ -583,14 +619,19 @@ IGT_HD bool art_static_floating(const float* c, const float* pr, const float* g,
   } else {
     point = sub(center, scale(n, rbound));
   }
-  return baumgarte_floating<T, ND>(c, a, (int)ldc(g + A_LINK), point, n, dist, T(ldc(pr + P_E)),
-                                   T(ldc(pr + P_MU)), P);
+  if (!baumgarte_floating<T, ND>(c, a, (int)ldc(g + A_LINK), point, n, dist, T(ldc(pr + P_E)),
+                                 T(ldc(pr + P_MU)), P))
+    return false;
+  if constexpr (WITH_TORQUE)
+    *geom_tq = add(*geom_tq, cross(sub(point, body_origin<T, ND>(a, g)), P));
+  return true;
 }
 
 // ------------------------------------------------------------- the body --
-// One env's K4 substep. x: (fl_n_in(ND), B) inputs, y: (fl_n_out(ND, ng),
-// B) outputs, both channel-major; env b reads and writes column b.
-template <class T, int ND>
+// One env's K4 substep. x: (fl_n_in(ND), B) inputs, y: (fl_n_out(ND, ng,
+// WITH_TORQUE), B) outputs, both channel-major; env b reads and writes
+// column b.
+template <class T, int ND, bool WITH_TORQUE = false>
 IGT_HD void fused_substep_floating_env(const float* __restrict__ c, const float* __restrict__ x,
                                        float* __restrict__ y, int b, int B) {
   constexpr int NV = ND + 6;
@@ -607,12 +648,17 @@ IGT_HD void fused_substep_floating_env(const float* __restrict__ c, const float*
   V3<T> omg = v3<T>(IGT_IN(ib + 6), IGT_IN(ib + 7), IGT_IN(ib + 8));
   const T inv_mb = T(ldc(c + C_INV_MB));
   ball_flight(c, T(ldc(c + C_GX)), T(ldc(c + C_GY)), T(ldc(c + C_GZ)), vel, omg);
-  V3<T> imp = scale(ball_plane(c, pos, vel, omg), T(ldc(c + C_MB)));
+  const V3<T> dv0 = ball_plane(c, pos, vel, omg);
+  V3<T> imp = scale(dv0, T(ldc(c + C_MB)));
+  // WITH_TORQUE: the ball's contact moment and each geom body's
+  V3<T> tqb, geom_tq[WITH_TORQUE ? FL_MAX_ART : 1];
+  if constexpr (WITH_TORQUE) tqb = static_moment(c, v3<T>(T(0.0f), T(0.0f), T(1.0f)), dv0);
   const int n_static = (int)ldc(c + C_NSTATIC);
 #pragma unroll 1
   for (int si = 0; si < n_static; ++si) {
     const float* g = c + fl_static_off(ND) + si * STATIC_STRIDE;
-    V3<T> dv = ball_static(c, g, T(ldc(g + G_E)), T(ldc(g + G_MU)), pos, vel, omg);
+    V3<T> dv = ball_static(c, g, T(ldc(g + G_E)), T(ldc(g + G_MU)), pos, vel, omg,
+                           WITH_TORQUE ? &tqb : nullptr);
     imp = v3<T>(imp.x + dv.x / inv_mb, imp.y + dv.y / inv_mb, imp.z + dv.z / inv_mb);
   }
 
@@ -623,7 +669,10 @@ IGT_HD void fused_substep_floating_env(const float* __restrict__ c, const float*
   for (int gi = 0; gi < n_art; ++gi) {
     V3<T> P;
     geom_imp[gi] = v3<T>(T(0.0f), T(0.0f), T(0.0f));
-    if (!ball_art_floating<T, ND>(c, c + fl_art_off(ND) + gi * ART_STRIDE, a, pos, vel, omg, P))
+    if constexpr (WITH_TORQUE) geom_tq[gi] = geom_imp[gi];
+    if (!ball_art_floating<T, ND, WITH_TORQUE>(c, c + fl_art_off(ND) + gi * ART_STRIDE, a, pos,
+                                               vel, omg, P, WITH_TORQUE ? &tqb : nullptr,
+                                               WITH_TORQUE ? &geom_tq[gi] : nullptr))
       continue;
     imp = add(imp, P);
     geom_imp[gi] = v3<T>(-P.x, -P.y, -P.z);
@@ -636,9 +685,10 @@ IGT_HD void fused_substep_floating_env(const float* __restrict__ c, const float*
     const float* pr = c + fl_pair_off(ND) + pi * PAIR_STRIDE;
     const int gi = (int)ldc(pr + P_ART);
     V3<T> P;
-    if (art_static_floating<T, ND>(c, pr, c + fl_art_off(ND) + gi * ART_STRIDE,
-                                   c + fl_static_off(ND) + (int)ldc(pr + P_STATIC) * STATIC_STRIDE,
-                                   a, P))
+    if (art_static_floating<T, ND, WITH_TORQUE>(
+            c, pr, c + fl_art_off(ND) + gi * ART_STRIDE,
+            c + fl_static_off(ND) + (int)ldc(pr + P_STATIC) * STATIC_STRIDE, a, P,
+            WITH_TORQUE ? &geom_tq[gi] : nullptr))
       geom_imp[gi] = add(geom_imp[gi], P);
   }
 
@@ -675,6 +725,19 @@ IGT_HD void fused_substep_floating_env(const float* __restrict__ c, const float*
   IGT_OUT(io + 3 * n_art, imp.x);
   IGT_OUT(io + 3 * n_art + 1, imp.y);
   IGT_OUT(io + 3 * n_art + 2, imp.z);
+  if constexpr (WITH_TORQUE) {
+    // moment rows: one per art geom body, then the ball's
+    const int it = io + 3 * (n_art + 1);
+#pragma unroll 1
+    for (int gi = 0; gi < n_art; ++gi) {
+      IGT_OUT(it + 3 * gi, geom_tq[gi].x);
+      IGT_OUT(it + 3 * gi + 1, geom_tq[gi].y);
+      IGT_OUT(it + 3 * gi + 2, geom_tq[gi].z);
+    }
+    IGT_OUT(it + 3 * n_art, tqb.x);
+    IGT_OUT(it + 3 * n_art + 1, tqb.y);
+    IGT_OUT(it + 3 * n_art + 2, tqb.z);
+  }
   ball_finish(c, pos, vel, omg);
   IGT_OUT(ob + 13, pos.x); IGT_OUT(ob + 14, pos.y); IGT_OUT(ob + 15, pos.z);
   IGT_OUT(ob + 16, vel.x); IGT_OUT(ob + 17, vel.y); IGT_OUT(ob + 18, vel.z);

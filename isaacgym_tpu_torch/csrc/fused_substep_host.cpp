@@ -1,6 +1,6 @@
 // Host loops over the kernels' per-env bodies (arm_step.cuh for K1,
 // fused_substep.cuh for K2, K2-dr and K2-tau, fused_substep_multi.cuh for K3
-// and K3-tau, fused_substep_floating.cuh for K4), for the CPU
+// and K3-tau, fused_substep_floating.cuh for K4 and K4-tau), for the CPU
 // tests and for counting the operations the kernels do on given inputs.
 // Never on the main path.
 //
@@ -83,17 +83,19 @@ long long run_multi(const float* consts, const float* x, float* y, int B, int nd
   return igt::g_ops;
 }
 
-// K4 over every env, in float or with the counting float: ND 27 (C10) and 4
-// (the CPU tests' toy biped). Returns 0 (or the operation count), or -1 on
-// another DOF count.
-template <class T>
+// K4 (K4-tau) over every env, in float or with the counting float: ND 27
+// (C10) and 4 (the CPU tests' toy biped). Returns 0 (or the operation count),
+// or -1 on another DOF count.
+template <class T, bool WITH_TORQUE = false>
 long long run_floating(const float* consts, const float* x, float* y, int B, int nd) {
   if (B < 1) return -1;
   igt::g_ops = 0;
   if (nd == 27) {
-    for (int b = 0; b < B; ++b) igt::fused_substep_floating_env<T, 27>(consts, x, y, b, B);
+    for (int b = 0; b < B; ++b)
+      igt::fused_substep_floating_env<T, 27, WITH_TORQUE>(consts, x, y, b, B);
   } else if (nd == 4) {
-    for (int b = 0; b < B; ++b) igt::fused_substep_floating_env<T, 4>(consts, x, y, b, B);
+    for (int b = 0; b < B; ++b)
+      igt::fused_substep_floating_env<T, 4, WITH_TORQUE>(consts, x, y, b, B);
   } else {
     return -1;
   }
@@ -196,6 +198,18 @@ extern "C" int igt_fused_substep_floating_host(const float* consts, const float*
 extern "C" long long igt_fused_substep_floating_count_ops(const float* consts, const float* x,
                                                           float* y, int B, int nd) {
   return run_floating<igt::CountF>(consts, x, y, B, nd);
+}
+
+// K4-tau: y is (fl_n_out(nd, ng, true), B)
+extern "C" int igt_fused_substep_floating_tau_host(const float* consts, const float* x, float* y,
+                                                   int B, int nd) {
+  return run_floating<float, true>(consts, x, y, B, nd) == 0 ? 0 : 1;
+}
+
+extern "C" long long igt_fused_substep_floating_tau_count_ops(const float* consts,
+                                                              const float* x, float* y, int B,
+                                                              int nd) {
+  return run_floating<igt::CountF, true>(consts, x, y, B, nd);
 }
 
 extern "C" int igt_floating_layout(int nd, int* out, int n) {

@@ -5,7 +5,8 @@ Counterpart of ``isaacgym_tpu/env/vec_task.py`` (``EnvState``, ``reset``,
 body states -> reward -> auto-reset (every env's would-be reset state,
 merged with ``torch.where``, no host sync) -> observation. With
 ``task.randomize: true`` the step adds action noise before the clip, runs
-``Simulator.step`` with the state's per-env ``DRParams`` (K2-dr), re-samples
+``Simulator.step`` with the state's per-env ``DRParams`` (K2-dr on the K2
+route, the non-kernel step on every other, as the JAX package), re-samples
 them for resetting envs whose counter passed ``frequency``, adds observation
 noise and advances ``global_step`` (the DR schedules' clock) once per step.
 The JAX package's per-env PRNG keys become one ``torch.Generator`` on the
@@ -21,9 +22,7 @@ import torch
 
 from isaacgym_tpu_torch.env.randomize import DomainRandomizer, DRParams
 from isaacgym_tpu_torch.sim.scene import SceneSpec, compile_scene
-from isaacgym_tpu_torch.sim.simulator import (
-    FLOATING_DR_REFUSAL, MULTI_DR_REFUSAL, SimState, Simulator,
-)
+from isaacgym_tpu_torch.sim.simulator import SimState, Simulator
 
 
 class EnvState(NamedTuple):
@@ -72,10 +71,6 @@ class TorchVecTask:
         # domain randomization: spec-driven, off by default
         task_cfg = cfg.get("task", {}) or {}
         self.randomize = bool(task_cfg.get("randomize", False))
-        if self.randomize and self.sim.fused_substep_multi is not None:
-            raise NotImplementedError(MULTI_DR_REFUSAL)
-        if self.randomize and self.sim.fused_substep_floating is not None:
-            raise NotImplementedError(FLOATING_DR_REFUSAL)
         self.randomizer = (DomainRandomizer(task_cfg.get("randomization_params", {}),
                                             self.scene.num_dofs)
                            if self.randomize else None)

@@ -116,7 +116,7 @@ _SIGNATURES = {
     "igt_fused_substep_multi_host": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP], _IP),
     "igt_fused_substep_multi_count_ops": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP],
                                           ctypes.c_longlong),
-    # the torque-lane builds (K2-tau with a with_dr flag, K3-tau)
+    # the torque-lane builds (K2-tau with a with_dr flag, K3-tau, K4-tau)
     "igt_fused_substep_tau_launch": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP, _VP], _IP),
     "igt_fused_substep_multi_tau_launch": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP, _IP, _VP], _IP),
     "igt_fused_substep_tau_host": ([_VP, _VP, _VP, _IP, _IP, _IP], _IP),
@@ -124,6 +124,9 @@ _SIGNATURES = {
     "igt_fused_substep_multi_tau_host": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP], _IP),
     "igt_fused_substep_multi_tau_count_ops": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP],
                                               ctypes.c_longlong),
+    "igt_fused_substep_floating_tau_launch": ([_VP, _VP, _VP, _IP, _IP, _IP, _VP], _IP),
+    "igt_fused_substep_floating_tau_host": ([_VP, _VP, _VP, _IP, _IP], _IP),
+    "igt_fused_substep_floating_tau_count_ops": ([_VP, _VP, _VP, _IP, _IP], ctypes.c_longlong),
 }
 
 

@@ -205,6 +205,17 @@ def static_pairs(model: ArticulationModel, base_pos, art_geoms, true_statics, fi
             if not static_pair_unreachable(model, base_pos, g, sg)]
 
 
+def over_maxima(n_static: int, n_art: int, n_pairs: int, maxima=None):
+    """Why a pack with these counts of static geoms, articulated geoms and
+    art-vs-static pairs exceeds the kernel's maxima (``maxima``: (static,
+    art, pairs), K2's by default), or None."""
+    m_static, m_art, m_pairs = maxima or (MAX_STATIC, MAX_ART, MAX_PAIRS)
+    if n_static > m_static or n_art > m_art or n_pairs > m_pairs:
+        return (f"scene exceeds the kernel's maxima: {n_static} static (max {m_static}), "
+                f"{n_art} art (max {m_art}), {n_pairs} pairs (max {m_pairs})")
+    return None
+
+
 def pack_header(c, nd, dt_s, gravity, bounce_threshold, max_depenetration,
                 n_static, n_art, n_pair, n_true_static) -> None:
     """The scene-wide slots of a header block (``C_*``, ``c`` a view)."""
@@ -322,11 +333,9 @@ def build_constants(model: ArticulationModel, base_pos, base_quat, kp, kd,
     if n_true_static is None:
         n_true_static = len(static_geoms)
     pairs = static_pairs(model, base_pos, art_geoms, static_geoms[:n_true_static])
-    if (len(static_geoms) > MAX_STATIC or len(art_geoms) > MAX_ART
-            or len(pairs) > MAX_PAIRS):
-        raise ValueError(f"scene exceeds the kernel's maxima: {len(static_geoms)} "
-                         f"static (max {MAX_STATIC}), {len(art_geoms)} art "
-                         f"(max {MAX_ART}), {len(pairs)} pairs (max {MAX_PAIRS})")
+    why = over_maxima(len(static_geoms), len(art_geoms), len(pairs))
+    if why:
+        raise ValueError(why)
     lay = layout(nd)
     c = np.zeros(lay["total"], np.float64)
     pack_header(c, nd, dt_s, gravity, bounce_threshold, max_depenetration,

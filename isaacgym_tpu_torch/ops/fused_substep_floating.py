@@ -1,9 +1,10 @@
 """K4, the fused substep of one floating-base humanoid with one ball (the
-27-DOF whole-body C10 scene): wrapper, plain version and the constant pack.
+27-DOF whole-body C10 scene), and its torque-lane build K4-tau: wrapper,
+plain version and the constant pack.
 
 One launch computes the whole substep, as
-``isaacgym_tpu/ops/pallas_dynamics.py:2225`` (``build_fused_substep_floating``,
-``with_torque=False``) does: PD or effort drive with the effort clamp -> FK
+``isaacgym_tpu/ops/pallas_dynamics.py:2225`` (``build_fused_substep_floating``;
+K4 with ``with_torque=False``, K4-tau with ``with_torque=True``) does: PD or effort drive with the effort clamp -> FK
 from the runtime base pose -> velocity and bias propagation with the base
 composite link -> Jacobian columns over ``u = [omega, v, qdot]`` (nv = nd + 6)
 -> mass matrix -> nv x nv Cholesky -> semi-implicit Euler with the base
@@ -13,7 +14,15 @@ integration -> FK at the new pose -> ball flight, plane and static contacts
 whole generalized velocity (the base too) through the factor -> articulated
 geoms against the true statics (Baumgarte, exact support, the 2 mm resting
 band) -> articulated geoms against the ground plane -> ball caps and
-integration.
+integration. K4-tau (``:2652-2658``, ``:2693-2696``, ``:2762-2767``,
+``:2834-2837``, written out at ``:2879-2884``) appends ng + 1 moment rows
+for a scene with a force sensor: each articulated geom body's contact
+moment about its frame origin (the link's post-step origin plus its
+rotated ``body_off``), from the ball's reactions, ``(cp - o) x (-P)``, and
+the art-vs-static impulses, ``(point - o) x P``; then the ball's moment
+about its centre, ``-(r / inv_m) (n x dv)`` for the plane and each static
+and ``-r (n_now x P)`` for each articulated geom. Ground contacts of the
+articulated geoms stay unrecorded, as in the JAX package.
 
 Every articulated geom, the two welded to the base included (link -1),
 moves with the runtime base pose; only the true statics (table, net) are
@@ -52,7 +61,7 @@ from isaacgym_tpu_torch.models import urdf as U
 from isaacgym_tpu_torch.ops import fused_substep as F
 from isaacgym_tpu_torch.ops.dynamics import ArticulationModel
 from isaacgym_tpu_torch.ops.fused_substep import (
-    A_KIND, A_LINK, A_OFF_POS, A_OFF_QUAT, A_RBOUND, A_SIZE, A_E, A_MU, ART_STRIDE,
+    A_BODY_OFF, A_KIND, A_LINK, A_OFF_POS, A_OFF_QUAT, A_RBOUND, A_SIZE, A_E, A_MU, ART_STRIDE,
     C_BOUNCE, C_BIAS_K, C_DRIVE, C_DT, C_E_BALL, C_GX, C_GY, C_GZ, C_INV_MB, C_KAPPA,
     C_KAPPA_INVMB_OVER_RB, C_MAX_DEPEN, C_MB, C_MU_BALL, C_ND, C_NSTATIC, C_NART, C_NPAIR,
     C_RB, C_WT0, C_DT_QUARTER, D_ARMATURE, D_AXIS, D_COM, D_EFFORT, D_HI, D_INERTIA, D_KD,
@@ -97,10 +106,11 @@ def n_in(nd: int) -> int:
     return 4 * nd + 22
 
 
-def n_out(nd: int, ng: int) -> int:
+def n_out(nd: int, ng: int, with_torque: bool = False) -> int:
     """Output channels: q, qd, tau, the base's pos, quat, linvel, angvel, the
-    ball's pos, vel, omega, then ng + 1 impulse rows."""
-    return 3 * nd + 22 + 3 * (ng + 1)
+    ball's pos, vel, omega, then ng + 1 impulse rows, and with the torque
+    lanes ng + 1 moment rows."""
+    return 3 * nd + 22 + 3 * (ng + 1) * (2 if with_torque else 1)
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +123,13 @@ def check_supported(model: ArticulationModel) -> None:
                                         | (tree.dof_type == U.JOINT_PRISMATIC)):
         raise NotImplementedError("floating fused substep: floating base, "
                                   "revolute/prismatic only")
+
+
+def pack_refusal(static_geoms: list, art_geoms: list):
+    """Why K4's pack cannot hold a scene with these geoms (every art-static
+    pair is kept), or None."""
+    return F.over_maxima(len(static_geoms), len(art_geoms), len(static_geoms) * len(art_geoms),
+                         (MAX_STATIC, MAX_ART, MAX_PAIRS))
 
 
 def build_floating_constants(model: ArticulationModel, kp, kd, gravity, dt_s: float,
@@ -131,11 +148,9 @@ def build_floating_constants(model: ArticulationModel, kp, kd, gravity, dt_s: fl
     and max_depen for the articulated geoms' ground contacts."""
     check_supported(model)
     nd = model.tree.n_dof
-    if (len(static_geoms) > MAX_STATIC or len(art_geoms) > MAX_ART
-            or len(static_geoms) * len(art_geoms) > MAX_PAIRS):
-        raise ValueError(f"scene exceeds K4's maxima: {len(static_geoms)} static "
-                         f"(max {MAX_STATIC}), {len(art_geoms)} art (max {MAX_ART}), "
-                         f"{len(static_geoms) * len(art_geoms)} pairs (max {MAX_PAIRS})")
+    why = pack_refusal(static_geoms, art_geoms)
+    if why:
+        raise ValueError(why)
     lay = layout(nd)
     c = np.zeros(lay["total"], np.float64)
     n_pair = len(art_geoms) * len(static_geoms) if art_static else 0
@@ -188,7 +203,9 @@ class FloatingStepOutputs(NamedTuple):
     ball_vel: torch.Tensor     # (B, 3)
     ball_omega: torch.Tensor   # (B, 3)
     impulses: torch.Tensor     # (B, ng+1, 3): per art geom body (its ball reaction
-    #                            and art-vs-static impulses), then the ball's total
+    #                            and art-vs-static impulses), then the ball's total;
+    #                            K4-tau: (B, 2ng+2, 3), then each geom body's
+    #                            moment and the ball's
 
 
 # ---------------------------------------------------------------------------
@@ -524,10 +541,22 @@ def _conj(q):
     return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
 
 
-def _ball_art(art: _Art, k, kg, pos, vel, omg):
+def _body_origin(art: _Art, kg):
+    """The world position of articulated geom entry ``kg``'s body frame
+    origin (``borg_of``, ``pallas_dynamics.py:2660-2664``): its link's
+    post-step origin plus the rotated ``body_off``."""
+    lp, lq = art.link_pose(int(kg[A_LINK]))
+    off = torch.tensor(kg[A_BODY_OFF:A_BODY_OFF + 3], dtype=lp.dtype, device=lp.device)
+    return lp + _qrot(lq, off.expand_as(lp))
+
+
+def _ball_art(art: _Art, k, kg, pos, vel, omg, torque=False):
     """One ball against one articulated geom: swept CCD along the relative
     motion, gated restitution, spin friction, the reaction through the
-    factor into the whole generalized velocity -> (pos, vel, omg, P)."""
+    factor into the whole generalized velocity -> (pos, vel, omg, P), and
+    with ``torque`` the contact's moments: on the ball about its centre
+    (lever -r n_now) and on the geom body about its frame origin (lever
+    from the origin to the contact point)."""
     rb, inv_mb = k[C_RB], k[C_INV_MB]
     kind, size = int(kg[A_KIND]), kg[A_SIZE:A_SIZE + 3]
     gp, gq = _geom_pose(art, kg)
@@ -558,7 +587,10 @@ def _ball_art(art: _Art, k, kg, pos, vel, omg):
     omg = omg + _cross(n, t_hat) * (k[C_KAPPA_INVMB_OVER_RB] * Pt)[:, None]
     art.apply(yn * (-Pn)[:, None] + yt * Pt[:, None])
     pos = pos + n * torch.where(active, torch.clamp(-d_now, min=0.0), 0.0)[:, None]
-    return pos, vel, omg, P
+    if not torque:
+        return pos, vel, omg, P
+    return (pos, vel, omg, P, _cross(n_now, P) * (-rb),
+            _cross(cp - _body_origin(art, kg), P * -1.0))
 
 
 def _baumgarte(art: _Art, k, link, point, n, dist, e, mu):
@@ -587,10 +619,12 @@ def _baumgarte(art: _Art, k, link, point, n, dist, e, mu):
     return n * Pn[:, None] - t_hat * Pt[:, None]
 
 
-def _art_static(art: _Art, k, kp, kg, ks):
+def _art_static(art: _Art, k, kp, kg, ks, torque=False):
     """One articulated geom against one true static: narrowphase of its
     bounding sphere (exact support of a cylinder or box along the normal
-    where the pair says so), then the Baumgarte impulse."""
+    where the pair says so), then the Baumgarte impulse -> the impulse on
+    the geom's body, and with ``torque`` also its moment about the body's
+    frame origin."""
     link, rbound = int(kg[A_LINK]), kg[A_RBOUND]
     center, gq = _geom_pose(art, kg)
     R = ks[G_ROT:G_ROT + 9]
@@ -611,7 +645,10 @@ def _art_static(art: _Art, k, kp, kg, ks):
         point = center - n * sup[:, None]
     else:
         point = center - n * rbound
-    return _baumgarte(art, k, link, point, n, dist, kp[P_E], kp[P_MU])
+    P = _baumgarte(art, k, link, point, n, dist, kp[P_E], kp[P_MU])
+    if not torque:
+        return P
+    return P, _cross(point - _body_origin(art, kg), P)
 
 
 def _art_ground(art: _Art, k, kg):
@@ -627,10 +664,11 @@ def _art_ground(art: _Art, k, kg):
 
 def floating_substep_plain(consts, q, qd, targets, efforts, base_pos, base_quat,
                            base_linvel, base_angvel, ball_pos, ball_vel,
-                           ball_omega) -> FloatingStepOutputs:
+                           ball_omega, with_torque=False) -> FloatingStepOutputs:
     """Plain PyTorch version of K4 over (B, n) inputs of one floating type
-    (float32 or float64); ``consts`` is the pack of
-    :func:`build_floating_constants` (numpy or a tensor)."""
+    (float32 or float64), and with ``with_torque`` of K4-tau (the impulses
+    gain each art geom body's contact moment and the ball's); ``consts`` is
+    the pack of :func:`build_floating_constants` (numpy or a tensor)."""
     s = _Scene(consts, q)
     k = s.k
     tau, q_new, art = _dynamics(s, q, qd, targets, efforts, base_pos, base_quat,
@@ -641,33 +679,48 @@ def floating_substep_plain(consts, q, qd, targets, efforts, base_pos, base_quat,
     pos, vel, omg = F.ball_flight(k, _ch(ball_pos), _ch(ball_vel), _ch(ball_omega), g)
     pos, vel, omg, dv = F.ball_plane(k, pos, vel, omg)
     imp = F._scale(dv, k[C_MB])
+    if with_torque:
+        zero = torch.zeros_like(dv[0])
+        tqb = F.static_moment(k, (zero, zero, zero + 1.0), dv)
     inv_mb = k[C_INV_MB]
     for si in range(int(k[C_NSTATIC])):
         kg = s.entry("static", si, STATIC_STRIDE)
-        pos, vel, omg, dv, _ = F.ball_static(k, kg, kg[G_E], kg[G_MU], pos, vel, omg)
+        pos, vel, omg, dv, n = F.ball_static(k, kg, kg[G_E], kg[G_MU], pos, vel, omg)
         imp = tuple(imp[i] + dv[i] / inv_mb for i in range(3))
+        if with_torque:
+            tqb = F._add(tqb, F.static_moment(k, n, dv))
     pos, vel, omg, imp = _st(pos), _st(vel), _st(omg), _st(imp)
 
     n_art = int(k[C_NART])
     geom_imp = [torch.zeros_like(pos) for _ in range(n_art)]
+    geom_tq = [torch.zeros_like(pos) for _ in range(n_art)]
+    if with_torque:
+        tqb = _st(tqb)
     for gi in range(n_art):
-        pos, vel, omg, P = _ball_art(art, k, s.entry("art", gi, ART_STRIDE), pos, vel, omg)
+        pos, vel, omg, P, *tq = _ball_art(art, k, s.entry("art", gi, ART_STRIDE), pos, vel,
+                                          omg, with_torque)
         imp = imp + P
         geom_imp[gi] = -P
+        if with_torque:
+            tqb = tqb + tq[0]
+            geom_tq[gi] = geom_tq[gi] + tq[1]
     for pi in range(int(k[C_NPAIR])):
         kp = s.entry("pair", pi, PAIR_STRIDE)
         gi = int(kp[P_ART])
-        geom_imp[gi] = geom_imp[gi] + _art_static(
-            art, k, kp, s.entry("art", gi, ART_STRIDE),
-            s.entry("static", int(kp[P_STATIC]), STATIC_STRIDE))
+        P = _art_static(art, k, kp, s.entry("art", gi, ART_STRIDE),
+                        s.entry("static", int(kp[P_STATIC]), STATIC_STRIDE), with_torque)
+        if with_torque:
+            P, tq = P
+            geom_tq[gi] = geom_tq[gi] + tq
+        geom_imp[gi] = geom_imp[gi] + P
     for gi in range(n_art):
         _art_ground(art, k, s.entry("art", gi, ART_STRIDE))
 
     pos, vel, omg = F.ball_finish(k, _ch(pos), _ch(vel), _ch(omg))
     u = art.u
+    rows = geom_imp + [imp] + (geom_tq + [tqb] if with_torque else [])
     return FloatingStepOutputs(q_new, u[:, 6:], tau, art.bp, art.bq, u[:, 3:6], u[:, 0:3],
-                               _st(pos), _st(vel), _st(omg),
-                               torch.stack(geom_imp + [imp], 1))
+                               _st(pos), _st(vel), _st(omg), torch.stack(rows, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -707,7 +760,8 @@ def pack_inputs(*ins):
 
 
 def unpack_outputs(y, nd: int) -> FloatingStepOutputs:
-    """(n_out, B) channel-major buffer -> (B, n) views."""
+    """(n_out, B) channel-major buffer -> (B, n) views; the impulse rows,
+    moment rows included, are whatever follows the ball state."""
     yt = y.t()
     o, parts = 0, []
     for w in (nd, nd, nd, 3, 4, 3, 3, 3, 3, 3):
@@ -717,7 +771,8 @@ def unpack_outputs(y, nd: int) -> FloatingStepOutputs:
 
 
 class FusedSubstepFloating:
-    """K4 for one scene: holds the constant pack and counts kernel launches.
+    """K4 (with ``with_torque=True`` its torque-lane build K4-tau) for one
+    scene: holds the constant pack and counts kernel launches.
 
     ``__call__`` takes the Pallas wrapper's eleven (B, n) float32 inputs (q,
     qd, targets, efforts, base pos, quat, linvel, angvel, ball pos, vel,
@@ -727,10 +782,11 @@ class FusedSubstepFloating:
     ``launches``; anything else raises.
     """
 
-    def __init__(self, consts: np.ndarray):
+    def __init__(self, consts: np.ndarray, with_torque: bool = False):
         self.consts = np.asarray(consts, np.float32)
         self.nd = int(self.consts[C_ND])
         self.ng = int(self.consts[C_NART])
+        self.with_torque = bool(with_torque)
         self.launches = 0
         self._dev_consts = {}
         self._lib = None
@@ -754,7 +810,7 @@ class FusedSubstepFloating:
                 raise ValueError("floating substep: inputs on different devices")
         dev = ins[0].device
         if dev.type == "cpu":
-            return floating_substep_plain(self.consts, *ins)
+            return floating_substep_plain(self.consts, *ins, with_torque=self.with_torque)
         if dev.type != "cuda":
             raise ValueError(f"floating substep: no kernel for device {dev}")
         return self.launch(pack_inputs(*ins))
@@ -778,10 +834,12 @@ class FusedSubstepFloating:
             self._lib = lib
         B = x.shape[1]
         c = self.device_consts(x.device)
-        y = torch.empty((n_out(nd, ng), B), dtype=torch.float32, device=x.device)
-        err = self._lib.igt_fused_substep_floating_launch(
-            c.data_ptr(), x.data_ptr(), y.data_ptr(), B, nd, ng,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        y = torch.empty((n_out(nd, ng, self.with_torque), B), dtype=torch.float32,
+                        device=x.device)
+        fn = (self._lib.igt_fused_substep_floating_tau_launch if self.with_torque
+              else self._lib.igt_fused_substep_floating_launch)
+        err = fn(c.data_ptr(), x.data_ptr(), y.data_ptr(), B, nd, ng,
+                 torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"floating substep launch failed: cudaError {err}")
         self.launches += 1

@@ -101,6 +101,44 @@ def n_out(nd_tot: int, nb: int, ng: int, with_torque: bool = False) -> int:
     return 3 * nd_tot + 9 * nb + 3 * (ng + 2 * nb) + (3 * (ng + nb) if with_torque else 0)
 
 
+def art_pairs(arts: list, art_geoms: list, true_statics: list):
+    """The art-vs-static pairs the build-time broadphase keeps, articulation
+    by articulation (``F.static_pairs``), and each articulation's ranges of
+    geoms and pairs -> ``(pairs, geom_lo, geom_hi, pair_lo, pair_hi)``."""
+    arts_of = [int(g["art"]) for g in art_geoms]
+    if arts_of != sorted(arts_of):
+        raise ValueError("fused multi substep: articulated geoms must be grouped by "
+                         "articulation, in order")
+    geom_lo = [sum(x < a for x in arts_of) for a in range(len(arts))]
+    geom_hi = [sum(x <= a for x in arts_of) for a in range(len(arts))]
+    pairs, pair_lo, pair_hi = [], [], []
+    for a, spec in enumerate(arts):
+        pair_lo.append(len(pairs))
+        pairs += F.static_pairs(spec["model"], spec["base_pos"],
+                                art_geoms[geom_lo[a]:geom_hi[a]], true_statics, geom_lo[a])
+        pair_hi.append(len(pairs))
+    return pairs, geom_lo, geom_hi, pair_lo, pair_hi
+
+
+def pack_refusal(arts: list, n_balls: int, static_geoms: list, art_geoms: list,
+                 n_true_static: int = None):
+    """Why the K3 pack cannot hold the scene (the arguments of
+    :func:`build_multi_constants`), or None: articulations of unequal DOF
+    counts, a ball count outside 1 .. ``MAX_BALLS``, or more geoms or pairs
+    than the maxima. The JAX package's K3 takes the first two; the port steps
+    such scenes on the non-kernel path."""
+    nds = [a["model"].tree.n_dof for a in arts]
+    if len(set(nds)) != 1:
+        return f"fused multi substep: articulations of unequal DOF counts {nds}"
+    if not 1 <= n_balls <= MAX_BALLS:
+        return f"fused multi substep: {n_balls} balls (1 to {MAX_BALLS})"
+    if n_true_static is None:
+        n_true_static = len(static_geoms)
+    pairs = art_pairs(arts, art_geoms, static_geoms[:n_true_static])[0]
+    return F.over_maxima(len(static_geoms), len(art_geoms), len(pairs),
+                         (MAX_STATIC, MAX_ART, MAX_PAIRS))
+
+
 def build_multi_constants(arts: list, balls: list, static_geoms: list, art_geoms: list,
                           gravity, dt_s: float, *, bounce_threshold: float = 0.2,
                           n_true_static: int = None, max_depenetration: float = 10.0,
@@ -112,35 +150,16 @@ def build_multi_constants(arts: list, balls: list, static_geoms: list, art_geoms
     in list order); ``balls`` the ball dicts of ``build_constants``;
     ``art_geoms`` entries carry the ``art`` index of their articulation.
     """
-    nds = [a["model"].tree.n_dof for a in arts]
-    if len(set(nds)) != 1:
-        raise NotImplementedError(f"fused multi substep: articulations of unequal DOF "
-                                  f"counts {nds}")
-    nd, K, NB = nds[0], len(arts), len(balls)
+    why = pack_refusal(arts, len(balls), static_geoms, art_geoms, n_true_static)
+    if why:
+        raise NotImplementedError(why)
+    nd, K, NB = arts[0]["model"].tree.n_dof, len(arts), len(balls)
     for a in arts:
         F.check_supported(a["model"])
-    if not 1 <= NB <= MAX_BALLS:
-        raise NotImplementedError(f"fused multi substep: {NB} balls (1 to {MAX_BALLS})")
-    arts_of = [int(g["art"]) for g in art_geoms]
-    if arts_of != sorted(arts_of):
-        raise ValueError("fused multi substep: articulated geoms must be grouped by "
-                         "articulation, in order")
     if n_true_static is None:
         n_true_static = len(static_geoms)
-    true_statics = static_geoms[:n_true_static]
-    geom_lo = [sum(x < a for x in arts_of) for a in range(K)]
-    geom_hi = [sum(x <= a for x in arts_of) for a in range(K)]
-    pairs, pair_lo, pair_hi = [], [], []
-    for a, spec in enumerate(arts):
-        pair_lo.append(len(pairs))
-        pairs += F.static_pairs(spec["model"], spec["base_pos"],
-                                art_geoms[geom_lo[a]:geom_hi[a]], true_statics, geom_lo[a])
-        pair_hi.append(len(pairs))
-    if (len(static_geoms) > MAX_STATIC or len(art_geoms) > MAX_ART
-            or len(pairs) > MAX_PAIRS):
-        raise ValueError(f"scene exceeds the kernel's maxima: {len(static_geoms)} "
-                         f"static (max {MAX_STATIC}), {len(art_geoms)} art "
-                         f"(max {MAX_ART}), {len(pairs)} pairs (max {MAX_PAIRS})")
+    pairs, geom_lo, geom_hi, pair_lo, pair_hi = art_pairs(arts, art_geoms,
+                                                          static_geoms[:n_true_static])
     lay = multi_layout(nd, K)
     c = np.zeros(lay["total"], np.float64)
     scene = (nd, dt_s, gravity, bounce_threshold, max_depenetration, len(static_geoms),

@@ -218,6 +218,109 @@ TOY_BALL_URDF = """
 """
 
 
+TOY_BIPED_URDF = """
+<robot name="toy_biped">
+  <link name="torso">
+    <inertial><origin xyz="0 0 0"/><mass value="8.0"/>
+      <inertia ixx="0.3" iyy="0.3" izz="0.15" ixy="0" ixz="0" iyz="0"/></inertial>
+    <collision><origin xyz="0 0 0"/>
+      <geometry><box size="0.25 0.2 0.45"/></geometry></collision>
+  </link>
+  <link name="leg_l">
+    <inertial><origin xyz="0 0 -0.25"/><mass value="1.5"/>
+      <inertia ixx="0.02" iyy="0.02" izz="0.004" ixy="0" ixz="0" iyz="0"/></inertial>
+    <collision><origin xyz="0 0 -0.36"/>
+      <geometry><sphere radius="0.08"/></geometry></collision>
+  </link>
+  <link name="leg_r">
+    <inertial><origin xyz="0 0 -0.25"/><mass value="1.5"/>
+      <inertia ixx="0.02" iyy="0.02" izz="0.004" ixy="0" ixz="0" iyz="0"/></inertial>
+    <collision><origin xyz="0 0 -0.36"/>
+      <geometry><sphere radius="0.08"/></geometry></collision>
+  </link>
+  <link name="upper_arm">
+    <inertial><origin xyz="0.12 0 0"/><mass value="0.8"/>
+      <inertia ixx="0.004" iyy="0.004" izz="0.004" ixy="0" ixz="0" iyz="0"/></inertial>
+  </link>
+  <link name="paddle_hand">
+    <inertial><origin xyz="0.1 0 0"/><mass value="0.4"/>
+      <inertia ixx="0.002" iyy="0.002" izz="0.002" ixy="0" ixz="0" iyz="0"/></inertial>
+    <collision><origin xyz="0.18 0 0"/>
+      <geometry><sphere radius="0.09"/></geometry></collision>
+  </link>
+  <joint name="hip_l" type="revolute">
+    <origin xyz="0 0.11 -0.28"/><parent link="torso"/><child link="leg_l"/>
+    <axis xyz="0 1 0"/><limit lower="-1.2" upper="1.2" effort="60" velocity="20"/>
+  </joint>
+  <joint name="hip_r" type="revolute">
+    <origin xyz="0 -0.11 -0.28"/><parent link="torso"/><child link="leg_r"/>
+    <axis xyz="0 1 0"/><limit lower="-1.2" upper="1.2" effort="60" velocity="20"/>
+  </joint>
+  <joint name="shoulder" type="revolute">
+    <origin xyz="0.14 0 0.15"/><parent link="torso"/><child link="upper_arm"/>
+    <axis xyz="0 1 0"/><limit lower="-2.0" upper="2.0" effort="30" velocity="20"/>
+  </joint>
+  <joint name="elbow" type="revolute">
+    <origin xyz="0.22 0 0"/><parent link="upper_arm"/><child link="paddle_hand"/>
+    <axis xyz="0 0 1"/><limit lower="-2.0" upper="2.0" effort="30" velocity="20"/>
+  </joint>
+</robot>
+"""
+
+
+def toy_biped_scene():
+    """The JAX package's floating-kernel test scene: a 4-DOF floating biped
+    (torso, two 1-DOF legs with sphere feet resting on the ground, a 2-DOF
+    arm with a sphere paddle) and a ball over the plane
+    (``tests/test_pallas_floating.py:34-113``)."""
+    parse = lambda text: compile_tree(U.parse_urdf(text, from_string=True), floating_base=True)
+    biped = parse(TOY_BIPED_URDF)
+    ball = compile_tree(U.parse_urdf(TOY_BALL_URDF, from_string=True))
+    kp = np.full(4, 40.0, np.float32)
+    return compile_scene(SceneSpec(
+        actors=[ActorSpec("biped", biped, pos=(0, 0, 0.72), fixed_base=False, restitution=0.5,
+                          friction=0.6, stiffness=kp, damping=kp / 20),
+                ActorSpec("ball", ball, pos=(1.5, 0.05, 1.0), fixed_base=False,
+                          restitution=1.3, friction=0.2)],
+        plane=PlaneParams(), dt=1 / 120, substeps=2))
+
+
+def toy_arm_scene():
+    """One fixed-base 3-DOF arm (``TOY_ARM_URDF``) and one ball over the
+    plane: K2's topology at a DOF count its library is not built for."""
+    arm = compile_tree(U.parse_urdf(TOY_ARM_URDF, from_string=True))
+    ball = compile_tree(U.parse_urdf(TOY_BALL_URDF, from_string=True))
+    kp = np.full(3, 25.0, np.float32)
+    return compile_scene(SceneSpec(
+        actors=[ActorSpec("arm", arm, pos=(0, 0, 1.0), fixed_base=True, restitution=0.6,
+                          friction=0.5, stiffness=kp, damping=kp / 20),
+                ActorSpec("ball", ball, pos=(0.5, 0.0, 1.3), fixed_base=False,
+                          restitution=1.3, friction=0.2)],
+        plane=PlaneParams(), dt=1 / 120, substeps=2))
+
+
+def random_state(sim, B: int, rng: np.random.RandomState):
+    """``(state, targets, efforts)`` of ``sim``'s scene at its initial roots:
+    joints within their limits moving at up to 1 rad/s, PD targets within
+    the limits, a floating base's velocities up to 0.5, each ball's
+    velocity up to 3 m/s and spin up to 20 rad/s; numpy-seeded."""
+    scene, dev = sim.scene, sim.device
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    lo = np.concatenate([sl.model.tree.lower for sl in scene.articulations])
+    hi = np.concatenate([sl.model.tree.upper for sl in scene.articulations])
+    state = sim.initial_state(B)
+    root = state.root.clone()
+    for sl in scene.articulations:
+        if sl.model.floating:
+            root[:, sl.actor_index, 7:13] = t(rng.uniform(-0.5, 0.5, (B, 6)))
+    for b in scene.free_bodies:
+        root[:, b.actor_index, 7:10] = t(rng.uniform(-3.0, 3.0, (B, 3)))
+        root[:, b.actor_index, 10:13] = t(rng.uniform(-20.0, 20.0, (B, 3)))
+    q = 0.3 * rng.uniform(lo, hi, (B, len(lo)))
+    state = state._replace(root=root, dof_pos=t(q), dof_vel=t(rng.uniform(-1.0, 1.0, q.shape)))
+    return state, t(rng.uniform(lo, hi, q.shape)), t(np.zeros(q.shape))
+
+
 class ToyEnv:
     """The two-arm, two-ball check scene: its compiled scene and simulator
     (with ``paddle_sensor``, a force sensor on each arm's paddle)."""
@@ -343,14 +446,16 @@ def k3_inputs(env, kind: str, B: int, rng: np.random.RandomState, effort_scale: 
     return tuple(map(f, (q, qd, tgt, eff, bp, bv, bw)))
 
 
-def paddle_sensor_scene(cfg, humanoids: int = 1):
+def paddle_sensor_scene(cfg, humanoids: int = 1, floating_base: bool = False):
     """The pingpong scene of task config ``cfg`` with a force sensor on the
     paddle: registered once on the humanoids' shared asset before the scene
-    is compiled, so every humanoid carries one."""
+    is compiled, so every humanoid carries one (``floating_base``: C10's
+    floating 27-DOF humanoid)."""
     from isaacgym_tpu_torch.sim.asset_api import (create_asset_force_sensor,
                                                   find_asset_rigid_body_index)
     from isaacgym_tpu_torch.tasks.pingpong_common import build_pingpong_scene
-    spec = build_pingpong_scene(cfg["env"], cfg["sim"], humanoids=humanoids)
+    spec = build_pingpong_scene(cfg["env"], cfg["sim"], humanoids=humanoids,
+                                floating_base=floating_base)
     tree = spec.actors[0].tree
     create_asset_force_sensor(tree, find_asset_rigid_body_index(tree, "pingpong_paddle"))
     return compile_scene(spec)

@@ -3,26 +3,36 @@ kernels, K1 with the non-kernel contact phase, and the non-kernel path.
 
 Counterpart of ``isaacgym_tpu/sim/simulator.py``. ``step`` routes as
 ``_maybe_build_pallas`` and ``_maybe_build_fused`` (``:270-311``,
-``:435-566``) decide:
+``:435-566``) decide, by the scene's topology:
 
 * one position-driven fixed-base humanoid and one ball over the plane (the
   flagship, C6): ``_substep_fused`` (``:686-734``), one K2 launch per
   substep; given ``DRParams`` (``step_dr``, ``:594-624``), K2-dr instead;
 * K fixed-base articulations (position or effort drive) and up to two balls
   over the plane (C8): ``_substep_fused_multi`` (``:643-684``), one K3
-  launch per substep. The JAX package randomizes such scenes only on its
-  non-kernel path, so ``step`` with ``dr`` raises here (ROADMAP, queued);
+  launch per substep;
 * one floating-base articulation (revolute and prismatic DOFs, at most 32)
   with one ball over the plane (C10, ``:288-295``):
-  ``_substep_fused_floating`` (``:388-433``), one K4 launch per substep.
-  DR and force sensors raise here (ROADMAP, queued; K4-tau);
+  ``_substep_fused_floating`` (``:388-433``), one K4 launch per substep;
 * fixed-base articulations that the fused kernels turn down (terrain, no
   plane, no ball, DOFs not contiguous): ``_substep_pallas`` (``:736-777``),
   one K1 launch per articulation per substep (``ops/arm_step.py``), then
   the non-kernel contact phase on K1's frames and Cholesky factors;
-* every other scene (floating bases beyond K4's, no articulation), and the
-  K1 scenes under DR: the non-kernel substep ``_substep`` (``:796-887``),
-  fixed and floating bases, with ``dr``.
+* every other scene (floating bases beyond K4's, no articulation): the
+  non-kernel substep ``_substep`` (``:796-887``), fixed and floating bases,
+  with ``dr``.
+
+The JAX package's kernels take any DOF count and its K3 articulations of
+unequal DOF counts. The port's packs have maxima (unequal DOF counts and
+more than two balls are outside K3's), and its CUDA libraries are built for
+a few shapes (K1 and K2 at 7 DOFs, K3 at ``KERNEL_SHAPES``, K4 at 27). So
+``route_for(scene, device_type)`` sends a scene whose kernel cannot take it
+(outside the pack on any device, or a shape the library is not built for
+on CUDA) to the non-kernel step, which computes what the JAX XLA path
+computes. Under DR (``step`` with ``dr``) only the K2 route has a kernel,
+K2-dr, as in the JAX package (only ``_fused_dr`` serves ``step_dr``); the
+K1, K3 and K4 routes take the non-kernel step with ``dr``
+(``_step_dr_vmapped``).
 
 The non-kernel contact phase, ``_contacts_and_writeback`` (``:888-1105``),
 is sequential Gauss-Seidel in the JAX package's order, batched over the
@@ -48,12 +58,13 @@ routes unguarded.
 
 A scene that registers a force sensor (``asset_api.create_asset_force_sensor``
 before it is compiled) is stepped through the kernels' torque-lane builds,
-K2-tau (K2-dr-tau under DR) and K3-tau (``_sensors_want_torque``,
+K2-tau (K2-dr-tau under DR), K3-tau and K4-tau (``_sensors_want_torque``,
 ``:313-321``): their moment rows are written into ``net_contact_torque``, at
 each articulated geom's body its contact moments about the body's frame
-origin and at each ball its moments about its centre (``:653-684``,
-``:710-733``). Sensor-less kernel routes leave ``net_contact_torque`` at
-zero; the non-kernel contact phase always fills it.
+origin and at each ball its moments about its centre (``:410-425``,
+``:653-684``, ``:710-733``). Sensor-less kernel routes leave
+``net_contact_torque`` at zero; the non-kernel contact phase always fills
+it.
 
 State layout (the reference tensor-API contract), batched over B envs:
   root (B, num_actors, 13) = pos(3) + quat(4, xyzw) + linvel(3) + angvel(3),
@@ -71,9 +82,13 @@ import torch
 from isaacgym_tpu_torch.models import urdf as U
 from isaacgym_tpu_torch.env.randomize import DRParams
 from isaacgym_tpu_torch.models.kinematics import _qmul, _qrot, fk_body_states, fk_dof_frames
+from isaacgym_tpu_torch.ops import arm_step as A
 from isaacgym_tpu_torch.ops import contacts as C
 from isaacgym_tpu_torch.ops import dynamics as D
-from isaacgym_tpu_torch.ops.arm_step import ArmStep, build_arm_constants, check_nd, unpack_chol
+from isaacgym_tpu_torch.ops import fused_substep as F
+from isaacgym_tpu_torch.ops import fused_substep_floating as FF
+from isaacgym_tpu_torch.ops import fused_substep_multi as M
+from isaacgym_tpu_torch.ops.arm_step import ArmStep, build_arm_constants, unpack_chol
 from isaacgym_tpu_torch.ops.fused_substep import FusedSubstep, build_constants
 from isaacgym_tpu_torch.ops.fused_substep_floating import (
     FusedSubstepFloating, build_floating_constants,
@@ -84,13 +99,6 @@ from isaacgym_tpu_torch.sim.scene import DRIVE_EFFORT, DRIVE_POS, CompiledScene
 from isaacgym_tpu_torch.utils import rotations as rot
 
 
-MULTI_DR_REFUSAL = ("domain randomization of a multi-articulation scene is not ported: the "
-                    "JAX package runs it on its non-kernel path (ROADMAP, module 10)")
-FLOATING_DR_REFUSAL = ("domain randomization of a floating-base scene is not ported: the JAX "
-                       "package runs it on its non-kernel path, simulator.py:594-624 "
-                       "(ROADMAP, module 10)")
-FLOATING_SENSOR_REFUSAL = ("force sensors on a floating-base scene are not ported: they need "
-                           "K4-tau, the torque-lane build of K4 (ROADMAP, queued)")
 LINK_COLLISION_REFUSAL = ("link-vs-link contacts (link_collision) are not ported: the JAX "
                           "package's narrowphase at simulator.py:1342-1527 (ROADMAP, module 11)")
 
@@ -241,6 +249,81 @@ def fused_ball_cfg(scene: CompiledScene, index: int = 0) -> dict:
                 magnus_k=ball.magnus_k, kappa=_ball_kappa(ball))
 
 
+def multi_art_specs(scene: CompiledScene):
+    """K3's articulation dicts (model, base pose, gains, drive mode) in scene
+    order."""
+    return [dict(model=sl.model, base_pos=scene.initial_root[sl.actor_index][0:3],
+                 base_quat=scene.initial_root[sl.actor_index][3:7], kp=sl.stiffness,
+                 kd=sl.damping, drive_mode=sl.drive_mode) for sl in scene.articulations]
+
+
+def topology_route(scene: CompiledScene) -> str:
+    """The route the scene's topology asks for, as ``_maybe_build_pallas``
+    and ``_maybe_build_fused`` decide (``:270-311``, ``:435-566``): "k4",
+    "k2", "k3", "k1" or "nonkernel"."""
+    spec, arts = scene.spec, scene.articulations
+    if not arts:
+        return "nonkernel"
+    rev_or_pris = lambda sl: bool(np.all((sl.model.tree.dof_type == U.JOINT_REVOLUTE)
+                                         | (sl.model.tree.dof_type == U.JOINT_PRISMATIC)))
+    flat = (bool(scene.free_bodies) and spec.terrain is None and spec.plane is not None
+            and all(s.drive_mode in (DRIVE_POS, DRIVE_EFFORT) for s in arts))
+    if (flat and len(arts) == 1 and len(scene.free_bodies) == 1 and arts[0].model.floating
+            and arts[0].model.tree.n_dof <= 32 and rev_or_pris(arts[0])):
+        return "k4"
+    if any(sl.model.floating or not rev_or_pris(sl) for sl in arts):
+        return "nonkernel"
+    if not flat or any(sl.model.tree.n_dof > 32 for sl in arts):
+        return "k1"
+    if len(arts) == 1 and len(scene.free_bodies) == 1 and arts[0].drive_mode == DRIVE_POS:
+        return "k2"
+    starts = np.cumsum([0] + [sl.model.tree.n_dof for sl in arts])[:-1]
+    if any(sl.dof_start != int(o) for sl, o in zip(arts, starts)):
+        return "k1"
+    return "k3"
+
+
+def kernel_refusal(scene: CompiledScene, route: str, device_type: str):
+    """Why the port's kernel of ``route`` cannot take the scene on a device
+    of ``device_type``, or None: its constant pack cannot hold the scene
+    (on any device), or on CUDA its library is not built for the scene's
+    shape."""
+    arts = scene.articulations
+    nds = [sl.model.tree.n_dof for sl in arts]
+    if route == "k4":
+        static_list, art_list, _ = floating_geom_lists(scene)
+        why = FF.pack_refusal(static_list, art_list)
+        built = nds == [FF.KERNEL_ND]
+    elif route in ("k2", "k3"):
+        static_list, n_true, art_list, _ = fused_geom_lists(scene)
+        if route == "k2":
+            base = scene.initial_root[arts[0].actor_index][0:3]
+            pairs = F.static_pairs(arts[0].model, base, art_list, static_list[:n_true])
+            why = F.over_maxima(len(static_list), len(art_list), len(pairs))
+            built = nds == [F.KERNEL_ND]
+        else:
+            why = M.pack_refusal(multi_art_specs(scene), len(scene.free_bodies), static_list,
+                                 art_list, n_true)
+            built = (nds[0], len(arts), len(scene.free_bodies)) in M.KERNEL_SHAPES
+    elif route == "k1":
+        why, built = None, all(nd == A.KERNEL_ND for nd in nds)
+    else:
+        return None
+    if why is None and device_type == "cuda" and not built:
+        why = f"the CUDA library of route {route} is not built for the scene's shape {nds}"
+    return why
+
+
+def route_for(scene: CompiledScene, device_type: str) -> str:
+    """Which substep ``Simulator.step`` runs on a device of ``device_type``
+    ("cpu" or "cuda"): the topology's route (:func:`topology_route`), or
+    "nonkernel" where that route's kernel cannot take the scene
+    (:func:`kernel_refusal`). The JAX package steps every such scene through
+    its own kernel; the non-kernel step computes what its XLA path computes."""
+    route = topology_route(scene)
+    return "nonkernel" if kernel_refusal(scene, route, device_type) else route
+
+
 class Simulator:
     """Compiled simulator for one pingpong-class scene on one device."""
 
@@ -269,11 +352,9 @@ class Simulator:
         self.arm_steps = None
         self.fused_substep = self.fused_substep_dr = self.fused_substep_multi = None
         self.fused_substep_floating = None
-        self.route = self._route()
+        self.route = route_for(scene, self.device.type)
         baked = set()
         if self.route == "k4":
-            if self.with_torque:
-                raise NotImplementedError(FLOATING_SENSOR_REFUSAL)
             baked = {g.actor_index for g in scene.static_geoms}
             self.slot, self.ball = arts[0], scene.free_bodies[0]
             static_list, art_list, self.art_bodies = floating_geom_lists(scene)
@@ -288,12 +369,10 @@ class Simulator:
                 max_angular_velocity=self.slot.max_angular_velocity,
                 max_linear_velocity=self.slot.max_linear_velocity,
                 exact_support=bool(spec.exact_link_support))
-            self.fused_substep_floating = FusedSubstepFloating(self.constants)
+            self.fused_substep_floating = FusedSubstepFloating(self.constants,
+                                                               with_torque=self.with_torque)
         elif self.route == "k1":
             # K1 folds nothing: the base pose is a per-env input
-            if self.device.type == "cuda":
-                for sl in arts:
-                    check_nd(sl.model.tree.n_dof)
             self.arm_steps = [ArmStep(build_arm_constants(sl.model, sl.stiffness, sl.damping,
                                                           gravity, dt_s)) for sl in arts]
         elif self.route in ("k2", "k3"):
@@ -304,32 +383,6 @@ class Simulator:
         self._baked_t = torch.as_tensor(self._baked_actors, device=self.device)
         self._baked_root = torch.as_tensor(scene.initial_root[self._baked_actors, 0:7],
                                            device=self.device)
-
-    def _route(self) -> str:
-        """Which substep ``step`` runs: "k4", "k2", "k3", "k1" or
-        "nonkernel", as ``_maybe_build_pallas`` and ``_maybe_build_fused``
-        decide (``:270-311``, ``:435-566``)."""
-        scene, spec = self.scene, self.scene.spec
-        arts = scene.articulations
-        if not arts:
-            return "nonkernel"
-        rev_or_pris = lambda sl: bool(np.all((sl.model.tree.dof_type == U.JOINT_REVOLUTE)
-                                             | (sl.model.tree.dof_type == U.JOINT_PRISMATIC)))
-        flat = (bool(scene.free_bodies) and spec.terrain is None and spec.plane is not None
-                and all(s.drive_mode in (DRIVE_POS, DRIVE_EFFORT) for s in arts))
-        if (flat and len(arts) == 1 and len(scene.free_bodies) == 1 and arts[0].model.floating
-                and arts[0].model.tree.n_dof <= 32 and rev_or_pris(arts[0])):
-            return "k4"
-        if any(sl.model.floating or not rev_or_pris(sl) for sl in arts):
-            return "nonkernel"
-        if not flat or any(sl.model.tree.n_dof > 32 for sl in arts):
-            return "k1"
-        if len(arts) == 1 and len(scene.free_bodies) == 1 and arts[0].drive_mode == DRIVE_POS:
-            return "k2"
-        starts = np.cumsum([0] + [sl.model.tree.n_dof for sl in arts])[:-1]
-        if any(sl.dof_start != int(o) for sl, o in zip(arts, starts)):
-            return "k1"
-        return "k3"
 
     def _build_fused(self, gravity, dt_s) -> None:
         """The K2 (and K2-dr) or K3 wrapper and its constant pack."""
@@ -351,12 +404,8 @@ class Simulator:
             self.fused_substep_dr = FusedSubstep(self.constants, with_dr=True,
                                                  with_torque=self.with_torque)
             return
-        spec_of = lambda sl: dict(
-            model=sl.model, base_pos=scene.initial_root[sl.actor_index][0:3],
-            base_quat=scene.initial_root[sl.actor_index][3:7], kp=sl.stiffness,
-            kd=sl.damping, drive_mode=sl.drive_mode)
         self.constants = build_multi_constants(
-            [spec_of(sl) for sl in arts],
+            multi_art_specs(scene),
             [fused_ball_cfg(scene, i) for i in range(len(scene.free_bodies))],
             static_list, art_list, gravity, dt_s, **common)
         self.fused_substep_multi = FusedSubstepMulti(self.constants,
@@ -440,15 +489,12 @@ class Simulator:
         the whole batch takes the non-kernel substep. With ``dr`` (the
         per-env channel in the JAX package's order: kp, kd, lower, upper,
         mass, gravity offset, friction, restitution) the flagship's route
-        runs K2-dr, a K1 scene the non-kernel substep; the K3 and K4 routes
-        raise."""
-        if self.route == "nonkernel":
+        runs K2-dr; the K1, K3 and K4 routes have no DR kernel and take the
+        non-kernel substep, as the JAX package's ``step_dr`` does, with no
+        guard and no host sync."""
+        if self.route == "nonkernel" or (dr is not None and self.route != "k2"):
             return self.step_nonkernel(state, targets, efforts, dr)
-        if dr is not None and self.route == "k3":
-            raise NotImplementedError(MULTI_DR_REFUSAL)
-        if dr is not None and self.route == "k4":
-            raise NotImplementedError(FLOATING_DR_REFUSAL)
-        if (dr is not None and self.route == "k1") or self.baked_roots_moved(state):
+        if self.baked_roots_moved(state):
             return self.step_nonkernel(state, targets, efforts, dr)
         return self.step_kernel(state, targets, efforts, dr)
 
@@ -462,7 +508,9 @@ class Simulator:
 
     def step_kernel(self, state: SimState, targets, efforts, dr: DRParams = None) -> SimState:
         """The kernel route unguarded (``_step_batched_pallas``, ``:626-641``,
-        and the fused half of ``step_dr``)."""
+        and the fused half of ``step_dr``); only the K2 route takes ``dr``."""
+        if dr is not None and self.route != "k2":
+            raise ValueError(f"step_kernel: route {self.route} has no DR kernel")
         dt_s = self.dt / self.substeps
         state = state._replace(net_contact_force=torch.zeros_like(state.net_contact_force),
                                net_contact_torque=torch.zeros_like(state.net_contact_torque))
@@ -544,9 +592,11 @@ class Simulator:
         return SimState(root, dof_pos, dof_vel, dof_force, ncf, nct)
 
     def _substep_fused_floating(self, state: SimState, targets, efforts, dt_s) -> SimState:
-        """One K4 launch (``simulator.py:388-433``): the base's and the ball's
-        roots, the DOF state, and the impulse rows into ``net_contact_force``
-        (each articulated geom's body, then the ball's total)."""
+        """One K4 (K4-tau) launch (``simulator.py:388-433``): the base's and
+        the ball's roots, the DOF state, the impulse rows into
+        ``net_contact_force`` (each articulated geom's body, then the ball's
+        total) and, with the torque lanes, the moment rows into
+        ``net_contact_torque``."""
         slot, ai, ba = self.slot, self.slot.actor_index, self.ball.actor_index
         sl = slice(slot.dof_start, slot.dof_end)
         root = state.root
@@ -569,12 +619,18 @@ class Simulator:
         ncf = state.net_contact_force.clone()
         ncf.index_add_(1, self._art_bodies_t, out.impulses[:, :ng] * inv_dt)
         ncf[:, self.ball.body_start] += out.impulses[:, ng] * inv_dt
+        nct = state.net_contact_torque
+        if self.with_torque:
+            # rows ng+1 .. 2ng: each geom body's moments; row 2ng+1: the ball's
+            nct = nct.clone()
+            nct.index_add_(1, self._art_bodies_t, out.impulses[:, ng + 1:2 * ng + 1] * inv_dt)
+            nct[:, self.ball.body_start] += out.impulses[:, 2 * ng + 1] * inv_dt
         dof_pos, dof_vel, dof_force = (state.dof_pos.clone(), state.dof_vel.clone(),
                                        state.dof_force.clone())
         dof_pos[:, sl] = out.q_new
         dof_vel[:, sl] = out.qd_new
         dof_force[:, sl] = out.tau
-        return SimState(root, dof_pos, dof_vel, dof_force, ncf, state.net_contact_torque)
+        return SimState(root, dof_pos, dof_vel, dof_force, ncf, nct)
 
     def _substep_fused_multi(self, state: SimState, targets, efforts, dt_s) -> SimState:
         """One K3 launch (``simulator.py:643-684``): every DOF, every ball."""

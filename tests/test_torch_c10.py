@@ -46,7 +46,7 @@ from isaacgym_tpu_torch.interop import (actor_critic_from_jax, env_state_from_nu
 from isaacgym_tpu_torch.ops import dynamics as D
 from isaacgym_tpu_torch.ops import fused_substep_floating as FF
 from isaacgym_tpu_torch.rl.networks import ActorCritic
-from isaacgym_tpu_torch.sim.simulator import Simulator, floating_geom_lists, fused_ball_cfg
+from isaacgym_tpu_torch.sim.simulator import floating_geom_lists, fused_ball_cfg
 from isaacgym_tpu_torch.tasks.pingpong_common import load_tree
 from isaacgym_tpu_torch.utils.config import load_task_config, load_train_config
 from tests.test_torch_c8 import _jax_env_state_numpy, _np
@@ -335,30 +335,6 @@ def test_body_states_carry_the_base_velocity(built):
     b = pe.sim.make_body_state_fn(ids)(sp).numpy()
     np.testing.assert_allclose(b, a, rtol=0, atol=2e-5)
     assert np.abs(b[:, 0, 7:13] - root[:, 0, 7:13]).max() < 1e-6   # the pelvis is the base
-
-
-def test_dr_on_c10_is_refused_naming_module_10():
-    with pytest.raises(NotImplementedError, match="module 10"):
-        isaacgym_tpu_torch.make(seed=0, task=C10, num_envs=4, device="cpu",
-                                cfg=dict(load_task_config(C10), task={"randomize": True}))
-    env = isaacgym_tpu_torch.make(seed=0, task=C10, num_envs=4, device="cpu")
-    state, _ = env.reset()
-    tgt, eff = env.action_to_drive(torch.zeros(4, 27))
-    with pytest.raises(NotImplementedError, match="simulator.py:594-624.*module 10"):
-        env.sim.step(state.sim, tgt, eff, dr=object())
-
-
-def test_force_sensor_on_a_floating_scene_is_refused_naming_k4_tau():
-    from isaacgym_tpu_torch.sim.asset_api import (create_asset_force_sensor,
-                                                  find_asset_rigid_body_index)
-    from isaacgym_tpu_torch.sim.scene import compile_scene
-    from isaacgym_tpu_torch.tasks.pingpong_common import build_pingpong_scene
-    cfg = load_task_config(C10)
-    spec = build_pingpong_scene(cfg["env"], cfg["sim"], floating_base=True)
-    tree = spec.actors[0].tree
-    create_asset_force_sensor(tree, find_asset_rigid_body_index(tree, "pingpong_paddle"))
-    with pytest.raises(NotImplementedError, match="K4-tau"):
-        Simulator(compile_scene(spec), device="cpu")
 
 
 def test_c10_launcher_trains_on_the_cpu(tmp_path):

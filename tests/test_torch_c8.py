@@ -135,20 +135,6 @@ def test_resolved_configs_equal_the_yaml_loader(task):
     assert load_train_config(task) == jax_compose(task)["train"]
 
 
-def test_dr_on_c8_is_refused_at_make():
-    with pytest.raises(NotImplementedError, match="module 10"):
-        isaacgym_tpu_torch.make(seed=0, task=C8, num_envs=4, device="cpu",
-                                cfg=dict(load_task_config(C8), task={"randomize": True}))
-
-
-def test_dr_on_the_multi_articulation_simulator_is_refused():
-    env = isaacgym_tpu_torch.make(seed=0, task=C8, num_envs=4, device="cpu")
-    state, _ = env.reset()
-    tgt, eff = env.action_to_drive(torch.zeros(4, 14))
-    with pytest.raises(NotImplementedError, match="module 10"):
-        env.sim.step(state.sim, tgt, eff, dr=object())
-
-
 def test_jax_c8_policy_carried_across_gives_the_same_mu():
     obs_dim, act_dim, units = 94, 14, (64, 32)
     jnet = JActorCritic(num_actions=act_dim, units=units, compute_dtype=jnp.float32)

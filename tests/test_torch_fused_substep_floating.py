@@ -75,54 +75,7 @@ C10_MAX_FLIP_RATE = 0.25
 
 # 4-DOF floating biped: torso + two 1-DOF legs with sphere feet + a 2-DOF
 # arm with a sphere "paddle". Feet rest on the ground at base z=0.72.
-TOY_URDF = """
-<robot name="toy_biped">
-  <link name="torso">
-    <inertial><origin xyz="0 0 0"/><mass value="8.0"/>
-      <inertia ixx="0.3" iyy="0.3" izz="0.15" ixy="0" ixz="0" iyz="0"/></inertial>
-    <collision><origin xyz="0 0 0"/>
-      <geometry><box size="0.25 0.2 0.45"/></geometry></collision>
-  </link>
-  <link name="leg_l">
-    <inertial><origin xyz="0 0 -0.25"/><mass value="1.5"/>
-      <inertia ixx="0.02" iyy="0.02" izz="0.004" ixy="0" ixz="0" iyz="0"/></inertial>
-    <collision><origin xyz="0 0 -0.36"/>
-      <geometry><sphere radius="0.08"/></geometry></collision>
-  </link>
-  <link name="leg_r">
-    <inertial><origin xyz="0 0 -0.25"/><mass value="1.5"/>
-      <inertia ixx="0.02" iyy="0.02" izz="0.004" ixy="0" ixz="0" iyz="0"/></inertial>
-    <collision><origin xyz="0 0 -0.36"/>
-      <geometry><sphere radius="0.08"/></geometry></collision>
-  </link>
-  <link name="upper_arm">
-    <inertial><origin xyz="0.12 0 0"/><mass value="0.8"/>
-      <inertia ixx="0.004" iyy="0.004" izz="0.004" ixy="0" ixz="0" iyz="0"/></inertial>
-  </link>
-  <link name="paddle_hand">
-    <inertial><origin xyz="0.1 0 0"/><mass value="0.4"/>
-      <inertia ixx="0.002" iyy="0.002" izz="0.002" ixy="0" ixz="0" iyz="0"/></inertial>
-    <collision><origin xyz="0.18 0 0"/>
-      <geometry><sphere radius="0.09"/></geometry></collision>
-  </link>
-  <joint name="hip_l" type="revolute">
-    <origin xyz="0 0.11 -0.28"/><parent link="torso"/><child link="leg_l"/>
-    <axis xyz="0 1 0"/><limit lower="-1.2" upper="1.2" effort="60" velocity="20"/>
-  </joint>
-  <joint name="hip_r" type="revolute">
-    <origin xyz="0 -0.11 -0.28"/><parent link="torso"/><child link="leg_r"/>
-    <axis xyz="0 1 0"/><limit lower="-1.2" upper="1.2" effort="60" velocity="20"/>
-  </joint>
-  <joint name="shoulder" type="revolute">
-    <origin xyz="0.14 0 0.15"/><parent link="torso"/><child link="upper_arm"/>
-    <axis xyz="0 1 0"/><limit lower="-2.0" upper="2.0" effort="30" velocity="20"/>
-  </joint>
-  <joint name="elbow" type="revolute">
-    <origin xyz="0.22 0 0"/><parent link="upper_arm"/><child link="paddle_hand"/>
-    <axis xyz="0 0 1"/><limit lower="-2.0" upper="2.0" effort="30" velocity="20"/>
-  </joint>
-</robot>
-"""
+TOY_URDF = scripted.TOY_BIPED_URDF
 
 BALL_URDF = """
 <robot name="ball">
