@@ -64,8 +64,10 @@ Each phase prints one JSON line with its seconds:
           dropped, everything else the same), must each fail the gates on
           some set;
   k4_timing  K4 per launch on the random-action states, its plain version,
-          its bound, ptxas's registers, stack and spills, and its blocks per
-          SM;
+          its bound, ptxas's registers, stack, spills and shared memory, and
+          its launch geometry (envs per block, blocks, the blocks an SM
+          holds by the CUDA runtime's occupancy calculator, waves, warps per
+          busy SM; k4tau_timing too);
   k1/*    K1, the arm step, against its plain version on the flagship arm at
           4096 envs under the same comparison (its frames and factor gated
           as q is; a flip is an env whose set of clamped joints differs):
@@ -613,13 +615,14 @@ def tau_checks(dev, host, k2_sets, rz, k4_sets):
     yc = torch.empty((FF.n_out(k.nd, k.ng, True), B10))
     consts = k.device_consts(dev)
     usage = ptxas_usage("libigt_fused_substep_floating.so", "Lb1E")
+    geometry = k4_geometry(True, B10)
     t = time_kernel(
         "k4tau_timing", lambda: k.launch(x), lambda: k(*ins),
         lambda: FF.floating_substep_plain(consts, *ins, with_torque=True),
         host.igt_fused_substep_floating_tau_count_ops(cc.data_ptr(), xc.data_ptr(),
                                                       yc.data_ptr(), B10, k.nd),
         4 * B10 * (FF.n_in(k.nd) + FF.n_out(k.nd, k.ng, True)) + 4 * k.consts.size,
-        plain_repeats=3, b=B10, fields={"num_envs": B10, **usage})
+        plain_repeats=3, b=B10, fields={"num_envs": B10, **usage, **geometry})
     k4.update(ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
               bound_by=t["bound_by"], **usage)
     return k2, k2dr, k3, k4
@@ -755,9 +758,9 @@ def sensor_path(dev, steps=100, relaunch_every=10):
 
 
 def ptxas_usage(lib_name, entry=""):
-    """Registers, stack frame and spill bytes of a library's kernels whose
-    mangled name holds ``entry`` (all by default), from its ``ptxas -v``
-    output (the build of this run)."""
+    """Registers, stack frame, spill bytes and static shared memory per block
+    of a library's kernels whose mangled name holds ``entry`` (all by
+    default), from its ``ptxas -v`` output (the build of this run)."""
     import re
     from isaacgym_tpu_torch.ops import _build
     blocks = _build.build_logs.get(lib_name, "").split("Compiling entry function")[1:]
@@ -766,8 +769,33 @@ def ptxas_usage(lib_name, entry=""):
     stack = [int(m) for m in re.findall(r"(\d+) bytes stack frame", log)]
     spills = [int(a) + int(b) for a, b in re.findall(
         r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    smem = [int(m) for m in re.findall(r"(\d+) bytes smem", log)]
     return {"registers": max(regs, default=None), "stack_bytes": max(stack, default=None),
-            "spill_bytes": max(spills, default=None)}
+            "spill_bytes": max(spills, default=None), "smem_bytes": max(smem, default=0)}
+
+
+def k4_geometry(with_torque, b):
+    """K4's (K4-tau's) launch at ``b`` envs: the envs (warps) of a block and
+    the blocks per SM that its ``__launch_bounds__`` asks for, from the
+    library; the blocks an SM holds, from the CUDA runtime's occupancy
+    calculator on the built kernel (computed, not a reading of the run);
+    and how the blocks land on the card's SMs."""
+    import ctypes
+    import torch
+    from isaacgym_tpu_torch.ops import _build
+    out = (ctypes.c_int * 3)()
+    err = _build.cuda_library("fused_substep_floating").igt_floating_occupancy(
+        int(with_torque), ctypes.addressof(out), 3)
+    if err != 0:
+        raise SystemExit(f"k4 geometry: the occupancy calculator returned {err}")
+    envs, asked, fit = out
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = (b + envs - 1) // envs
+    busy = min(blocks, sms)
+    return {"envs_per_block": envs, "threads_per_block": 32 * envs, "blocks": blocks,
+            "sms": sms, "blocks_per_sm_asked": asked, "blocks_per_sm_fit": fit,
+            "waves": -(-blocks // (sms * fit)), "sms_busy": busy,
+            "warps_per_busy_sm": blocks * envs / busy}
 
 
 def k4_checks(dev, host):
@@ -789,8 +817,6 @@ def k4_checks(dev, host):
     env = isaacgym_tpu_torch.make(seed=0, task=C10, num_envs=B10)
     env_raised = isaacgym_tpu_torch.make(
         seed=0, task=C10, num_envs=B10, cfg=scripted.raised_table_cfg(load_task_config(C10)))
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(5)
 
     lift = 2.0
 
@@ -815,17 +841,6 @@ def k4_checks(dev, host):
         down = torch.tensor([0.0, 0.0, lift], device=dev)
         return out._replace(base_pos=out.base_pos - down, ball_pos=out.ball_pos - down)
 
-    def random_inputs():
-        state, _ = env.reset()
-        for _ in range(60):
-            state, *_ = env.step(state, torch.rand((B10, 27), generator=gen, device=dev) * 2 - 1)
-        tgt, eff = env.action_to_drive(torch.rand((B10, 27), generator=gen, device=dev) * 2 - 1)
-        s = state.sim
-        return tuple(t.contiguous() for t in (
-            s.dof_pos, s.dof_vel, tgt, eff, s.root[:, 0, 0:3], s.root[:, 0, 3:7],
-            s.root[:, 0, 7:10], s.root[:, 0, 10:13], s.root[:, 2, 0:3], s.root[:, 2, 7:10],
-            s.root[:, 2, 10:13]))
-
     acc, sets = {"max_err": {}, "excess": {}}, {}
     wrong = {"base_linvel negated": [], "ground contacts dropped": []}
     bad_forms = {}
@@ -833,7 +848,7 @@ def k4_checks(dev, host):
         t0 = time.perf_counter()
         e = env_raised if name == "table" else env
         if name == "random":
-            ins = random_inputs()
+            ins = scripted.k4_random_inputs(env, B10)
         else:
             ins = tuple(torch.as_tensor(a, device=dev) for a in
                         scripted.k4_inputs(e, name, B10, np.random.RandomState(400 + i)))
@@ -870,18 +885,14 @@ def k4_checks(dev, host):
     xc, cc = x.cpu(), torch.as_tensor(k.consts)
     yc = torch.empty((FF.n_out(k.nd, k.ng), B10))
     usage = ptxas_usage("libigt_fused_substep_floating.so", "Lb0E")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    blocks = (B10 + 31) // 32
+    geometry = k4_geometry(False, B10)
     t = time_kernel(
         "k4_timing", lambda: k.launch(x), lambda: k(*ins),
         lambda: FF.floating_substep_plain(consts, *ins),
         host.igt_fused_substep_floating_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(),
                                                   B10, k.nd),
         4 * B10 * (FF.n_in(k.nd) + FF.n_out(k.nd, k.ng)) + 4 * k.consts.size,
-        plain_repeats=3, b=B10,
-        fields={"num_envs": B10, **usage, "blocks_of_32": blocks, "sms": sms,
-                "sms_with_a_warp": min(blocks, sms),
-                "warps_per_busy_sm": blocks / min(blocks, sms)})
+        plain_repeats=3, b=B10, fields={"num_envs": B10, **usage, **geometry})
     return dict(acc, ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                 bound_by=t["bound_by"], **usage), sets
 

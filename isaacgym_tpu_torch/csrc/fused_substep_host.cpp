@@ -6,6 +6,7 @@
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -I csrc -o libigt_host.so csrc/fused_substep_host.cpp
 #include <cmath>
+#include <cstring>
 
 namespace igt {
 
@@ -84,18 +85,29 @@ long long run_multi(const float* consts, const float* x, float* y, int B, int nd
 }
 
 // K4 (K4-tau) over every env, in float or with the counting float: ND 27
-// (C10) and 4 (the CPU tests' toy biped). Returns 0 (or the operation count),
-// or -1 on another DOF count.
+// (C10) and 4 (the CPU tests' toy biped), the warp's 32 lanes of each phase
+// in turn (``reverse``: 31 .. 0). Each env's block starts as 0xff bytes (a
+// NaN in every float), so a value read before it is written shows. Returns 0
+// (or the operation count), or -1 on another DOF count.
+template <class T, bool WITH_TORQUE, int ND>
+void floating_envs(const float* consts, const float* x, float* y, int B, bool reverse) {
+  igt::FloatShared<T, ND, WITH_TORQUE> sh;
+  for (int b = 0; b < B; ++b) {
+    std::memset(static_cast<void*>(&sh), 0xff, sizeof sh);
+    igt::fused_substep_floating_env<T, ND, WITH_TORQUE>(consts, x, y, b, B, sh,
+                                                        igt::Lanes{0, reverse});
+  }
+}
+
 template <class T, bool WITH_TORQUE = false>
-long long run_floating(const float* consts, const float* x, float* y, int B, int nd) {
+long long run_floating(const float* consts, const float* x, float* y, int B, int nd,
+                       bool reverse = false) {
   if (B < 1) return -1;
   igt::g_ops = 0;
   if (nd == 27) {
-    for (int b = 0; b < B; ++b)
-      igt::fused_substep_floating_env<T, 27, WITH_TORQUE>(consts, x, y, b, B);
+    floating_envs<T, WITH_TORQUE, 27>(consts, x, y, B, reverse);
   } else if (nd == 4) {
-    for (int b = 0; b < B; ++b)
-      igt::fused_substep_floating_env<T, 4, WITH_TORQUE>(consts, x, y, b, B);
+    floating_envs<T, WITH_TORQUE, 4>(consts, x, y, B, reverse);
   } else {
     return -1;
   }
@@ -210,6 +222,15 @@ extern "C" long long igt_fused_substep_floating_tau_count_ops(const float* const
                                                               const float* x, float* y, int B,
                                                               int nd) {
   return run_floating<igt::CountF, true>(consts, x, y, B, nd);
+}
+
+// K4 (with_torque 0) or K4-tau (1) in float with the lanes of every phase
+// run in reverse order, 31 .. 0
+extern "C" int igt_fused_substep_floating_reversed_host(const float* consts, const float* x,
+                                                        float* y, int B, int nd,
+                                                        int with_torque) {
+  return (with_torque ? run_floating<float, true>(consts, x, y, B, nd, true)
+                      : run_floating<float>(consts, x, y, B, nd, true)) == 0 ? 0 : 1;
 }
 
 extern "C" int igt_floating_layout(int nd, int* out, int n) {

@@ -127,6 +127,10 @@ _SIGNATURES = {
     "igt_fused_substep_floating_tau_launch": ([_VP, _VP, _VP, _IP, _IP, _IP, _VP], _IP),
     "igt_fused_substep_floating_tau_host": ([_VP, _VP, _VP, _IP, _IP], _IP),
     "igt_fused_substep_floating_tau_count_ops": ([_VP, _VP, _VP, _IP, _IP], ctypes.c_longlong),
+    # K4 or K4-tau (with_torque) on the host, each phase's lanes in reverse order
+    "igt_fused_substep_floating_reversed_host": ([_VP, _VP, _VP, _IP, _IP, _IP], _IP),
+    # K4's or K4-tau's (with_torque) envs per block, blocks per SM asked and found
+    "igt_floating_occupancy": ([_IP, _VP, _IP], _IP),
 }
 
 

@@ -654,3 +654,54 @@ def k4_inputs(env, kind: str, B: int, rng: np.random.RandomState):
     else:
         raise KeyError(f"unknown input kind {kind!r}; known: {K4_KINDS}")
     return tuple(map(f, (q, qd, tgt, eff, bp, bq, blv, bav, pos, vel, omg)))
+
+
+def k4_random_inputs(env, B: int, seed: int = 5, steps: int = 60):
+    """K4's eleven inputs, tensors on ``env``'s device, after ``steps`` env
+    steps of ``env`` (a C10 env of ``B`` envs) from reset under uniform
+    random actions, drawn by a generator on that device seeded ``seed``:
+    the random-action states."""
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(seed)
+    nd = env.scene.articulations[0].model.tree.n_dof
+    act = lambda: torch.rand((B, nd), generator=gen, device=env.device) * 2 - 1
+    state, _ = env.reset()
+    for _ in range(steps):
+        state, *_ = env.step(state, act())
+    tgt, eff = env.action_to_drive(act())
+    s, ba = state.sim, env.ball_actor
+    return tuple(t.contiguous() for t in (
+        s.dof_pos, s.dof_vel, tgt, eff, s.root[:, 0, 0:3], s.root[:, 0, 3:7],
+        s.root[:, 0, 7:10], s.root[:, 0, 10:13], s.root[:, ba, 0:3], s.root[:, ba, 7:10],
+        s.root[:, ba, 10:13]))
+
+
+def with_static_copies(consts, shifts):
+    """A copy of a K4 pack with each static entry copied once per world
+    offset (m) in ``shifts``, the copies after the originals, and the pair
+    table rebuilt over every static and every articulated geom, static by
+    static (a copy's pair entry is its original's): more art-vs-static
+    pairs than the 32 of a warp's chunk (C10 has 18), the last statics'
+    pairs past the first chunk."""
+    from isaacgym_tpu_torch.ops import fused_substep as F
+    from isaacgym_tpu_torch.ops import fused_substep_floating as FF
+    c = np.array(consts, dtype=np.float32, copy=True)
+    lay = FF.layout(int(c[FF.C_ND]))
+    ns, na = int(c[FF.C_NSTATIC]), int(c[FF.C_NART])
+    n = ns * (1 + len(shifts))
+    if int(c[FF.C_NPAIR]) != na * ns or n > FF.MAX_STATIC or na * n > FF.MAX_PAIRS:
+        raise ValueError(f"{na} geoms x {n} statics do not fit the pack's pair table")
+    sl = lambda off, i, stride: slice(off + i * stride, off + (i + 1) * stride)
+    for j, d in enumerate(shifts):
+        for si in range(ns):
+            dst = sl(lay["static"], ns * (j + 1) + si, FF.STATIC_STRIDE)
+            c[dst] = c[sl(lay["static"], si, FF.STATIC_STRIDE)]
+            c[dst.start + FF.G_POS:dst.start + FF.G_POS + 3] += np.asarray(d, np.float32)
+    old = [c[sl(lay["pair"], i, FF.PAIR_STRIDE)].copy() for i in range(na * ns)]
+    for si in range(n):
+        for gi in range(na):
+            row = old[gi * ns + si % ns].copy()
+            row[FF.P_STATIC] = si
+            c[sl(lay["pair"], si * na + gi, FF.PAIR_STRIDE)] = row
+    c[FF.C_NSTATIC], c[FF.C_NPAIR], c[F.C_NTRUE_STATIC] = n, na * n, n
+    return c
