@@ -30,8 +30,15 @@ Each phase prints one JSON line with its seconds:
           after 60 steps, paddle_ball1, paddle_ball2 -- the humanoid yawed
           180 deg -- and ball_rest) and on the two-arm, two-ball check scene
           (ball_ball: the balls about to collide; effort: effort drive);
-  k3_timing  K3 per launch on the C8 rollout states, its plain version and
-          its bound, as timing;
+  k3_gates  K3's output with arm 1's qd_new negated, and K3 on a copy of the
+          scene's pack whose articulations list no geoms for the balls (the
+          ball-vs-art reactions dropped, everything else the same), must
+          each fail the gates on some set;
+  k3_timing  K3 per launch on the C8 rollout states (sim/scripted
+          k3_random_inputs; its library entry into an output allocated once,
+          the wrapper's time beside it), its plain version, its bound, ptxas's
+          registers, stack, spills and shared memory of the entry that ran,
+          and its launch geometry (as k4_timing; k3tau_timing too);
   k2tau/*  K2-tau, the torque-lane build of K2 for scenes with a force
           sensor, on the flagship scene with a paddle sensor (raised table
           for paddle_table), on K2's five sets under the same comparison and
@@ -42,7 +49,7 @@ Each phase prints one JSON line with its seconds:
   k3tau/*  K3-tau on C8 with a sensor on each paddle (C8's five sets) and on
           the two-arm, two-ball scene with paddle sensors (ball_ball, whose
           ball-pair moments the JAX package's tests never reach, and
-          effort); k3tau_timing its time and bound;
+          effort); k3tau_timing its time, bound, ptxas usage and geometry;
   k4tau/*  K4-tau, the torque-lane build of K4, on C10 with a paddle sensor
           (raised table for table) at 2048 envs, on K4's five sets (below)
           under k4/*'s comparison, the moment rows compared on their own at
@@ -289,14 +296,16 @@ def gate(phase, res, extra_ok=True, extra=""):
                          f"flip {res['flip_rate']} finite {res['finite']} {extra}")
 
 
-def check_kernel(phase, kernel, plain, ins, extra=(), fields=None, ok=True, why=""):
+def check_kernel(phase, kernel, plain, ins, extra=(), fields=None, ok=True, why="",
+                 keep_outputs=False):
     """One state set: the kernel against its plain version run in float32 and
     in float64 on the same inputs (``extra``: more inputs, the DR channel),
     emitted and gated (``compare``, ``gate``; ``ok`` and ``why`` a further
     check of the caller's). A torque-lane build also reports its largest geom
     and ball moment, and which of its moment rows, zeroed or negated in the
     kernel's output, the gates reject (``wrong_moments_rejected``). Returns
-    ``compare``'s result."""
+    ``compare``'s result; with ``keep_outputs`` also the kernel's and the
+    two plain runs' outputs, under ``outputs``."""
     import torch
     t0 = time.perf_counter()
     got = kernel(*ins, *extra)
@@ -322,6 +331,8 @@ def check_kernel(phase, kernel, plain, ins, extra=(), fields=None, ok=True, why=
                     res["wrong_moments_rejected"].append(f"{f} {how}")
     emit({**out, "seconds": time.perf_counter() - t0})
     gate(phase, res, ok, why)
+    if keep_outputs:
+        res["outputs"] = (got, want, want64)
     return res
 
 
@@ -402,7 +413,11 @@ def bounced_envs(zs, dev):
 
 def k3_checks(dev, host):
     """K3 against its plain version (float32 and float64) on the C8 and
-    check-scene state sets, then its timing and bound. Returns the kernels-line
+    check-scene state sets; then that the gates reject two wrong K3 outputs
+    (k3_gates): arm 1's qd_new negated, and K3 on a copy of the scene's pack
+    whose articulations list no geoms for the balls (the ball-vs-art
+    reactions dropped, everything else the same); then its timing, bound,
+    ptxas usage and launch geometry (k3_timing). Returns the kernels-line
     numbers; raises on any failed gate."""
     import numpy as np
     import torch
@@ -414,34 +429,51 @@ def k3_checks(dev, host):
     env = isaacgym_tpu_torch.make(seed=0, task=C8, num_envs=B)
     toy_pd = scripted.ToyEnv(DRIVE_POS, device=dev)
     toy_effort = scripted.ToyEnv(DRIVE_EFFORT, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
-
-    def rollout_inputs():
-        state, _ = env.reset()
-        for _ in range(60):
-            state, *_ = env.step(state, torch.rand((B, 14), generator=gen, device=dev) * 2 - 1)
-        tgt, eff = env.action_to_drive(torch.rand((B, 14), generator=gen, device=dev) * 2 - 1)
-        s = state.sim
-        return tuple(t.contiguous() for t in (s.dof_pos, s.dof_vel, tgt, eff, s.root[:, 3:4, 0:3],
-                                              s.root[:, 3:4, 7:10], s.root[:, 3:4, 10:13]))
-
     cases = (("reset", env, "reset", 0.0), ("rollout", env, None, 0.0),
              ("paddle_ball1", env, "paddle_ball1", 0.0), ("paddle_ball2", env, "paddle_ball2", 0.0),
              ("ball_rest", env, "ball_rest", 0.0), ("ball_ball", toy_pd, "ball_ball", 0.0),
              ("effort", toy_effort, "paddle_ball1", 15.0))
+
+    def without_ball_art(k):
+        """A copy of K3 wrapper ``k``'s pack whose articulations list no
+        geoms for the balls (each C_GEOM_HI set to its C_GEOM_LO): the
+        pairs and the impulse rows keep the geoms."""
+        consts = k.consts.copy()
+        lay = M.multi_layout(k.nd, k.K)
+        for a in range(k.K):
+            blk = lay["art0"] + a * lay["art_stride"]
+            consts[blk + M.C_GEOM_HI] = consts[blk + M.C_GEOM_LO]
+        return consts
+
     sets, acc = {}, {"max_err": {}, "excess": {}}
+    wrong = {"arm 1's qd_new negated": [], "ball-vs-art reactions dropped": []}
+    no_art = {}
     for i, (name, e, kind, scale) in enumerate(cases):
         if kind is None:
-            ins = rollout_inputs()
+            ins = scripted.k3_random_inputs(env, B)
         else:
             ins = tuple(torch.as_tensor(a, device=dev) for a in scripted.k3_inputs(
                 e, kind, B, np.random.RandomState(200 + i), scale))
         k = e.sim.fused_substep_multi
         plain = lambda *a, k=k: M.fused_substep_multi_reference(k.device_consts(dev), *a)
-        fold(acc, check_kernel(f"k3/{name}", k, plain, ins,
-                               fields={"shape": [k.nd, k.K, k.nb]}))
+        res = check_kernel(f"k3/{name}", k, plain, ins, fields={"shape": [k.nd, k.K, k.nb]},
+                           keep_outputs=True)
+        got, want, want64 = res.pop("outputs")
+        fold(acc, res)
         sets[name] = (e, ins)
+        if k not in no_art:
+            no_art[k] = M.FusedSubstepMulti(without_ball_art(k))
+        nd = k.nd
+        arm1 = torch.cat([got.qd_new[:, :nd], -got.qd_new[:, nd:2 * nd]], 1)
+        for form, out in (("arm 1's qd_new negated", got._replace(qd_new=arm1)),
+                          ("ball-vs-art reactions dropped", no_art[k](*ins))):
+            r = compare(out, want, want64)
+            if (any(not v <= TOL[f] for f, v in r["excess"].items())
+                    or r["flip_rate"] > MAX_FLIP_RATE):
+                wrong[form].append(name)
+    emit({"phase": "k3_gates", "rejected_on_sets": wrong})
+    if not all(wrong.values()):
+        raise SystemExit(f"k3_gates: the gates let a wrong K3 output pass on every set: {wrong}")
 
     # timing at the main path's shape, on the C8 rollout states
     e, ins = sets["rollout"]
@@ -450,15 +482,16 @@ def k3_checks(dev, host):
     consts = k.device_consts(dev)
     xc, cc = x.cpu(), torch.as_tensor(k.consts)
     yc = torch.empty((M.n_out(k.nd_tot, k.nb, k.ng), B))
+    usage = ptxas_usage("libigt_fused_substep_multi.so", k3_entry(k))
     t = time_kernel(
-        "k3_timing", lambda: k.launch(x), lambda: k(*ins),
+        "k3_timing", k3_launch(k, x), lambda: k(*ins),
         lambda: M.fused_substep_multi_reference(consts, *ins),
         host.igt_fused_substep_multi_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(), B,
                                                k.nd, k.K, k.nb),
         4 * B * (M.n_in(k.nd_tot, k.nb) + M.n_out(k.nd_tot, k.nb, k.ng)) + 4 * k.consts.size,
-        plain_repeats=5)
+        plain_repeats=5, fields={"shape": [k.nd, k.K, k.nb], **usage, **k3_geometry(k, B)})
     return dict(acc, ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                bound_by=t["bound_by"])
+                bound_by=t["bound_by"], **usage)
 
 
 def tau_checks(dev, host, k2_sets, rz, k4_sets):
@@ -597,15 +630,17 @@ def tau_checks(dev, host, k2_sets, rz, k4_sets):
     xc, cc = x.cpu(), torch.as_tensor(k.consts)
     yc = torch.empty((M.n_out(k.nd_tot, k.nb, k.ng, True), B))
     consts = k.device_consts(dev)
+    usage = ptxas_usage("libigt_fused_substep_multi.so", k3_entry(k))
     t = time_kernel(
-        "k3tau_timing", lambda: k.launch(x), lambda: k(*rollout),
+        "k3tau_timing", k3_launch(k, x), lambda: k(*rollout),
         lambda: M.fused_substep_multi_reference(consts, *rollout, with_torque=True),
         host.igt_fused_substep_multi_tau_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(),
                                                    B, k.nd, k.K, k.nb),
         4 * B * (M.n_in(k.nd_tot, k.nb) + M.n_out(k.nd_tot, k.nb, k.ng, True))
-        + 4 * k.consts.size, plain_repeats=5)
+        + 4 * k.consts.size, plain_repeats=5,
+        fields={"shape": [k.nd, k.K, k.nb], **usage, **k3_geometry(k, B)})
     k3.update(ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-              bound_by=t["bound_by"])
+              bound_by=t["bound_by"], **usage)
 
     # K4-tau timing on K4's random-action states
     _, ins = k4_sets["random"]
@@ -774,20 +809,20 @@ def ptxas_usage(lib_name, entry=""):
             "spill_bytes": max(spills, default=None), "smem_bytes": max(smem, default=0)}
 
 
-def k4_geometry(with_torque, b):
-    """K4's (K4-tau's) launch at ``b`` envs: the envs (warps) of a block and
-    the blocks per SM that its ``__launch_bounds__`` asks for, from the
-    library; the blocks an SM holds, from the CUDA runtime's occupancy
-    calculator on the built kernel (computed, not a reading of the run);
-    and how the blocks land on the card's SMs."""
+def launch_geometry(occupancy, b, what):
+    """A warp-per-env kernel's launch at ``b`` envs. ``occupancy(out)`` is
+    the library's occupancy entry (``igt_floating_occupancy``,
+    ``igt_multi_occupancy``) filling ``out`` with the envs (warps) of a block
+    and the blocks per SM that its ``__launch_bounds__`` asks for, from the
+    library, and the blocks an SM holds, from the CUDA runtime's occupancy
+    calculator on the built kernel (computed, not a reading of the run).
+    Returns those and how the blocks land on the card's SMs."""
     import ctypes
     import torch
-    from isaacgym_tpu_torch.ops import _build
     out = (ctypes.c_int * 3)()
-    err = _build.cuda_library("fused_substep_floating").igt_floating_occupancy(
-        int(with_torque), ctypes.addressof(out), 3)
+    err = occupancy(ctypes.addressof(out))
     if err != 0:
-        raise SystemExit(f"k4 geometry: the occupancy calculator returned {err}")
+        raise SystemExit(f"{what} geometry: the occupancy calculator returned {err}")
     envs, asked, fit = out
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = (b + envs - 1) // envs
@@ -796,6 +831,40 @@ def k4_geometry(with_torque, b):
             "sms": sms, "blocks_per_sm_asked": asked, "blocks_per_sm_fit": fit,
             "waves": -(-blocks // (sms * fit)), "sms_busy": busy,
             "warps_per_busy_sm": blocks * envs / busy}
+
+
+def k4_geometry(with_torque, b):
+    """K4's (K4-tau's) launch at ``b`` envs (launch_geometry)."""
+    from isaacgym_tpu_torch.ops import _build
+    lib = _build.cuda_library("fused_substep_floating")
+    return launch_geometry(lambda out: lib.igt_floating_occupancy(int(with_torque), out, 3), b,
+                           "k4")
+
+
+def k3_geometry(k, b):
+    """The launch of K3 (K3-tau) wrapper ``k``'s build at ``b`` envs
+    (launch_geometry)."""
+    from isaacgym_tpu_torch.ops import _build
+    lib = _build.cuda_library("fused_substep_multi")
+    return launch_geometry(lambda out: lib.igt_multi_occupancy(
+        k.nd, k.K, k.nb, int(k.with_torque), out, 3), b, "k3")
+
+
+def k3_launch(k, x):
+    """One launch of K3 (K3-tau) wrapper ``k`` on the packed buffer ``x``
+    into an output allocated once (its ``launcher``): the kernel's time alone.
+    The wrapper's call allocates and unpacks its output every time, which at
+    K3's ~55 us a launch sets the pace from the host (wrapper_ms)."""
+    import torch
+    from isaacgym_tpu_torch.ops import fused_substep_multi as M
+    y = torch.empty((M.n_out(k.nd_tot, k.nb, k.ng, k.with_torque), x.shape[1]), device=x.device)
+    return k.launcher(x, y)
+
+
+def k3_entry(k):
+    """The mangled-name fragment of K3 (K3-tau) wrapper ``k``'s kernel in
+    ptxas's log: its template arguments <ND, K, NB, WITH_TORQUE>."""
+    return f"ILi{k.nd}ELi{k.K}ELi{k.nb}ELb{int(k.with_torque)}E"
 
 
 def k4_checks(dev, host):

@@ -1,0 +1,499 @@
+// The dynamics of K fixed-base articulations side by side in one warp, and
+// the pieces of a contact's joint-space reaction, in warp phases (warp.cuh).
+// K3 and K3-tau run their two arms with it (fused_substep_multi.cuh); K1 and
+// K2 still call the one-thread art_dynamics of fused_substep.cuh.
+//
+// Articulation a takes the HW = 32 / K lanes a HW .. a HW + HW - 1 (16 each
+// at K = 2). Every articulation runs the same phases on its own constant
+// block, so one __syncwarp serves them all:
+//   - drive with the effort clamp (and each revolute DOF's sin and cos of
+//     q / 2), Euler with the limits (and the same at the new q): one lane per
+//     DOF;
+//   - FK and the velocity and bias propagation: one lane per articulation
+//     walks its DOFs in index order, a DOF's parent frame and rates in
+//     registers when the parent is the DOF just formed. C8's arms and the
+//     check scene's are chains: one phase per depth (K4's fk_levels) gives
+//     them no parallelism and costs a sync and a reload per depth, and
+//     splitting each DOF's terms off onto lanes between serial sums was
+//     slower still (PERF.md);
+//   - each link's world COM, inertia, force and moment: one lane per link;
+//   - every link's active columns (its ancestors) J_li and I_l axw_i: one
+//     lane per (link, column) pair, in one phase;
+//   - each entry of M sums over its links in ascending l on a lane of its
+//     own, a diagonal entry's lane also its DOF's bias over the same links;
+//   - the left-looking Cholesky: one phase per column j, row i > j on its own
+//     lane with its serial k-sum, which also subtracts L_ij^2 from the row's
+//     diagonal and carries the forward solve's column j (its terms in
+//     ascending j, as fwd_sub takes them); the owner of row j + 1 then takes
+//     that pivot's root and y_(j+1);
+//   - the back solve: one lane per articulation, K2's back_sub: its sums run
+//     in ascending j from the diagonal, so no row can start before the one
+//     below it is done;
+//   - a contact: its Jacobian columns one per lane, the two directions'
+//     forward solves column by column in the same phases, the sums (the
+//     point's velocity, |y|^2) and the back solve on one lane in K2's order.
+// Every value is formed by the operations of fused_substep.cuh's
+// art_dynamics, ball_art and art_static in the same order, so the outputs
+// are the same bits, with one saving: art_dynamics forms I_l axw_j again
+// for every entry of M, these phases once per column.
+#pragma once
+
+#include "fused_substep.cuh"
+#include "warp.cuh"
+
+namespace igt {
+
+// ------------------------------------------------------------ shared state --
+// One articulation's state, through the whole substep: the packed M (then its
+// factor), u (qd before the step, then after it and after each contact), q
+// and the clamped drive, sin and cos of each revolute DOF's q / 2 (the FK's
+// rotation, formed on the DOF's lane before the FK's chain needs it), the
+// frames.
+template <class T, int ND>
+struct ArmState {
+  T L[ND * (ND + 1) / 2];
+  T u[ND], q[ND], tau[ND], sn[ND], cs[ND];
+  V3<T> fp[ND], axw[ND];
+  Q4<T> fq[ND];
+};
+
+// Its dynamics' scratch: dead once the post-step frames are formed.
+template <class T, int ND>
+struct ArmDyn {
+  T rhs[ND], y[ND], qdd[ND], dinv[ND];   // tau - bias, then L^-1 of it; qdd; 1 / L_jj
+  V3<T> w[ND], wd[ND], ao[ND];     // per DOF frame: angular velocity and the bias rates
+  V3<T> com[ND], f[ND], nn[ND];    // per link: world COM, m (a_com - g), I wd + w x I w
+  T Iw[ND][6];                     // per link: world inertia (xx xy xz yy yz zz)
+  V3<T> J[ND][ND], Ia[ND][ND];     // per link l and active column i: J_li, and I_l axw_i
+  unsigned cbits[ND];              // per link: its active columns (its ancestors), a bit each
+  unsigned char na[ND], idx[ND][ND];   // and as a list
+};
+
+// One contact on the articulation: its point, the normal and tangent, the
+// scalars its impulse needs, whether it acts, the point's Jacobian columns
+// and each times u_i, J^T n and J^T t and their forward solves with squares,
+// the back solve's right-hand side (yn an + yt at, or yn an - yt at with
+// ``minus``) and its solution.
+template <class T, int ND>
+struct ArmContact {
+  V3<T> pt, n, t_hat;
+  T vn, vt_n, e_eff, bias, an, at;
+  int act, minus;
+  V3<T> Jc[ND], cu[ND];
+  unsigned char on[ND];
+  T bn[ND], bt[ND], yn[ND], yt[ND], sqn[ND], sqt[ND], jv[ND], du[ND];
+};
+
+// A phase over the K articulations side by side: f(a, s) on lane a HW + s.
+template <int K, class F>
+IGT_HD void each_arm(const Lanes& w, F f) {
+  static_assert(K >= 1 && WARP % K == 0, "the articulations split the warp evenly");
+  constexpr int HW = WARP / K;
+  each(w, [&](int lane) { f(lane / HW, lane % HW); });
+}
+
+// DOF d's parent as art_dynamics' fk takes it: a parent index below d, else
+// the base (-1).
+IGT_HD int dof_parent(const float* c, int d) {
+  const int p = (int)ldc(c + DOF_OFF + d * DOF_STRIDE + D_PARENT);
+  return p >= 0 && p < d ? p : -1;
+}
+
+IGT_HD bool dof_rev(const float* c, int d) { return ldc(c + DOF_OFF + d * DOF_STRIDE + D_REV) != 0.0f; }
+
+// --------------------------------------------------------------- dynamics --
+// sin and cos of revolute DOF d's q / 2, for its FK rotation.
+template <class T, int ND>
+IGT_HD void dof_half_angle(const float* c, ArmState<T, ND>& ar, int d) {
+  if (!dof_rev(c, d)) return;
+  const T half = T(0.5f) * ar.q[d];
+  ar.sn[d] = sin_(half);
+  ar.cs[d] = cos_(half);
+}
+
+// The articulation's DOF frames and world axes at ar.q, fk's arithmetic (sin
+// and cos from dof_half_angle), DOF by DOF in index order on one lane; with
+// ``vel`` also the velocity and bias propagation (qdd = 0). A DOF's parent
+// frame and rates come from registers when the parent is the DOF just
+// formed (every DOF of a chain), else from the block. C8's arms and the
+// check scene's are chains, where one phase per depth of the tree (K4's
+// fk_levels) has no parallelism to offer and costs a sync and a reload per
+// depth.
+template <class T, int ND>
+IGT_HD void fk_walk(const float* c, ArmState<T, ND>& ar, ArmDyn<T, ND>& dy, bool vel) {
+  const V3<T> zero3 = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+  const V3<T> bp = cv3<T>(c + C_BASE_P);
+  const Q4<T> bq = cq4<T>(c + C_BASE_Q);
+  V3<T> lp = bp, lw = zero3, lwd = zero3, lao = zero3;   // DOF d - 1's
+  Q4<T> lq = bq;
+  for (int d = 0; d < ND; ++d) {
+    const float* dc = c + DOF_OFF + d * DOF_STRIDE;
+    const int par = dof_parent(c, d);
+    V3<T> pp = bp, w_p = zero3, wd_p = zero3, ao_p = zero3;
+    Q4<T> pq = bq;
+    if (par >= 0 && par == d - 1) {
+      pp = lp; pq = lq; w_p = lw; wd_p = lwd; ao_p = lao;
+    } else if (par >= 0) {
+      pp = ar.fp[par]; pq = ar.fq[par];
+      if (vel) { w_p = dy.w[par]; wd_p = dy.wd[par]; ao_p = dy.ao[par]; }
+    }
+    const V3<T> jp = add(pp, qrot(pq, cv3<T>(dc + D_PRE_POS)));
+    const Q4<T> jq = qmul(pq, cq4<T>(dc + D_PRE_QUAT));
+    const V3<T> ax = cv3<T>(dc + D_AXIS);
+    Q4<T> fq;
+    V3<T> fp;
+    const bool rev = ldc(dc + D_REV) != 0.0f;
+    if (rev) {
+      const T s = ar.sn[d];
+      Q4<T> r; r.x = ax.x * s; r.y = ax.y * s; r.z = ax.z * s; r.w = ar.cs[d];
+      fq = qmul(jq, r);
+      fp = jp;
+    } else {
+      fq = jq;
+      fp = add(jp, scale(qrot(jq, ax), ar.q[d]));
+    }
+    const V3<T> axw = qrot(fq, ax);
+    ar.fq[d] = fq;
+    ar.fp[d] = fp;
+    ar.axw[d] = axw;
+    lp = fp;
+    lq = fq;
+    if (!vel) continue;
+    const T qd = ar.u[d];
+    const V3<T> r = sub(fp, pp);
+    V3<T> ao_d = add(ao_p, add(cross(wd_p, r), cross(w_p, cross(w_p, r))));
+    if (rev) {
+      lw = add(w_p, scale(axw, qd));
+      lwd = add(wd_p, scale(cross(w_p, axw), qd));
+    } else {
+      lw = w_p;
+      lwd = wd_p;
+      ao_d = add(ao_d, scale(cross(w_p, axw), T(2.0f) * qd));
+    }
+    lao = ao_d;
+    dy.w[d] = lw;
+    dy.wd[d] = lwd;
+    dy.ao[d] = lao;
+  }
+}
+
+// Link l's world COM, inertia, force and moment.
+template <class T, int ND>
+IGT_HD void link_terms_fixed(const float* c, const ArmState<T, ND>& ar, ArmDyn<T, ND>& dy, int l) {
+  const float* lc = c + DOF_OFF + l * DOF_STRIDE;
+  const Q4<T> qq = ar.fq[l];
+  const V3<T> com = add(ar.fp[l], qrot(qq, cv3<T>(lc + D_COM)));
+  T R[3][3];
+  R[0][0] = T(1.0f) - T(2.0f) * (qq.y * qq.y + qq.z * qq.z);
+  R[0][1] = T(2.0f) * (qq.x * qq.y - qq.w * qq.z);
+  R[0][2] = T(2.0f) * (qq.x * qq.z + qq.w * qq.y);
+  R[1][0] = T(2.0f) * (qq.x * qq.y + qq.w * qq.z);
+  R[1][1] = T(1.0f) - T(2.0f) * (qq.x * qq.x + qq.z * qq.z);
+  R[1][2] = T(2.0f) * (qq.y * qq.z - qq.w * qq.x);
+  R[2][0] = T(2.0f) * (qq.x * qq.z - qq.w * qq.y);
+  R[2][1] = T(2.0f) * (qq.y * qq.z + qq.w * qq.x);
+  R[2][2] = T(1.0f) - T(2.0f) * (qq.x * qq.x + qq.y * qq.y);
+  const float* I = lc + D_INERTIA;
+  T RI[3][3], Iw[3][3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      RI[i][j] = R[i][0] * T(ldc(I + j)) + R[i][1] * T(ldc(I + 3 + j)) + R[i][2] * T(ldc(I + 6 + j));
+  for (int i = 0; i < 3; ++i)
+    for (int j = i; j < 3; ++j) {
+      Iw[i][j] = RI[i][0] * R[j][0] + RI[i][1] * R[j][1] + RI[i][2] * R[j][2];
+      Iw[j][i] = Iw[i][j];
+    }
+  const V3<T> wl = dy.w[l], wdl = dy.wd[l];
+  const V3<T> rc = sub(com, ar.fp[l]);
+  const V3<T> a_com = add(dy.ao[l], add(cross(wdl, rc), cross(wl, cross(wl, rc))));
+  const T m = T(ldc(lc + D_MASS));
+  const V3<T> Iwd = v3<T>(Iw[0][0] * wdl.x + Iw[0][1] * wdl.y + Iw[0][2] * wdl.z,
+                          Iw[1][0] * wdl.x + Iw[1][1] * wdl.y + Iw[1][2] * wdl.z,
+                          Iw[2][0] * wdl.x + Iw[2][1] * wdl.y + Iw[2][2] * wdl.z);
+  const V3<T> Iww = v3<T>(Iw[0][0] * wl.x + Iw[0][1] * wl.y + Iw[0][2] * wl.z,
+                          Iw[1][0] * wl.x + Iw[1][1] * wl.y + Iw[1][2] * wl.z,
+                          Iw[2][0] * wl.x + Iw[2][1] * wl.y + Iw[2][2] * wl.z);
+  dy.com[l] = com;
+  dy.f[l] = scale(v3<T>(a_com.x - T(ldc(c + C_GX)), a_com.y - T(ldc(c + C_GY)),
+                        a_com.z - T(ldc(c + C_GZ))), m);
+  dy.nn[l] = add(Iwd, cross(wl, Iww));
+  T* iw = dy.Iw[l];
+  iw[0] = Iw[0][0]; iw[1] = Iw[0][1]; iw[2] = Iw[0][2];
+  iw[3] = Iw[1][1]; iw[4] = Iw[1][2]; iw[5] = Iw[2][2];
+}
+
+// Link l's inertia times a (art_dynamics' Ia).
+template <class T, int ND>
+IGT_HD V3<T> inertia_times(const ArmDyn<T, ND>& dy, int l, V3<T> a) {
+  const T* iw = dy.Iw[l];
+  return v3<T>(iw[0] * a.x + iw[1] * a.y + iw[2] * a.z, iw[1] * a.x + iw[3] * a.y + iw[4] * a.z,
+               iw[2] * a.x + iw[4] * a.y + iw[5] * a.z);
+}
+
+// The K articulations' dynamics, art_dynamics' steps: drive (PD, or the
+// effort input when the block's C_DRIVE is 1) with the effort clamp -> FK ->
+// RNEA bias -> mass matrix -> Cholesky -> semi-implicit Euler with limits ->
+// FK at the new q. ``art(a)``: articulation a's constant block (its base pose
+// folded in, C_BASE_P and C_BASE_Q). Its DOFs are rows a ND .. of the q, qd,
+// target and effort blocks of x (each nd_tot rows); q and tau are written to
+// the same rows of y's q and tau blocks. Leaves in sh.arm[a] the packed lower
+// factor, the joint velocities and the post-step frames.
+//
+// The bias and M sum over the links in ascending l, as art_dynamics does:
+// every link's active columns J_li and I_l axw_i (which art_dynamics forms
+// again for each entry) in one phase, then each entry of M and of the bias
+// sums its links on a lane of its own.
+template <class T, int ND, int K, class Art, class Sh>
+IGT_HD void arms_dynamics(Art art, const float* __restrict__ x, float* __restrict__ y, int b,
+                          size_t sB, int nd_tot, Sh& sh, const Lanes& w) {
+  constexpr int HW = WARP / K;
+#define IGT_IN(blk, a, d) T(x[(size_t)((blk) * nd_tot + (a) * ND + (d)) * sB + b])
+#define IGT_OUT(blk, a, d, v) (y[(size_t)((blk) * nd_tot + (a) * ND + (d)) * sB + b] = to_f(v))
+
+  // drive; u before the step; each link's active columns
+  each_arm<K>(w, [=, &sh](int a, int s) {
+    const float* c = art(a);
+    auto& ar = sh.arm[a];
+    const bool effort_drive = ldc(c + C_DRIVE) != 0.0f;
+    for (int d = s; d < ND; d += HW) {
+      const float* dc = c + DOF_OFF + d * DOF_STRIDE;
+      const T q = IGT_IN(0, a, d), qd = IGT_IN(1, a, d);
+      T t;
+      if (effort_drive) {
+        t = IGT_IN(3, a, d);
+      } else {
+        const T kp = T(ldc(dc + D_KP)), kd = T(ldc(dc + D_KD));
+        t = kp * (IGT_IN(2, a, d) - q) - kd * qd + IGT_IN(3, a, d);
+      }
+      const T eff = T(ldc(dc + D_EFFORT));
+      ar.tau[d] = clip_(t, -eff, eff);
+      ar.q[d] = q;
+      ar.u[d] = qd;
+      dof_half_angle<T, ND>(c, ar, d);
+    }
+    const float* mask = c + mask_off(ND);
+    auto& dy = sh.s.dyn.arm[a];
+    for (int l = s; l < ND; l += HW) {
+      unsigned bits = 0;
+      int na = 0;
+      for (int i = 0; i < ND; ++i) {
+        if (ldc(mask + l * ND + i) == 0.0f) continue;
+        bits |= 1u << i;
+        dy.idx[l][na++] = (unsigned char)i;
+      }
+      dy.cbits[l] = bits;
+      dy.na[l] = (unsigned char)na;
+    }
+  });
+
+  // FK with the velocity and bias propagation, one lane per articulation
+  each_arm<K>(w, [=, &sh](int a, int s) {
+    if (s == 0) fk_walk<T, ND>(art(a), sh.arm[a], sh.s.dyn.arm[a], true);
+  });
+
+  // per link: world COM, inertia, force and moment
+  each_arm<K>(w, [=, &sh](int a, int s) {
+    for (int l = s; l < ND; l += HW) link_terms_fixed<T, ND>(art(a), sh.arm[a], sh.s.dyn.arm[a], l);
+  });
+
+  // every link's active columns
+  each_arm<K>(w, [=, &sh](int a, int s) {
+    const float* c = art(a);
+    const auto& ar = sh.arm[a];
+    auto& dy = sh.s.dyn.arm[a];
+    int n = 0;
+    for (int l = 0; l < ND; ++l) n += dy.na[l];
+    for (int p = s; p < n; p += HW) {
+      int l = 0, k = p;   // pair p: link l's k-th active column
+      while (k >= dy.na[l]) k -= dy.na[l++];
+      const int i = dy.idx[l][k];
+      const bool rev = dof_rev(c, i);
+      dy.J[l][i] = rev ? cross(ar.axw[i], sub(dy.com[l], ar.fp[i])) : ar.axw[i];
+      if (rev) dy.Ia[l][i] = inertia_times(dy, l, ar.axw[i]);
+    }
+  });
+
+  // each entry of M sums over its links in ascending l, a lane each; a
+  // diagonal entry's lane also sums the bias of its DOF over the same links,
+  // then adds the armature
+  each_arm<K>(w, [=, &sh](int a, int s) {
+    const float* c = art(a);
+    auto& ar = sh.arm[a];
+    auto& dy = sh.s.dyn.arm[a];
+    for (int t = s; t < tri(ND); t += HW) {
+      int i, j;
+      tri_entry(t, i, j);
+      const bool rev_i = dof_rev(c, i), revs = rev_i && dof_rev(c, j), diag = i == j;
+      const V3<T> axi = ar.axw[i];
+      T Mij = T(0.0f), acc = T(0.0f);
+      for (int l = 0; l < ND; ++l) {
+        const unsigned cb = dy.cbits[l];
+        if (!((cb >> i & 1u) && (cb >> j & 1u))) continue;
+        if (diag) {
+          if (rev_i) acc = acc + dot(axi, dy.nn[l]);
+          acc = acc + dot(dy.J[l][i], dy.f[l]);
+        }
+        if (revs) Mij = Mij + dot(axi, dy.Ia[l][j]);
+        Mij = Mij + T(ldc(c + DOF_OFF + l * DOF_STRIDE + D_MASS)) * dot(dy.J[l][i], dy.J[l][j]);
+      }
+      if (diag) {
+        Mij = Mij + T(ldc(c + DOF_OFF + i * DOF_STRIDE + D_ARMATURE));
+        dy.rhs[i] = ar.tau[i] - acc;
+      }
+      ar.L[tri(i) + j] = Mij;
+    }
+  });
+  // row 0's pivot and y_0
+  each_arm<K>(w, [=, &sh](int a, int s) {
+    if (s != 0) return;
+    auto& ar = sh.arm[a];
+    auto& dy = sh.s.dyn.arm[a];
+    chol_pivot(ar.L, dy.dinv, 0);
+    dy.y[0] = dy.rhs[0] / ar.L[0];
+  });
+  // Cholesky in place (left-looking) with the forward solve: phase j forms
+  // column j below the diagonal, each row i also subtracting L_ij^2 from its
+  // diagonal and L_ij y_j from its rhs (so both take their terms in
+  // ascending j, as the one-row sums would); the owner of row j + 1 then
+  // forms that pivot and y_(j+1)
+  for (int j = 0; j < ND - 1; ++j) {
+    each_arm<K>(w, [=, &sh](int a, int s) {
+      auto& ar = sh.arm[a];
+      auto& dy = sh.s.dyn.arm[a];
+      const T* Lj = ar.L + tri(j);
+      for (int i = s; i < ND; i += HW) {
+        if (i <= j) continue;
+        T* Li = ar.L + tri(i);
+        T s2 = Li[j];
+        for (int k = 0; k < j; ++k) s2 = s2 - Li[k] * Lj[k];
+        const T lij = s2 * dy.dinv[j];
+        Li[j] = lij;
+        Li[i] = Li[i] - lij * lij;
+        dy.rhs[i] = dy.rhs[i] - lij * dy.y[j];
+        if (i != j + 1) continue;
+        chol_pivot(ar.L, dy.dinv, i);
+        dy.y[i] = dy.rhs[i] / Li[i];
+      }
+    });
+  }
+  // qdd = L^-T y, one lane per articulation
+  each_arm<K>(w, [=, &sh](int a, int s) {
+    if (s == 0) back_sub<T, ND>(sh.arm[a].L, sh.s.dyn.arm[a].y, sh.s.dyn.arm[a].qdd);
+  });
+
+  // semi-implicit Euler, velocity clamp, joint limits
+  each_arm<K>(w, [=, &sh](int a, int s) {
+    const float* c = art(a);
+    auto& ar = sh.arm[a];
+    const T dt = T(ldc(c + C_DT));
+    for (int d = s; d < ND; d += HW) {
+      const float* dc = c + DOF_OFF + d * DOF_STRIDE;
+      T v = ar.u[d] + dt * sh.s.dyn.arm[a].qdd[d];
+      const float mv = ldc(dc + D_MAXVEL);
+      if (mv > 0.0f) v = clip_(v, T(-mv), T(mv));
+      T p = ar.q[d] + dt * v;
+      const T lo = T(ldc(dc + D_LO)), hi = T(ldc(dc + D_HI));
+      const bool at_lo = p < lo, at_hi = p > hi;
+      p = clip_(p, lo, hi);
+      if (at_lo) v = max_(v, T(0.0f));
+      if (at_hi) v = min_(v, T(0.0f));
+      ar.q[d] = p;
+      ar.u[d] = v;
+      dof_half_angle<T, ND>(c, ar, d);
+      IGT_OUT(0, a, d, p);
+      IGT_OUT(2, a, d, ar.tau[d]);
+    }
+  });
+  // FK at the new q
+  each_arm<K>(w, [=, &sh](int a, int s) {
+    if (s == 0) fk_walk<T, ND>(art(a), sh.arm[a], sh.s.dyn.arm[a], false);
+  });
+#undef IGT_IN
+#undef IGT_OUT
+}
+
+// --------------------------------------------------------------- contacts --
+// The Jacobian columns of world point ``pt`` on ``link`` (jac_col: only the
+// link's ancestors move it), and each column times u_i: column i on lane s
+// of the articulation's HW.
+template <class T, int ND, int HW>
+IGT_HD void contact_cols(const float* ca, const ArmState<T, ND>& ar, ArmContact<T, ND>& ct,
+                         V3<T> pt, int link, int s) {
+  const float* mask = ca + mask_off(ND);
+  for (int i = s; i < ND; i += HW) {
+    bool on;
+    const V3<T> col = jac_col<T, ND>(ca, mask, link, i, pt, ar.fp, ar.axw, on);
+    ct.Jc[i] = col;
+    ct.on[i] = on;
+    if (on) ct.cu[i] = scale(col, ar.u[i]);
+  }
+}
+
+// The point's velocity, sum of the active columns times u_i in ascending i.
+template <class T, int ND>
+IGT_HD V3<T> point_velocity(const ArmContact<T, ND>& ct) {
+  V3<T> v = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+  for (int i = 0; i < ND; ++i)
+    if (ct.on[i]) v = add(v, ct.cu[i]);
+  return v;
+}
+
+// yn = L^-1 J^T n and yt = L^-1 J^T t_hat with their squares, for every
+// articulation whose contact acts: column by column, row i on lane i of the
+// articulation's lanes subtracting in ascending j as fwd_sub does.
+template <class T, int ND, int K, class Sh>
+IGT_HD void contact_solve(Sh& sh, const Lanes& w) {
+  constexpr int HW = WARP / K;
+  each_arm<K>(w, [=, &sh](int a, int s) {
+    auto& ct = sh.s.ct.arm[a];
+    if (!ct.act) return;
+    for (int i = s; i < ND; i += HW) {
+      ct.bn[i] = ct.on[i] ? dot(ct.Jc[i], ct.n) : T(0.0f);
+      ct.bt[i] = ct.on[i] ? dot(ct.Jc[i], ct.t_hat) : T(0.0f);
+    }
+    if (s == 0) {
+      const T* L = sh.arm[a].L;
+      ct.yn[0] = ct.bn[0] / L[0];
+      ct.sqn[0] = ct.yn[0] * ct.yn[0];
+      ct.yt[0] = ct.bt[0] / L[0];
+      ct.sqt[0] = ct.yt[0] * ct.yt[0];
+    }
+  });
+  for (int j = 0; j < ND - 1; ++j) {
+    each_arm<K>(w, [=, &sh](int a, int s) {
+      auto& ct = sh.s.ct.arm[a];
+      if (!ct.act) return;
+      const T* L = sh.arm[a].L;
+      for (int i = s; i < ND; i += HW) {
+        if (i <= j) continue;
+        const T lij = L[tri(i) + j];
+        ct.bn[i] = ct.bn[i] - lij * ct.yn[j];
+        ct.bt[i] = ct.bt[i] - lij * ct.yt[j];
+        if (i != j + 1) continue;
+        const T lii = L[tri(i) + i];
+        ct.yn[i] = ct.bn[i] / lii;
+        ct.sqn[i] = ct.yn[i] * ct.yn[i];
+        ct.yt[i] = ct.bt[i] / lii;
+        ct.sqt[i] = ct.yt[i] * ct.yt[i];
+      }
+    });
+  }
+}
+
+// u += L^-T (yn an + yt at), or L^-T (yn an - yt at) with ``minus``, for
+// every articulation whose contact acts: one lane each, back_sub's order.
+template <class T, int ND, int K, class Sh>
+IGT_HD void contact_back(Sh& sh, const Lanes& w) {
+  each_arm<K>(w, [=, &sh](int a, int s) {
+    auto& ct = sh.s.ct.arm[a];
+    if (!ct.act || s != 0) return;
+    auto& ar = sh.arm[a];
+    const T an = ct.an, at = ct.at;
+    for (int i = 0; i < ND; ++i)
+      ct.jv[i] = ct.minus ? ct.yn[i] * an - ct.yt[i] * at : ct.yn[i] * an + ct.yt[i] * at;
+    back_sub<T, ND>(ar.L, ct.jv, ct.du);
+    for (int i = 0; i < ND; ++i) ar.u[i] = ar.u[i] + ct.du[i];
+  });
+}
+
+}  // namespace igt

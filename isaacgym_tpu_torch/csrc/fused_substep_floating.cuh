@@ -31,8 +31,9 @@
 // sensor; WITH_TORQUE = false compiles to K4 unchanged. Its moment
 // accumulators add 3 (FL_MAX_ART + 1) floats to the env's shared block.
 //
-// One warp per env. The body is a sequence of phases: each() runs a share of
-// the work on every lane and then syncs the warp, one() runs lane 0 alone.
+// One warp per env (the phases of warp.cuh, shared with K3). The body is a
+// sequence of phases: each() runs a share of the work on every lane and
+// then syncs the warp, one() runs lane 0 alone.
 // State passes from phase to phase only through the env's block of shared
 // memory (FloatShared: the packed M and its factor, u, the frames, the
 // per-link terms and active columns, a contact's Jacobian columns and
@@ -103,6 +104,7 @@
 #include <type_traits>
 
 #include "fused_substep.cuh"
+#include "warp.cuh"
 
 namespace igt {
 
@@ -143,63 +145,6 @@ inline int fill_floating_layout(int nd, int* out, int n) {
   return 0;
 }
 
-// -------------------------------------------------------------- the warp --
-constexpr int WARP = 32;
-
-// The lanes of the warp that runs one env.
-struct Lanes {
-  int lane;       // on the card: this thread's lane
-  bool reverse;   // on the host: run each phase's lanes 31 .. 0
-};
-
-// A phase: f(lane) on every lane, then the warp syncs (on the host, the 32
-// lanes one after another).
-template <class F>
-IGT_HD void each(const Lanes& w, F f) {
-#ifdef __CUDA_ARCH__
-  f(w.lane);
-  __syncwarp();
-#else
-  for (int i = 0; i < WARP; ++i) f(w.reverse ? WARP - 1 - i : i);
-#endif
-}
-
-// The warp syncs (on the host, nothing: its lanes run one after another).
-IGT_HD void sync(const Lanes&) {
-#ifdef __CUDA_ARCH__
-  __syncwarp();
-#endif
-}
-
-// A phase of lane 0 alone.
-template <class F>
-IGT_HD void one(const Lanes& w, F f) {
-  each(w, [&](int lane) {
-    if (lane == 0) f();
-  });
-}
-
-// where row i of a packed lower triangle starts
-IGT_HD constexpr int tri(int i) { return i * (i + 1) / 2; }
-
-// The highest of the indices lane, lane + 32, ... below n (-1: none). A
-// lane walks its indices down from it: at NV = 33 lane 0 holds 0 and 32, and
-// a phase over the rows i > j then runs row 32 in the same pass as the other
-// lanes' rows instead of in a second pass of its own.
-IGT_HD constexpr int top_index(int lane, int n) {
-  return lane >= n ? -1 : lane + WARP * ((n - 1 - lane) / WARP);
-}
-
-// Entry t = tri(k1) + k2 (k2 <= k1) of a packed lower triangle, in closed
-// form: a loop per lane would run as long as the lane that needs most.
-IGT_HD void tri_entry(int t, int& k1, int& k2) {
-  int r = (int)((sqrtf(8.0f * (float)t + 1.0f) - 1.0f) * 0.5f);
-  r += tri(r + 1) <= t;   // float rounding next to a row's start
-  r -= tri(r) > t;
-  k1 = r;
-  k2 = t - tri(r);
-}
-
 // ---------------------------------------------------------- shared block --
 // The dynamics' scratch: dead once the post-step frames are formed.
 template <class T, int ND>
@@ -233,22 +178,6 @@ struct FloatContact {
   int act;
   V3<T> cols[NV], cu[NV];          // the point's Jacobian columns, and each times u_k
   T bn[NV], bt[NV], yn[NV], yt[NV], sqn[NV], sqt[NV];   // J^T n, J^T t; L^-1 of them; squares
-};
-
-// Two structs in one storage where T allows it (float: on the card the
-// dynamics' and the contacts' scratch are one stretch of shared memory), side
-// by side where it does not (the host's counting float).
-template <class A, class B, bool SHARE>
-struct Overlay {
-  A dyn;
-  B ct;
-};
-template <class A, class B>
-struct Overlay<A, B, true> {
-  union {
-    A dyn;
-    B ct;
-  };
 };
 
 // One env's block: the packed M (then its factor), u, the frames and the
@@ -426,16 +355,6 @@ IGT_HD void back_cols(const Lanes& w, const T* L, T* yv, T* x, T* add_to, P pro)
       }
     });
   }
-}
-
-// Row j's diagonal, L_jj = sqrt(M_jj - L_j0^2 - ... - L_j(j-1)^2), once the
-// Cholesky has subtracted those terms from it, and its reciprocal.
-template <class T>
-IGT_HD void chol_pivot(T* L, T* dinv, int j) {
-  T& Ljj = L[tri(j) + j];
-  const T dia = sqrt_floor(Ljj, 1e-12f);
-  Ljj = dia;
-  dinv[j] = T(1.0f) / dia;
 }
 
 // --------------------------------------------------------------- dynamics --
@@ -743,14 +662,6 @@ IGT_HD V3<T> sum_cols(const V3<T>* cu) {
   V3<T> v = v3<T>(T(0.0f), T(0.0f), T(0.0f));
   for (int k = 0; k < NV; ++k) v = add(v, cu[k]);
   return v;
-}
-
-// sum_k y_k^2 from the squares, ascending k
-template <class T, int NV>
-IGT_HD T sum_sq(const T* sq) {
-  T s = T(0.0f);
-  for (int k = 0; k < NV; ++k) s = s + sq[k];
-  return s;
 }
 
 // yn = L^-1 J^T n and yt = L^-1 J^T t_hat (ct.n, ct.t_hat), with squares

@@ -35,6 +35,8 @@ inline CountF abs_(CountF a) { ++g_ops; return CountF(std::fabs(a.v)); }
 inline CountF min_(CountF a, CountF b) { ++g_ops; return a.v < b.v ? a : b; }
 inline CountF max_(CountF a, CountF b) { ++g_ops; return a.v > b.v ? a : b; }
 inline float to_f(CountF a) { return a.v; }
+inline long long ops_now(CountF) { return g_ops; }
+inline void ops_drop(CountF, long long n) { g_ops -= n; }
 
 }  // namespace igt
 
@@ -65,19 +67,29 @@ long long count_ops(const float* consts, const float* x, float* y, int B, int nd
 }
 
 // K3 (K3-tau) over every env, in float or with the counting float; the
-// shapes the CUDA library is built for. Returns 0 (or the operation count),
-// or -1 on another shape.
+// shapes the CUDA library is built for, the warp's 32 lanes of each phase in
+// turn (``reverse``: 31 .. 0). Each env's block starts as 0xff bytes (a NaN
+// in every float), so a value read before it is written shows. Returns 0 (or
+// the operation count), or -1 on another shape.
+template <class T, bool WITH_TORQUE, int ND, int K, int NB>
+void multi_envs(const float* consts, const float* x, float* y, int B, bool reverse) {
+  igt::MultiShared<T, ND, K, NB, WITH_TORQUE> sh;
+  for (int b = 0; b < B; ++b) {
+    std::memset(static_cast<void*>(&sh), 0xff, sizeof sh);
+    igt::fused_substep_multi_env<T, ND, K, NB, WITH_TORQUE>(consts, x, y, b, B, sh,
+                                                            igt::Lanes{0, reverse});
+  }
+}
+
 template <class T, bool WITH_TORQUE = false>
 long long run_multi(const float* consts, const float* x, float* y, int B, int nd, int k,
-                    int nb) {
+                    int nb, bool reverse = false) {
   if (B < 1) return -1;
   igt::g_ops = 0;
   if (nd == 7 && k == 2 && nb == 1) {
-    for (int b = 0; b < B; ++b)
-      igt::fused_substep_multi_env<T, 7, 2, 1, WITH_TORQUE>(consts, x, y, b, B);
+    multi_envs<T, WITH_TORQUE, 7, 2, 1>(consts, x, y, B, reverse);
   } else if (nd == 3 && k == 2 && nb == 2) {
-    for (int b = 0; b < B; ++b)
-      igt::fused_substep_multi_env<T, 3, 2, 2, WITH_TORQUE>(consts, x, y, b, B);
+    multi_envs<T, WITH_TORQUE, 3, 2, 2>(consts, x, y, B, reverse);
   } else {
     return -1;
   }
@@ -195,6 +207,15 @@ extern "C" long long igt_fused_substep_multi_tau_count_ops(const float* consts, 
                                                            float* y, int B, int nd, int k,
                                                            int nb) {
   return run_multi<igt::CountF, true>(consts, x, y, B, nd, k, nb);
+}
+
+// K3 (with_torque 0) or K3-tau (1) in float with the lanes of every phase
+// run in reverse order, 31 .. 0
+extern "C" int igt_fused_substep_multi_reversed_host(const float* consts, const float* x,
+                                                     float* y, int B, int nd, int k, int nb,
+                                                     int with_torque) {
+  return (with_torque ? run_multi<float, true>(consts, x, y, B, nd, k, nb, true)
+                      : run_multi<float>(consts, x, y, B, nd, k, nb, true)) == 0 ? 0 : 1;
 }
 
 extern "C" int igt_multi_layout(int nd, int k, int* out, int n) {

@@ -1,15 +1,31 @@
 // K3 and K3-tau on Hopper: the fused physics substep of K fixed-base
-// articulations and NB balls, one thread per env. Replaces
-// isaacgym_tpu/ops/pallas_dynamics.py:1477 (build_fused_substep_multi,
-// with_torque False or True); the per-env body and what bounds it are
-// described in fused_substep_multi.cuh.
+// articulations and NB balls, one warp per env with the articulations side
+// by side. Replaces isaacgym_tpu/ops/pallas_dynamics.py:1477
+// (build_fused_substep_multi, with_torque False or True); the per-env body
+// and how its lanes share the work are described in fused_substep_multi.cuh
+// and art_warp.cuh.
 //
 // Instantiated for <ND, K, NB> = <7, 2, 1> (C8: two 7-DOF humanoids, one
 // ball) and <3, 2, 2> (the two-arm, two-ball check scene), each without and
 // with the torque lanes (WITH_TORQUE, launched only for scenes that register
-// a force sensor); any other shape is refused with cudaErrorInvalidValue. Block size 32, as K2's: at 4096
-// envs one warp on each of 128 SMs. Inputs and outputs are channel-major
-// (channel, B) float32 buffers; the constants are read with __ldg.
+// a force sensor); any other shape is refused with cudaErrorInvalidValue. A
+// block holds kEnvs = 4 envs, one warp each, and their shared blocks (static
+// shared memory, 14-21 KB a block); __launch_bounds__ asks ptxas for
+// kBlocksPerSM = 8 resident blocks per SM, so at most 64 registers a thread:
+// at C8's 4096 envs that is 1,024 blocks, all resident at once on the card's
+// 132 SMs (32 warps on most). Inputs and outputs are channel-major (channel,
+// B) float32 buffers; a warp reads and writes its env's column, one channel
+// per lane. The constants are read with __ldg.
+//
+// What bounds it on an H100: instruction issue. With one warp to each of an
+// SM's four schedulers (528 envs) a launch takes about half as long as at
+// 4096 (eight to a scheduler): each warp's chain of phases is then the
+// limit, and at 4096 the schedulers are busy. A phase on one lane (the FK
+// walks, the balls' walks, the back solves, a contact's sums) issues as many
+// instructions as one on 32; so the design splits what parallelises, takes
+// the contact tests ahead of the walks that need them in order, and skips the
+// tests that cannot act (fused_substep_multi.cuh). PERF.md has the times by
+// phase (a clock64 probe) and what was tried.
 //
 // Built by isaacgym_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -26,22 +42,30 @@
 
 namespace {
 
-constexpr int kBlock = 32;
+constexpr int kEnvs = 4;          // envs (warps) per block
+constexpr int kBlocksPerSM = 8;
+
+static_assert(sizeof(igt::MultiShared<float, 7, 2, 1, true>) * kEnvs <= 48 * 1024 &&
+                  sizeof(igt::MultiShared<float, 3, 2, 2, true>) * kEnvs <= 48 * 1024,
+              "the envs' shared blocks exceed the static shared memory of a block");
 
 template <int ND, int K, int NB, bool WITH_TORQUE>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kEnvs * igt::WARP, kBlocksPerSM)
 fused_substep_multi_kernel(const float* __restrict__ c, const float* __restrict__ x,
                            float* __restrict__ y, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  igt::fused_substep_multi_env<float, ND, K, NB, WITH_TORQUE>(c, x, y, b, B);
+  __shared__ igt::MultiShared<float, ND, K, NB, WITH_TORQUE> sh[kEnvs];
+  const int e = threadIdx.x / igt::WARP;
+  const int b = blockIdx.x * kEnvs + e;
+  if (b >= B) return;   // the whole warp: a warp is one env
+  igt::fused_substep_multi_env<float, ND, K, NB, WITH_TORQUE>(
+      c, x, y, b, B, sh[e], igt::Lanes{(int)(threadIdx.x % igt::WARP), false});
 }
 
 template <int ND, int K, int NB, bool WITH_TORQUE>
 int launch(const float* c, const float* x, float* y, int B, void* stream) {
-  const int grid = (B + kBlock - 1) / kBlock;
+  const int grid = (B + kEnvs - 1) / kEnvs;
   fused_substep_multi_kernel<ND, K, NB, WITH_TORQUE>
-      <<<grid, kBlock, 0, (cudaStream_t)stream>>>(c, x, y, B);
+      <<<grid, kEnvs * igt::WARP, 0, (cudaStream_t)stream>>>(c, x, y, B);
   return (int)cudaGetLastError();
 }
 
@@ -52,6 +76,16 @@ int launch_shape(const float* c, const float* x, float* y, int B, int nd, int k,
   if (nd == 7 && k == 2 && nb == 1) return launch<7, 2, 1, WITH_TORQUE>(c, x, y, B, stream);
   if (nd == 3 && k == 2 && nb == 2) return launch<3, 2, 2, WITH_TORQUE>(c, x, y, B, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+template <int ND, int K, int NB>
+cudaError_t fit(bool with_torque, int* blocks) {
+  return with_torque ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           blocks, fused_substep_multi_kernel<ND, K, NB, true>,
+                           kEnvs * igt::WARP, 0)
+                     : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           blocks, fused_substep_multi_kernel<ND, K, NB, false>,
+                           kEnvs * igt::WARP, 0);
 }
 
 }  // namespace
@@ -68,6 +102,29 @@ extern "C" int igt_fused_substep_multi_tau_launch(const float* consts, const flo
                                                   float* y, int B, int nd, int k, int nb,
                                                   int ng, void* stream) {
   return launch_shape<true>(consts, x, y, B, nd, k, nb, ng, stream);
+}
+
+// The launch geometry of K3 (with_torque 0) or K3-tau (1) at <nd, k, nb>:
+// out[0] the envs (warps) of a block, out[1] the blocks per SM that
+// __launch_bounds__ asks for, out[2] the blocks per SM that the runtime's
+// occupancy calculator finds for this build. Returns the calculator's
+// cudaError_t, or cudaErrorInvalidValue for a shape the library is not
+// built for.
+extern "C" int igt_multi_occupancy(int nd, int k, int nb, int with_torque, int* out, int n) {
+  if (n < 3) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  cudaError_t err;
+  if (nd == 7 && k == 2 && nb == 1) {
+    err = fit<7, 2, 1>(with_torque != 0, &blocks);
+  } else if (nd == 3 && k == 2 && nb == 2) {
+    err = fit<3, 2, 2>(with_torque != 0, &blocks);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  out[0] = kEnvs;
+  out[1] = kBlocksPerSM;
+  out[2] = blocks;
+  return (int)err;
 }
 
 extern "C" int igt_multi_layout(int nd, int k, int* out, int n) {

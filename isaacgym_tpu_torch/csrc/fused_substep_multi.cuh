@@ -1,5 +1,6 @@
 // K3, the fused physics substep of K fixed-base articulations and NB balls
-// (the two-humanoid C8 scene): the per-env body.
+// (the two-humanoid C8 scene), and its torque-lane build K3-tau: the per-env
+// body, run by one warp.
 //
 // Replaces isaacgym_tpu/ops/pallas_dynamics.py:1477 (build_fused_substep_multi;
 // K3 with with_torque=False, K3-tau with with_torque=True, the compile-time
@@ -9,9 +10,8 @@
 // every articulated geom of every articulation, each reaction going into
 // that articulation's DOF block through its own factor; the ball pair; the
 // balls' caps and integration; then every articulated geom against the true
-// statics. Each phase is the K2 function of fused_substep.cuh applied to the
-// articulation's or the ball's own block of the constant pack, so K2 and K3
-// share their arithmetic.
+// statics. Each step is K2's arithmetic (fused_substep.cuh) applied to the
+// articulation's or the ball's own block of the constant pack.
 //
 // Pack layout (mirrored by isaacgym_tpu_torch/ops/fused_substep_multi.py,
 // which checks it against igt_multi_layout): a HEAD-slot header (K2's scene
@@ -28,18 +28,52 @@
 // (B, 2 ng + 3 NB, 3) impulse rows in all. A ball-pair contact gives each
 // ball -r_i (n x P), as the JAX package's ball-pair block takes it.
 //
-// ND (DOFs per articulation), K and NB are template parameters, so each
-// articulation's factor, velocities and frames are arrays with compile-time
-// indices. What bounds it on an H100: like K2, latency. One thread per env
-// does K times K2's dynamics and NB times its contact phase, dependent FP32
-// work of tens of thousands of operations, and reads and writes ~500 bytes;
-// at 4096 envs that is one warp per SM. Two articulations' post-step frames,
-// factors and velocities are live through the contact phase, more than 255
-// registers hold, so ptxas spills; the spill traffic stays in L1. Making it
-// fast (arts across lanes, more envs per SM) is work for later PRs.
+// One warp per env (warp.cuh), the articulations side by side: articulation
+// a runs on lanes a 32/K .. (a + 1) 32/K - 1, all of them through the same
+// phases of art_warp.cuh (the dynamics; a contact's columns and solves). The
+// env's state lives in its block of shared memory (MultiShared: each
+// articulation's factor, u and frames; the dynamics' scratch and the
+// contacts' overlaid). The contacts, in the one-thread order:
+//   - each ball's flight and plane on a lane of its own, in the phase that
+//     also runs every art-vs-static pair's narrowphase (one lane each: it
+//     reads only the post-step frames) and clears the impulse rows;
+//   - the statics: every (ball, static) tested on a lane of its own against
+//     the ball's current state, then each ball's lane walks them in order to
+//     the first that acts, which changes the state; the rest are tested
+//     again (statics_walk);
+//   - each ball against each articulated geom in order, the same way: the
+//     geoms from the next one on tested a chunk at a time, split over lanes
+//     (ball_art_tests), the first that acts taking its reaction with the
+//     solves cooperative and the sums on one lane (ball_art_take);
+//   - the ball pair on one lane;
+//   - the art-vs-static pairs in rounds: round p takes each articulation's
+//     p-th pair, the articulations' at once on their own lanes (they touch
+//     different u, factors and geom rows);
+//   - the outputs, one lane per channel; the balls' caps and integration on
+//     their own lanes.
+// A test that does not act changes nothing but the sums a walk adds (a
+// static's zero velocity change over inv_m, its moment term), so taking the
+// tests ahead of the walk gives the one-thread results. The tests that cannot
+// act are skipped: a static, a geom or a pair whose hull clears the ball's
+// swept sphere (or the static's hull) by a margin (``apart``; K3-tau still
+// forms a far static's moment term, from its first sphere test). Whether a
+// contact acts is decided per env, so every lane takes the same branch
+// between phases. Every value is formed by the same operations in the same
+// order as in the one-thread-per-env body this design replaced, so the
+// outputs are the same bits. The host's counting build runs this same body
+// and takes back out the tests that a state change throws away (an acting
+// static's test, which ball_static repeats, and every test after the first
+// that acts): its count is the work the data needs, the bound's. ND, K and
+// NB are template parameters.
+//
+// What bounds it on an H100: see fused_substep_multi.cu.
 #pragma once
 
+#include <type_traits>
+
+#include "art_warp.cuh"
 #include "fused_substep.cuh"
+#include "warp.cuh"
 
 namespace igt {
 
@@ -137,151 +171,725 @@ IGT_HD void ball_pair(const float* c, const float* ca, const float* cb, V3<T>& p
   }
 }
 
-// One env's K3 substep. x: (multi_n_in(K ND, NB), B) inputs, y: (3 K ND +
-// 9 NB + 3 (ng + 2 NB) [+ 3 (ng + NB) with WITH_TORQUE], B) outputs, both
-// channel-major; env b reads and writes column b.
+// ---------------------------------------------------------- shared block --
+// A ball through the contact phase: its state, its plane and static impulse,
+// its articulated geoms' reaction and (WITH_TORQUE) its moment.
+template <class T>
+struct BallState {
+  V3<T> pos, vel, omg, s_imp, b_art, tq;
+};
+
+// The test of one ball against one articulated geom, split over lanes
+// (ball_art's arithmetic up to its test): the geometry (the ball in the
+// geom's frame, its depth and normal there and in the world, the contact
+// point), the point's Jacobian columns and each times u, the relative
+// velocity, the four sweep samples and each one's sphere test, the swept
+// normal and the normal velocity.
+constexpr int ART_CHUNK = 4;   // geoms tested together
+constexpr int SWEEP_ART = 4;   // ball_art's sweep samples
+template <class T, int ND>
+struct ArtTest {
+  V3<T> c0, n_now_l, n_now, cp, v_rel, n;
+  Q4<T> gq;
+  T d_now, vn;
+  V3<T> Jc[ND], cu[ND];
+  unsigned char on[ND];
+  V3<T> ck[SWEEP_ART], nk[SWEEP_ART];
+  T dk[SWEEP_ART];
+  int near;   // not culled (apart): the test runs
+};
+
+template <class T, int ND, int K>
+struct MultiDyn {
+  ArmDyn<T, ND> arm[K];
+};
+
+// The contacts' scratch.
+template <class T, int ND, int K, int NB, bool WITH_TORQUE>
+struct MultiContact {
+  ArmContact<T, ND> arm[K];
+  BallState<T> ball[NB];
+  V3<T> geom_imp[MULTI_MAX_ART], geom_tq[WITH_TORQUE ? MULTI_MAX_ART : 1];
+  // the ball-vs-art contact that acts: its depth and normal before the sweep
+  V3<T> n_now;
+  T d_now;
+  // each art-vs-static pair's narrowphase: contact point, normal, depth and
+  // whether it penetrates
+  V3<T> pr_pt[MULTI_MAX_PAIRS], pr_n[MULTI_MAX_PAIRS];
+  T pr_dist[MULTI_MAX_PAIRS];
+  int pr_hit[MULTI_MAX_PAIRS];
+  // the tests taken ahead: whether each static acts on each
+  // ball in its current state and the static's moment term; whether each
+  // articulated geom of a chunk acts, and its test's terms
+  unsigned char st_act[NB][MULTI_MAX_STATIC], ga_act[ART_CHUNK];
+  int st_next[NB];   // each ball's next static to take
+  V3<T> st_m[WITH_TORQUE ? NB : 1][WITH_TORQUE ? MULTI_MAX_STATIC : 1];
+  ArtTest<T, ND> at[ART_CHUNK];
+  // the counting build: each static test's operations (its cull's, the
+  // rest's) and each articulated geom test's, for ops_drop
+  long long st_ops[COUNTS<T> ? NB : 1][COUNTS<T> ? MULTI_MAX_STATIC : 1][2];
+  long long ga_ops[COUNTS<T> ? ART_CHUNK : 1];
+};
+
+// One env's block: each articulation's state, and the scratch (the
+// dynamics' and the contacts' in one storage where T allows it, warp.cuh).
+template <class T, int ND, int K, int NB, bool WITH_TORQUE>
+struct MultiShared {
+  ArmState<T, ND> arm[K];
+  Overlay<MultiDyn<T, ND, K>, MultiContact<T, ND, K, NB, WITH_TORQUE>,
+          std::is_trivially_default_constructible<T>::value> s;
+};
+
+// ---------------------------------------------------------------- contacts --
+// The radius of a sphere about a geom's centre that holds the geom (kind,
+// half sizes s): its radius, a box's half diagonal, a cylinder's corner.
+template <class T>
+IGT_HD T hull_radius(int kind, const float* s) {
+  const T a = T(ldc(s)), b = T(ldc(s + 1)), c = T(ldc(s + 2));
+  if (kind == GEOM_SPHERE) return a;
+  if (kind == GEOM_BOX) return sqrt_(a * a + b * b + c * c);
+  return sqrt_(a * a + b * b);
+}
+
+// Whether two bodies whose centres are ``gap`` apart, within radii ra and rb
+// of them, stay apart while one moves ``reach`` further: the distance tests
+// of the contacts below are 1-Lipschitz and at least the centre distance less
+// the hull radii, so no sample of such a pair can penetrate. The margin (1
+// cm and 0.1 %) dwarfs the float32 rounding of both sides, so a cull only
+// skips tests that cannot act.
+template <class T>
+IGT_HD bool apart(T gap, T ra, T rb, T reach) {
+  const T need = ra + rb + reach;
+  return gap - need > T(0.01f) + T(1e-3f) * (gap + need);
+}
+
+// The frame of ``link`` as ball_art and art_static take it: the link's
+// post-step frame, or for a link outside the articulation the origin with
+// the base's orientation.
+template <class T, int ND>
+IGT_HD void link_frame(const float* ca, const ArmState<T, ND>& ar, int link, V3<T>& lp,
+                       Q4<T>& lq) {
+  if (link >= 0 && link < ND) {
+    lp = ar.fp[link];
+    lq = ar.fq[link];
+    return;
+  }
+  lp = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+  lq = cq4<T>(ca + C_BASE_Q);
+}
+
+// Ball bi's flight and plane, from the inputs (K2's phase functions): its
+// state, plane impulse and moment before the statics.
+template <class T, int ND, int K, int NB, bool WITH_TORQUE>
+IGT_HD void ball_flight_plane(const float* c, const float* x, int b, size_t sB, int bi,
+                              BallState<T>& bs) {
+#define IGT_IN(ch) T(x[(size_t)(ch) * sB + b])
+  const float* cb = c + multi_ball_off(ND, K) + bi * BALL_STRIDE;
+  const int ib = 4 * K * ND;
+  V3<T> pos = v3<T>(IGT_IN(ib + 3 * bi), IGT_IN(ib + 3 * bi + 1), IGT_IN(ib + 3 * bi + 2));
+  V3<T> vel = v3<T>(IGT_IN(ib + 3 * NB + 3 * bi), IGT_IN(ib + 3 * NB + 3 * bi + 1),
+                    IGT_IN(ib + 3 * NB + 3 * bi + 2));
+  V3<T> omg = v3<T>(IGT_IN(ib + 6 * NB + 3 * bi), IGT_IN(ib + 6 * NB + 3 * bi + 1),
+                    IGT_IN(ib + 6 * NB + 3 * bi + 2));
+  ball_flight(cb, T(ldc(cb + C_GX)), T(ldc(cb + C_GY)), T(ldc(cb + C_GZ)), vel, omg);
+  const V3<T> dv0 = ball_plane(cb, pos, vel, omg);
+  bs.s_imp = scale(dv0, T(ldc(cb + C_MB)));
+  bs.tq = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+  if constexpr (WITH_TORQUE) bs.tq = static_moment(cb, v3<T>(T(0.0f), T(0.0f), T(1.0f)), dv0);
+  bs.pos = pos;
+  bs.vel = vel;
+  bs.omg = omg;
+  bs.b_art = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+#undef IGT_IN
+}
+
+// Static si against ball bi in the state ``bs`` (ball_static's arithmetic
+// on a copy): whether it acts and, with WITH_TORQUE, the moment term
+// ball_static adds. ``far``: the static cannot act (no sweep sample
+// penetrates), so the first sphere test gives the normal and the velocity
+// change is zero: the sweep and the impulse are skipped.
+template <class T, int ND, int K, bool WITH_TORQUE>
+IGT_HD bool static_test(const float* c, int bi, int si, const BallState<T>& bs, bool far,
+                        V3<T>& m) {
+  const float* cb = c + multi_ball_off(ND, K) + bi * BALL_STRIDE;
+  const float* g = c + multi_static_off(ND, K) + si * MULTI_STATIC_STRIDE;
+  const int kind = (int)ldc(g + G_KIND);
+  const float* R = g + G_ROT;
+  const T rb = T(ldc(cb + C_RB)), z = T(0.0f);
+  V3<T> pos = bs.pos, vel = bs.vel, omg = bs.omg;
+  const V3<T> c0 = mat_t(R, sub(pos, cv3<T>(g + G_POS)));
+  T dist;
+  V3<T> n_l;
+  sphere_geom(kind, g + G_SIZE, c0, rb, dist, n_l);
+  bool act = false;
+  V3<T> dv = v3<T>(z, z, z);
+  if (!far) {
+    const T d0 = dist;
+    const V3<T> dv_l = mat_t(R, scale(vel, T(ldc(cb + C_DT_HALF))));
+    sweep(kind, g + G_SIZE, rb, c0, dv_l, 2, dist, n_l);
+    const V3<T> n = mat(R, n_l);
+    act = (dist < z) && (dot(vel, n) < z);   // resolve_static's test
+    dv = resolve_static(cb, vel, omg, pos, dist, n, T(ldc(g + G_EB + 2 * bi)),
+                        T(ldc(g + G_MUB + 2 * bi)), d0);
+    if constexpr (WITH_TORQUE) m = static_moment(cb, n, dv);
+  } else if constexpr (WITH_TORQUE) {
+    m = static_moment(cb, mat(R, n_l), dv);
+  }
+  return act;
+}
+
+// Ball bi against the statics in order, from static ``next``. Each static's
+// test on the ball's current state is known (static_test, on a lane of its
+// own): a static that does not act changes nothing but the impulse and
+// moment sums, so the walk adds its terms (its zero velocity change over
+// inv_m, its moment) and goes on; the first static that acts takes
+// ball_static, which changes the state, and the walk stops there (``next``
+// after it) for the later statics to be tested again. The counting build
+// drops the work thrown away (``ops``: each test's cull and the rest): the
+// acting static's test but its cull, and the later statics' tests.
+template <class T, int ND, int K, int NB, bool WITH_TORQUE>
+IGT_HD void statics_walk(const float* c, int bi, BallState<T>& bs, const unsigned char* st_act,
+                         const V3<T>* st_m, const long long (*ops)[2], int& next) {
+  const float* cb = c + multi_ball_off(ND, K) + bi * BALL_STRIDE;
+  const T inv_mb = T(ldc(cb + C_INV_MB));
+  const T z = T(0.0f) / inv_mb;   // dv / inv_m of a static that does not act
+  const int n_static = (int)ldc(c + C_NSTATIC);
+  int si = next;
+  for (; si < n_static; ++si) {
+    if (!st_act[si]) {
+      bs.s_imp = v3<T>(bs.s_imp.x + z, bs.s_imp.y + z, bs.s_imp.z + z);
+      if constexpr (WITH_TORQUE) bs.tq = add(bs.tq, st_m[si]);
+      continue;
+    }
+    const float* g = c + multi_static_off(ND, K) + si * MULTI_STATIC_STRIDE;
+    const V3<T> dv = ball_static(cb, g, T(ldc(g + G_EB + 2 * bi)), T(ldc(g + G_MUB + 2 * bi)),
+                                 bs.pos, bs.vel, bs.omg, WITH_TORQUE ? &bs.tq : nullptr);
+    bs.s_imp = v3<T>(bs.s_imp.x + dv.x / inv_mb, bs.s_imp.y + dv.y / inv_mb,
+                     bs.s_imp.z + dv.z / inv_mb);
+    if constexpr (COUNTS<T>) {
+      long long thrown = ops[si][1];
+      for (int sj = si + 1; sj < n_static; ++sj) thrown += ops[sj][0] + ops[sj][1];
+      ops_drop(T(), thrown);
+    }
+    ++si;
+    break;
+  }
+  next = si;
+}
+
+// Whether ball bi acts on each of the articulated geoms g0 .. g0 + ng - 1
+// (ng <= ART_CHUNK) in the ball's and the articulations' current state: the
+// arithmetic of ball_art up to its test, split over lanes (each geom's
+// geometry, then one Jacobian column per lane, then each geom's point
+// velocity and sweep samples, then one sample's sphere test per lane, then
+// each geom's first penetrating sample and the test) -> ct.ga_act; the
+// counting build also gathers each geom's operations in ct.ga_ops.
+template <class T, int ND, int K, class Sh>
+IGT_HD void ball_art_tests(const float* c, int bi, int g0, int ng, Sh& sh, const Lanes& w) {
+  auto& ct = sh.s.ct;
+  const float* cb = c + multi_ball_off(ND, K) + bi * BALL_STRIDE;
+  const auto arm_of = [c](int gi) {
+    int a = 0;
+    while (a < K - 1 && gi >= (int)ldc(c + MULTI_HEAD + a * multi_art_stride(ND) + C_GEOM_HI)) ++a;
+    return a;
+  };
+  const auto geom = [c, g0](int k) { return c + multi_art_off(ND, K) + (g0 + k) * MULTI_ART_STRIDE; };
+  const auto art = [c](int a) { return c + MULTI_HEAD + a * multi_art_stride(ND); };
+  // the cull: the contact point's speed is at most sum |u_i| (|pos - fp_i| +
+  // r) over the DOFs, so the sweep reaches at most (|vel| + that) dt
+  each(w, [=, &sh, &ct](int lane) {
+    if (lane >= ng) return;
+    const long long o = ops_now(T());
+    const int a = arm_of(g0 + lane);
+    const float* g = geom(lane);
+    const auto& ar = sh.arm[a];
+    const V3<T> pos = ct.ball[bi].pos, vel = ct.ball[bi].vel;
+    const T rb = T(ldc(cb + C_RB));
+    T vb = T(0.0f);
+    for (int i = 0; i < ND; ++i) {
+      const V3<T> d = sub(pos, ar.fp[i]);
+      vb = vb + abs_(ar.u[i]) * (dof_rev(art(a), i) ? sqrt_(dot(d, d)) + rb : T(1.0f));
+    }
+    V3<T> lp;
+    Q4<T> lq;
+    link_frame<T, ND>(art(a), ar, (int)ldc(g + A_LINK), lp, lq);
+    const V3<T> d = sub(pos, add(lp, qrot(lq, cv3<T>(g + A_OFF_POS))));
+    ct.at[lane].near = !apart(sqrt_(dot(d, d)), hull_radius<T>((int)ldc(g + A_KIND), g + A_SIZE),
+                              rb, (sqrt_(dot(vel, vel)) + vb) * T(4.0f) * T(ldc(cb + C_DT_QUARTER)));
+    ct.ga_act[lane] = 0;
+    if constexpr (COUNTS<T>) ct.ga_ops[lane] = ops_now(T()) - o;
+  });
+  bool any = false;
+  for (int k = 0; k < ng; ++k) any = any || ct.at[k].near;
+  if (!any) return;
+  each(w, [=, &sh, &ct](int lane) {
+    if (lane >= ng || !ct.at[lane].near) return;
+    const long long o = ops_now(T());
+    const int a = arm_of(g0 + lane);
+    const float* g = geom(lane);
+    auto& at = ct.at[lane];
+    const V3<T> pos = ct.ball[bi].pos;
+    const T rb = T(ldc(cb + C_RB));
+    V3<T> lp;
+    Q4<T> lq;
+    link_frame<T, ND>(art(a), sh.arm[a], (int)ldc(g + A_LINK), lp, lq);
+    const V3<T> gp = add(lp, qrot(lq, cv3<T>(g + A_OFF_POS)));
+    const Q4<T> gq = qmul(lq, cq4<T>(g + A_OFF_QUAT));
+    const V3<T> c0 = qrot(conj(gq), sub(pos, gp));
+    T d_now;
+    V3<T> n_now_l;
+    sphere_geom((int)ldc(g + A_KIND), g + A_SIZE, c0, rb, d_now, n_now_l);
+    const V3<T> n_now = qrot(gq, n_now_l);
+    at.c0 = c0;
+    at.gq = gq;
+    at.d_now = d_now;
+    at.n_now_l = n_now_l;
+    at.n_now = n_now;
+    at.cp = sub(pos, scale(n_now, rb));
+    if constexpr (COUNTS<T>) ct.ga_ops[lane] += ops_now(T()) - o;
+  });
+  each(w, [=, &sh, &ct](int lane) {
+    for (int t = lane; t < ng * ND; t += WARP) {
+      const int k = t / ND, i = t % ND, a = arm_of(g0 + k);
+      const float* ca = art(a);
+      auto& at = ct.at[k];
+      if (!at.near) continue;
+      const long long o = ops_now(T());
+      bool on;
+      const V3<T> col = jac_col<T, ND>(ca, ca + mask_off(ND), (int)ldc(geom(k) + A_LINK), i, at.cp,
+                                       sh.arm[a].fp, sh.arm[a].axw, on);
+      at.Jc[i] = col;
+      at.on[i] = on;
+      if (on) at.cu[i] = scale(col, sh.arm[a].u[i]);
+      if constexpr (COUNTS<T>) ct.ga_ops[k] += ops_now(T()) - o;
+    }
+  });
+  each(w, [=, &ct](int lane) {
+    if (lane >= ng || !ct.at[lane].near) return;
+    const long long o = ops_now(T());
+    auto& at = ct.at[lane];
+    V3<T> v_point = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+    for (int i = 0; i < ND; ++i)
+      if (at.on[i]) v_point = add(v_point, at.cu[i]);
+    at.v_rel = sub(ct.ball[bi].vel, v_point);
+    const V3<T> dv_l = qrot(conj(at.gq), scale(at.v_rel, T(ldc(cb + C_DT_QUARTER))));
+    V3<T> ck = at.c0;
+    for (int m = 0; m < SWEEP_ART; ++m) {
+      ck = add(ck, dv_l);
+      at.ck[m] = ck;
+    }
+    if constexpr (COUNTS<T>) ct.ga_ops[lane] += ops_now(T()) - o;
+  });
+  each(w, [=, &ct](int lane) {
+    if (lane >= ng * SWEEP_ART || !ct.at[lane / SWEEP_ART].near) return;
+    const long long o = ops_now(T());
+    auto& at = ct.at[lane / SWEEP_ART];
+    const int m = lane % SWEEP_ART;
+    const float* g = geom(lane / SWEEP_ART);
+    sphere_geom((int)ldc(g + A_KIND), g + A_SIZE, at.ck[m], T(ldc(cb + C_RB)), at.dk[m], at.nk[m]);
+    if constexpr (COUNTS<T>) ct.ga_ops[lane / SWEEP_ART] += ops_now(T()) - o;
+  });
+  each(w, [=, &ct](int lane) {
+    if (lane >= ng || !ct.at[lane].near) return;
+    const long long o = ops_now(T());
+    auto& at = ct.at[lane];
+    T dist = at.d_now;   // sweep: the first penetrating sample wins
+    V3<T> n_l = at.n_now_l;
+    bool found = dist < T(0.0f);
+    for (int m = 0; m < SWEEP_ART; ++m) {
+      if (!found && at.dk[m] < T(0.0f)) {
+        dist = at.dk[m];
+        n_l = at.nk[m];
+      }
+      found = found || at.dk[m] < T(0.0f);
+    }
+    at.n = qrot(at.gq, n_l);
+    at.vn = dot(at.v_rel, at.n);
+    ct.ga_act[lane] = (dist < T(0.0f)) && (at.vn < T(0.0f));
+    if constexpr (COUNTS<T>) ct.ga_ops[lane] += ops_now(T()) - o;
+  });
+}
+
+// Pair entry pr (art geom g of the articulation with block ca, true static
+// sg): art_static's narrowphase of the geom's bounding sphere, with exact
+// support of a cylinder or box along the normal where the pair says so: the
+// contact point, normal and depth.
+template <class T, int ND>
+IGT_HD void pair_narrowphase(const float* ca, const ArmState<T, ND>& ar, const float* pr,
+                             const float* g, const float* sg, V3<T>& point, V3<T>& n, T& dist) {
+  const T rbound = T(ldc(g + A_RBOUND));
+  V3<T> lp;
+  Q4<T> lq;
+  link_frame<T, ND>(ca, ar, (int)ldc(g + A_LINK), lp, lq);
+  const V3<T> center = add(lp, qrot(lq, cv3<T>(g + A_OFF_POS)));
+  const float* R = sg + G_ROT;
+  const V3<T> c_local = mat_t(R, sub(center, cv3<T>(sg + G_POS)));
+  V3<T> n_local;
+  sphere_geom((int)ldc(sg + G_KIND), sg + G_SIZE, c_local, rbound, dist, n_local);
+  n = mat(R, n_local);
+  if (ldc(pr + P_EXACT) != 0.0f) {
+    const V3<T> n_g = qrot(conj(qmul(lq, cq4<T>(g + A_OFF_QUAT))), n);
+    const float* gs = g + A_SIZE;
+    T sup;
+    if ((int)ldc(g + A_KIND) == GEOM_CYLINDER) {
+      const T na = abs_(n_g.z);
+      sup = na * T(ldc(gs + 1)) + sqrt_floor(T(1.0f) - na * na, 0.0f) * T(ldc(gs));
+    } else {
+      sup = abs_(n_g.x) * T(ldc(gs)) + abs_(n_g.y) * T(ldc(gs + 1))
+            + abs_(n_g.z) * T(ldc(gs + 2));
+    }
+    dist = dist + rbound - sup;
+    point = sub(center, scale(n, sup));
+  } else {
+    point = sub(center, scale(n, rbound));
+  }
+}
+
+// An acting ball-vs-art contact's restitution, tangent and slip speed, from
+// the relative velocity v_rel, the swept normal n and vn = v_rel . n
+// (ball_art after its test), into the articulation's contact ``ac``.
+template <class T, int ND>
+IGT_HD void ball_art_dirs(const float* cb, const float* g, int bi, const BallState<T>& bs,
+                          V3<T> v_rel, V3<T> n, T vn, ArmContact<T, ND>& ac) {
+  const T rb = T(ldc(cb + C_RB));
+  ac.e_eff = sel(abs_(vn) > T(ldc(cb + C_BOUNCE)), T(ldc(g + A_EB + 2 * bi)), T(0.0f));
+  const V3<T> slip = ldc(cb + C_KAPPA) > 0.0f ? sub(v_rel, scale(cross(bs.omg, n), rb)) : v_rel;
+  const V3<T> vt = sub(slip, scale(n, dot(slip, n)));
+  ac.vt_n = sqrt_floor(dot(vt, vt), 1e-18f);
+  ac.t_hat = scale(vt, T(1.0f) / ac.vt_n);
+  ac.n = n;
+  ac.vn = vn;
+}
+
+// The reaction of an acting contact of ball bi with articulated geom gi of
+// articulation a (ball_art after its test; ct.d_now, ct.n_now and the
+// articulation's contact set): the solves, the impulse, the ball's change,
+// the rows, the joint-space reaction. The impulse joins the ball's b_art
+// row, its reaction the geom's row; with WITH_TORQUE its moments join the
+// ball's and the geom body's.
+template <class T, int ND, int K, bool WITH_TORQUE, class Sh>
+IGT_HD void ball_art_react(const float* c, int a, int gi, int bi, Sh& sh, const Lanes& w) {
+  auto& ct = sh.s.ct;
+  const float* ca = c + MULTI_HEAD + a * multi_art_stride(ND);
+  const float* cb = c + multi_ball_off(ND, K) + bi * BALL_STRIDE;
+  const float* g = c + multi_art_off(ND, K) + gi * MULTI_ART_STRIDE;
+  contact_solve<T, ND, K>(sh, w);
+  each(w, [=, &sh, &ct](int lane) {
+    if (lane != a * (WARP / K)) return;
+    auto& ac = ct.arm[a];
+    auto& bs = ct.ball[bi];
+    const T rb = T(ldc(cb + C_RB)), inv_mb = T(ldc(cb + C_INV_MB));
+    const T Pn = -(T(1.0f) + ac.e_eff) * ac.vn / (inv_mb + sum_sq<T, ND>(ac.sqn));
+    const T w_t = T(ldc(cb + C_WT0)) + sum_sq<T, ND>(ac.sqt);
+    const T Pt = min_(T(ldc(g + A_MUB + 2 * bi)) * Pn, ac.vt_n / w_t);
+    const V3<T> n = ac.n, t_hat = ac.t_hat;
+    const V3<T> P = sub(scale(n, Pn), scale(t_hat, Pt));
+    bs.vel = add(bs.vel, scale(P, inv_mb));
+    bs.omg = add(bs.omg, scale(cross(n, t_hat), T(ldc(cb + C_KAPPA_INVMB_OVER_RB)) * Pt));
+    ac.an = -Pn;
+    ac.at = Pt;
+    ac.minus = 0;
+    bs.pos = add(bs.pos, scale(n, max_(-ct.d_now, T(0.0f))));
+    if constexpr (WITH_TORQUE) {
+      bs.tq = add(bs.tq, scale(cross(ct.n_now, P), -rb));
+      V3<T> lp;
+      Q4<T> lq;
+      link_frame<T, ND>(ca, sh.arm[a], (int)ldc(g + A_LINK), lp, lq);
+      const V3<T> borg = add(lp, qrot(lq, cv3<T>(g + A_BODY_OFF)));
+      ct.geom_tq[gi] = add(ct.geom_tq[gi], cross(sub(ac.pt, borg), scale(P, T(-1.0f))));
+    }
+    ct.geom_imp[gi] = sub(ct.geom_imp[gi], P);
+    bs.b_art = add(bs.b_art, P);
+  });
+  contact_back<T, ND, K>(sh, w);
+}
+
+// Ball bi against articulated geom gi = g0 + k of articulation a, which
+// ball_art_tests found acting (test k of its chunk): the test's geometry,
+// columns, swept normal and normal velocity become the contact's, then
+// ball_art_react.
+template <class T, int ND, int K, bool WITH_TORQUE, class Sh>
+IGT_HD void ball_art_take(const float* c, int a, int gi, int bi, int k, Sh& sh, const Lanes& w) {
+  constexpr int HW = WARP / K;
+  auto& ct = sh.s.ct;
+  const float* cb = c + multi_ball_off(ND, K) + bi * BALL_STRIDE;
+  const float* g = c + multi_art_off(ND, K) + gi * MULTI_ART_STRIDE;
+  each_arm<K>(w, [=, &ct](int a2, int s) {
+    const auto& at = ct.at[k];
+    auto& ac = ct.arm[a2];
+    if (s == 0) ac.act = a2 == a;
+    if (a2 != a) return;
+    for (int i = s; i < ND; i += HW) {
+      ac.Jc[i] = at.Jc[i];
+      ac.on[i] = at.on[i];
+    }
+    if (s != 0) return;
+    ct.d_now = at.d_now;
+    ct.n_now = at.n_now;
+    ac.pt = at.cp;
+    ball_art_dirs<T, ND>(cb, g, bi, ct.ball[bi], at.v_rel, at.n, at.vn, ac);
+  });
+  ball_art_react<T, ND, K, WITH_TORQUE>(c, a, gi, bi, sh, w);
+}
+
+// Round p of the art-vs-static pairs (art_static): articulation a's p-th
+// pair, where its narrowphase penetrates (``hit[a]``), on a's lanes, all
+// articulations at once. The impulse joins the geom's row; with WITH_TORQUE
+// its moment about the geom body's frame origin joins the geom's moment row.
+template <class T, int ND, int K, bool WITH_TORQUE, class Sh>
+IGT_HD void pair_round(const float* c, const int* plo, const bool* hit, int p, Sh& sh,
+                       const Lanes& w) {
+  constexpr int HW = WARP / K;
+  auto& ct = sh.s.ct;
+  bool h[K];
+  int lo[K];
+  for (int a = 0; a < K; ++a) {
+    h[a] = hit[a];
+    lo[a] = plo[a];
+  }
+  const auto pair = [=](int a) { return c + multi_pair_off(ND, K) + (lo[a] + p) * PAIR_STRIDE; };
+  const auto geom = [=](int a) {
+    return c + multi_art_off(ND, K) + (int)ldc(pair(a) + P_ART) * MULTI_ART_STRIDE;
+  };
+  const auto art = [c](int a) { return c + MULTI_HEAD + a * multi_art_stride(ND); };
+  each_arm<K>(w, [=, &sh, &ct](int a, int s) {
+    if (h[a])
+      contact_cols<T, ND, HW>(art(a), sh.arm[a], ct.arm[a], ct.pr_pt[lo[a] + p],
+                              (int)ldc(geom(a) + A_LINK), s);
+  });
+  each_arm<K>(w, [=, &ct](int a, int s) {
+    if (s != 0) return;
+    auto& ac = ct.arm[a];
+    ac.act = 0;
+    if (!h[a]) return;
+    const float* ca = art(a);
+    const int pi = lo[a] + p;
+    const V3<T> n = ct.pr_n[pi];
+    const V3<T> v_point = point_velocity<T, ND>(ac);
+    const T vn = dot(v_point, n);
+    if (!(vn < T(0.1f))) return;   // separating: no impulse
+    ac.act = 1;
+    const T bounce = T(ldc(ca + C_BOUNCE));
+    ac.bias = min_(T(ldc(ca + C_BIAS_K)) * max_(-ct.pr_dist[pi] - T(0.005f), T(0.0f)),
+                   T(ldc(ca + C_MAX_DEPEN)));
+    ac.e_eff = sel(abs_(vn) > bounce, T(ldc(pair(a) + P_E)), T(0.0f));
+    const V3<T> vt = sub(v_point, scale(n, vn));
+    ac.vt_n = sqrt_floor(dot(vt, vt), 1e-18f);
+    ac.t_hat = scale(vt, T(1.0f) / ac.vt_n);
+    ac.n = n;
+    ac.vn = vn;
+  });
+  bool acts = false;
+  for (int a = 0; a < K; ++a) acts = acts || ct.arm[a].act;
+  if (!acts) return;
+  contact_solve<T, ND, K>(sh, w);
+  each_arm<K>(w, [=, &sh, &ct](int a, int s) {
+    auto& ac = ct.arm[a];
+    if (!ac.act || s != 0) return;
+    const float* ca = art(a);
+    const float* pr = pair(a);
+    const int pi = lo[a] + p, gi = (int)ldc(pr + P_ART);
+    const T bounce = T(ldc(ca + C_BOUNCE)), dist = ct.pr_dist[pi];
+    T Pn = (-(T(1.0f) + ac.e_eff) * min_(ac.vn, T(0.0f)) + ac.bias)
+        / max_(sum_sq<T, ND>(ac.sqn), T(1e-9f));
+    T Pt = min_(T(ldc(pr + P_MU)) * Pn, ac.vt_n / max_(sum_sq<T, ND>(ac.sqt), T(1e-9f)));
+    // resting-contact band: ramp the impulse over the first 2 mm
+    const T s_r = sel(abs_(ac.vn) > bounce, T(1.0f), clip_(-dist / T(0.002f), T(0.0f), T(1.0f)));
+    Pn = Pn * s_r;
+    Pt = Pt * s_r;
+    ac.an = Pn;
+    ac.at = Pt;
+    ac.minus = 1;
+    const V3<T> P = sub(scale(ac.n, Pn), scale(ac.t_hat, Pt));
+    ct.geom_imp[gi] = add(ct.geom_imp[gi], P);
+    if constexpr (WITH_TORQUE) {
+      V3<T> lp;
+      Q4<T> lq;
+      link_frame<T, ND>(ca, sh.arm[a], (int)ldc(geom(a) + A_LINK), lp, lq);
+      ct.geom_tq[gi] = add(ct.geom_tq[gi],
+                           cross(sub(ct.pr_pt[pi], add(lp, qrot(lq, cv3<T>(geom(a) + A_BODY_OFF)))), P));
+    }
+  });
+  contact_back<T, ND, K>(sh, w);
+}
+
+// ------------------------------------------------------------- the body --
+// One env's K3 substep, run by the warp ``w`` with the env's block ``sh``.
+// x: (multi_n_in(K ND, NB), B) inputs, y: (3 K ND + 9 NB + 3 (ng + 2 NB)
+// [+ 3 (ng + NB) with WITH_TORQUE], B) outputs, both channel-major; env b
+// reads and writes column b.
 template <class T, int ND, int K, int NB, bool WITH_TORQUE = false>
 IGT_HD void fused_substep_multi_env(const float* __restrict__ c, const float* __restrict__ x,
-                                    float* __restrict__ y, int b, int B) {
+                                    float* __restrict__ y, int b, int B,
+                                    MultiShared<T, ND, K, NB, WITH_TORQUE>& sh, const Lanes& w) {
   static_assert(NB >= 1 && NB <= MAX_BALLS, "1 or 2 balls");
+  static_assert(MULTI_MAX_PAIRS <= WARP && NB < WARP, "a lane for each pair and each ball");
   constexpr int NDT = K * ND;
   const size_t sB = (size_t)B;
-#define IGT_IN(ch) T(x[(size_t)(ch) * sB + b])
 #define IGT_OUT(ch, v) (y[(size_t)(ch) * sB + b] = to_f(v))
-#define IGT_ART(a) (c + MULTI_HEAD + (a) * multi_art_stride(ND))
+  const auto art = [c](int a) { return c + MULTI_HEAD + a * multi_art_stride(ND); };
+  arms_dynamics<T, ND, K>(art, x, y, b, sB, NDT, sh, w);
 
-  T L[K][ND * (ND + 1) / 2], u[K][ND];
-  V3<T> fp[K][ND], axw[K][ND];
-  Q4<T> fq[K][ND];
-#pragma unroll
-  for (int a = 0; a < K; ++a)
-    art_dynamics<T, ND, false>(IGT_ART(a), x, y, b, sB, a * ND, NDT, nullptr, L[a], u[a],
-                               fp[a], fq[a], axw[a], cv3<T>(IGT_ART(a) + C_BASE_P),
-                               cq4<T>(IGT_ART(a) + C_BASE_Q));
-
-  const int n_static = (int)ldc(c + C_NSTATIC);
+  auto& ct = sh.s.ct;
   const int ng = (int)ldc(c + C_NART);
-  V3<T> geom_imp[MULTI_MAX_ART];
-  // WITH_TORQUE: each geom body's contact moment and each ball's
-  V3<T> geom_tq[WITH_TORQUE ? MULTI_MAX_ART : 1], b_tq[NB];
-  for (int gi = 0; gi < ng; ++gi) {
-    geom_imp[gi] = v3<T>(T(0.0f), T(0.0f), T(0.0f));
-    if constexpr (WITH_TORQUE) geom_tq[gi] = geom_imp[gi];
+  int plo[K], rounds = 0;
+  for (int a = 0; a < K; ++a) {
+    plo[a] = (int)ldc(art(a) + C_PAIR_LO);
+    const int n = (int)ldc(art(a) + C_PAIR_HI) - plo[a];
+    rounds = n > rounds ? n : rounds;
   }
-  V3<T> pos[NB], vel[NB], omg[NB], s_imp[NB];
-  const int ib = 4 * NDT;
-#pragma unroll
-  for (int bi = 0; bi < NB; ++bi) {
-    const float* cb = c + multi_ball_off(ND, K) + bi * BALL_STRIDE;
-    const T inv_mb = T(ldc(cb + C_INV_MB));
-    pos[bi] = v3<T>(IGT_IN(ib + 3 * bi), IGT_IN(ib + 3 * bi + 1), IGT_IN(ib + 3 * bi + 2));
-    vel[bi] = v3<T>(IGT_IN(ib + 3 * NB + 3 * bi), IGT_IN(ib + 3 * NB + 3 * bi + 1),
-                    IGT_IN(ib + 3 * NB + 3 * bi + 2));
-    omg[bi] = v3<T>(IGT_IN(ib + 6 * NB + 3 * bi), IGT_IN(ib + 6 * NB + 3 * bi + 1),
-                    IGT_IN(ib + 6 * NB + 3 * bi + 2));
-    ball_flight(cb, T(ldc(cb + C_GX)), T(ldc(cb + C_GY)), T(ldc(cb + C_GZ)), vel[bi], omg[bi]);
-    V3<T> dv0 = ball_plane(cb, pos[bi], vel[bi], omg[bi]);
-    s_imp[bi] = scale(dv0, T(ldc(cb + C_MB)));
-    if constexpr (WITH_TORQUE)
-      b_tq[bi] = static_moment(cb, v3<T>(T(0.0f), T(0.0f), T(1.0f)), dv0);
-    for (int si = 0; si < n_static; ++si) {
-      const float* g = c + multi_static_off(ND, K) + si * MULTI_STATIC_STRIDE;
-      V3<T> dv = ball_static(cb, g, T(ldc(g + G_EB + 2 * bi)), T(ldc(g + G_MUB + 2 * bi)),
-                             pos[bi], vel[bi], omg[bi], WITH_TORQUE ? &b_tq[bi] : nullptr);
-      s_imp[bi] = v3<T>(s_imp[bi].x + dv.x / inv_mb, s_imp[bi].y + dv.y / inv_mb,
-                        s_imp[bi].z + dv.z / inv_mb);
+
+  // each ball's flight and plane (lanes 31, 30); the impulse rows cleared;
+  // every pair's narrowphase (lane pi)
+  each(w, [=, &sh, &ct](int lane) {
+    for (int bi = 0; bi < NB; ++bi) {
+      if (lane != WARP - 1 - bi) continue;
+      ball_flight_plane<T, ND, K, NB, WITH_TORQUE>(c, x, b, sB, bi, ct.ball[bi]);
+      ct.st_next[bi] = 0;
     }
-    V3<T> b_art = v3<T>(T(0.0f), T(0.0f), T(0.0f));
-#pragma unroll
+    for (int gi = lane; gi < ng; gi += WARP) {
+      ct.geom_imp[gi] = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+      if constexpr (WITH_TORQUE) ct.geom_tq[gi] = ct.geom_imp[gi];
+    }
     for (int a = 0; a < K; ++a) {
-      const float* ca = IGT_ART(a);
-      const int hi = (int)ldc(ca + C_GEOM_HI);
-      for (int gi = (int)ldc(ca + C_GEOM_LO); gi < hi; ++gi) {
-        const float* g = c + multi_art_off(ND, K) + gi * MULTI_ART_STRIDE;
-        V3<T> P;
-        if (!ball_art<T, ND, false>(ca, cb, g, A_EB + 2 * bi, A_MUB + 2 * bi, nullptr, sB,
-                                    pos[bi], vel[bi], omg[bi], u[a], L[a], fp[a], fq[a],
-                                    axw[a], P, WITH_TORQUE ? &b_tq[bi] : nullptr,
-                                    WITH_TORQUE ? &geom_tq[gi] : nullptr))
-          continue;
-        geom_imp[gi] = sub(geom_imp[gi], P);
-        b_art = add(b_art, P);
+      const int pi = lane;
+      if (pi < (int)ldc(art(a) + C_PAIR_LO) || pi >= (int)ldc(art(a) + C_PAIR_HI)) continue;
+      const float* pr = c + multi_pair_off(ND, K) + pi * PAIR_STRIDE;
+      const float* g = c + multi_art_off(ND, K) + (int)ldc(pr + P_ART) * MULTI_ART_STRIDE;
+      const float* sg = c + multi_static_off(ND, K) + (int)ldc(pr + P_STATIC) * MULTI_STATIC_STRIDE;
+      V3<T> lp;   // a geom whose hull clears the static's cannot act
+      Q4<T> lq;
+      link_frame<T, ND>(art(a), sh.arm[a], (int)ldc(g + A_LINK), lp, lq);
+      const V3<T> d = sub(add(lp, qrot(lq, cv3<T>(g + A_OFF_POS))), cv3<T>(sg + G_POS));
+      if (apart(sqrt_(dot(d, d)), hull_radius<T>((int)ldc(sg + G_KIND), sg + G_SIZE),
+                hull_radius<T>((int)ldc(g + A_KIND), g + A_SIZE), T(0.0f))) {
+        ct.pr_hit[pi] = 0;
+        continue;
       }
+      pair_narrowphase<T, ND>(art(a), sh.arm[a], pr, g, sg, ct.pr_pt[pi], ct.pr_n[pi],
+                              ct.pr_dist[pi]);
+      ct.pr_hit[pi] = ct.pr_dist[pi] < T(0.0f);
     }
-    const int row = 3 * NDT + 9 * NB + 3 * (ng + NB + bi);
-    IGT_OUT(row, b_art.x);
-    IGT_OUT(row + 1, b_art.y);
-    IGT_OUT(row + 2, b_art.z);
+  });
+  // the statics in order: each (ball, static) from each ball's next static
+  // on is tested on a lane of its own against the ball's current state, then
+  // each ball's lane walks them up to the first that acts (statics_walk),
+  // until every ball has taken every static
+  const int n_static = (int)ldc(c + C_NSTATIC);
+  for (;;) {
+    bool more = false;
+    for (int bi = 0; bi < NB; ++bi) more = more || ct.st_next[bi] < n_static;
+    if (!more) break;
+    each(w, [=, &ct](int lane) {
+      for (int t = lane; t < NB * n_static; t += WARP) {
+        const int bi = t / n_static, si = t % n_static;
+        if (si < ct.st_next[bi]) continue;
+        const long long o = ops_now(T());
+        const float* cb = c + multi_ball_off(ND, K) + bi * BALL_STRIDE;
+        const float* g = c + multi_static_off(ND, K) + si * MULTI_STATIC_STRIDE;
+        const auto& bs = ct.ball[bi];
+        const V3<T> d = sub(bs.pos, cv3<T>(g + G_POS));
+        const bool far = apart(sqrt_(dot(d, d)), hull_radius<T>((int)ldc(g + G_KIND), g + G_SIZE),
+                               T(ldc(cb + C_RB)), sqrt_(dot(bs.vel, bs.vel)) * T(ldc(cb + C_DT)));
+        const long long o_cull = ops_now(T());
+        ct.st_act[bi][si] = 0;
+        if (WITH_TORQUE || !far) {   // K3-tau still needs a far static's moment term
+          V3<T> m;
+          ct.st_act[bi][si] = static_test<T, ND, K, WITH_TORQUE>(c, bi, si, bs, far, m);
+          if constexpr (WITH_TORQUE) ct.st_m[bi][si] = m;
+        }
+        if constexpr (COUNTS<T>) {
+          ct.st_ops[bi][si][0] = o_cull - o;
+          ct.st_ops[bi][si][1] = ops_now(T()) - o_cull;
+        }
+      }
+    });
+    each(w, [=, &ct](int lane) {
+      for (int bi = 0; bi < NB; ++bi)
+        if (lane == WARP - 1 - bi && ct.st_next[bi] < n_static)
+          statics_walk<T, ND, K, NB, WITH_TORQUE>(c, bi, ct.ball[bi], ct.st_act[bi],
+                                                   ct.st_m[WITH_TORQUE ? bi : 0],
+                                                   ct.st_ops[COUNTS<T> ? bi : 0], ct.st_next[bi]);
+    });
+  }
+
+  // each ball against every articulated geom of every articulation, in
+  // order: the geoms from the next one on are tested a chunk at a time
+  // (ball_art_tests) against the current state. A geom that does not act
+  // changes nothing; the first that acts takes its reaction (ball_art_take),
+  // which changes the state, and the geoms after it are tested again (the
+  // counting build drops their first tests).
+  const auto arm_of = [=](int gi) {
+    int a = 0;
+    while (a < K - 1 && gi >= (int)ldc(art(a) + C_GEOM_HI)) ++a;
+    return a;
+  };
+  for (int bi = 0; bi < NB; ++bi) {
+    for (int next = 0; next < ng;) {
+      const int n = ng - next < ART_CHUNK ? ng - next : ART_CHUNK;
+      sync(w);   // every lane has read the last tests
+      ball_art_tests<T, ND, K>(c, bi, next, n, sh, w);
+      int k = 0;
+      while (k < n && !ct.ga_act[k]) ++k;
+      if constexpr (COUNTS<T>)
+        for (int j = k + 1; j < n; ++j) ops_drop(T(), ct.ga_ops[j]);
+      if (k < n) ball_art_take<T, ND, K, WITH_TORQUE>(c, arm_of(next + k), next + k, bi, k, sh, w);
+      next += k < n ? k + 1 : n;
+    }
   }
 
   if constexpr (NB == 2) {
-    const float* c0 = c + multi_ball_off(ND, K);
-    ball_pair(c, c0, c0 + BALL_STRIDE, pos[0], vel[0], omg[0], s_imp[0], pos[1], vel[1],
-              omg[1], s_imp[1], WITH_TORQUE ? &b_tq[0] : nullptr,
-              WITH_TORQUE ? &b_tq[1] : nullptr);
-  }
-
-#pragma unroll
-  for (int bi = 0; bi < NB; ++bi) {
-    ball_finish(c + multi_ball_off(ND, K) + bi * BALL_STRIDE, pos[bi], vel[bi], omg[bi]);
-    const int o = 3 * NDT + 3 * bi;
-    IGT_OUT(o, pos[bi].x);
-    IGT_OUT(o + 1, pos[bi].y);
-    IGT_OUT(o + 2, pos[bi].z);
-    IGT_OUT(o + 3 * NB, vel[bi].x);
-    IGT_OUT(o + 3 * NB + 1, vel[bi].y);
-    IGT_OUT(o + 3 * NB + 2, vel[bi].z);
-    IGT_OUT(o + 6 * NB, omg[bi].x);
-    IGT_OUT(o + 6 * NB + 1, omg[bi].y);
-    IGT_OUT(o + 6 * NB + 2, omg[bi].z);
-    const int row = 3 * NDT + 9 * NB + 3 * (ng + bi);
-    IGT_OUT(row, s_imp[bi].x);
-    IGT_OUT(row + 1, s_imp[bi].y);
-    IGT_OUT(row + 2, s_imp[bi].z);
-    if constexpr (WITH_TORQUE) {   // ball moment rows after the geom moment rows
-      const int rt = 3 * NDT + 9 * NB + 3 * (2 * ng + 2 * NB + bi);
-      IGT_OUT(rt, b_tq[bi].x);
-      IGT_OUT(rt + 1, b_tq[bi].y);
-      IGT_OUT(rt + 2, b_tq[bi].z);
-    }
+    one(w, [=, &ct]() {
+      const float* c0 = c + multi_ball_off(ND, K);
+      auto &b0 = ct.ball[0], &b1 = ct.ball[1];
+      ball_pair(c, c0, c0 + BALL_STRIDE, b0.pos, b0.vel, b0.omg, b0.s_imp, b1.pos, b1.vel,
+                b1.omg, b1.s_imp, WITH_TORQUE ? &b0.tq : nullptr, WITH_TORQUE ? &b1.tq : nullptr);
+    });
   }
 
   // articulated geoms vs the true statics: pairs pruned at pack time
-#pragma unroll
-  for (int a = 0; a < K; ++a) {
-    const float* ca = IGT_ART(a);
-    const int hi = (int)ldc(ca + C_PAIR_HI);
-    for (int pi = (int)ldc(ca + C_PAIR_LO); pi < hi; ++pi) {
-      const float* pr = c + multi_pair_off(ND, K) + pi * PAIR_STRIDE;
-      const int gi = (int)ldc(pr + P_ART);
-      V3<T> P;
-      if (art_static<T, ND>(ca, pr, c + multi_art_off(ND, K) + gi * MULTI_ART_STRIDE,
-                            c + multi_static_off(ND, K) + (int)ldc(pr + P_STATIC) * MULTI_STATIC_STRIDE,
-                            u[a], L[a], fp[a], fq[a], axw[a], P,
-                            WITH_TORQUE ? &geom_tq[gi] : nullptr))
-        geom_imp[gi] = add(geom_imp[gi], P);
+  for (int p = 0; p < rounds; ++p) {
+    bool hit[K], any = false;
+    for (int a = 0; a < K; ++a) {
+      hit[a] = p < (int)ldc(art(a) + C_PAIR_HI) - plo[a] && ct.pr_hit[plo[a] + p];
+      any = any || hit[a];
     }
+    if (any) pair_round<T, ND, K, WITH_TORQUE>(c, plo, hit, p, sh, w);
   }
 
-  const int io = 3 * NDT + 9 * NB;
-  for (int gi = 0; gi < ng; ++gi) {
-    IGT_OUT(io + 3 * gi, geom_imp[gi].x);
-    IGT_OUT(io + 3 * gi + 1, geom_imp[gi].y);
-    IGT_OUT(io + 3 * gi + 2, geom_imp[gi].z);
-    if constexpr (WITH_TORQUE) {
-      const int rt = io + 3 * (ng + 2 * NB + gi);
-      IGT_OUT(rt, geom_tq[gi].x);
-      IGT_OUT(rt + 1, geom_tq[gi].y);
-      IGT_OUT(rt + 2, geom_tq[gi].z);
+  // outputs: qd, the impulse rows (and moment rows); each ball capped and
+  // integrated on its own lane
+  each(w, [=, &sh, &ct](int lane) {
+    const int io = 3 * NDT + 9 * NB;
+    for (int ch = lane; ch < NDT; ch += WARP) IGT_OUT(NDT + ch, sh.arm[ch / ND].u[ch % ND]);
+    for (int gi = lane; gi < ng; gi += WARP) {
+      const V3<T> p = ct.geom_imp[gi];
+      IGT_OUT(io + 3 * gi, p.x); IGT_OUT(io + 3 * gi + 1, p.y); IGT_OUT(io + 3 * gi + 2, p.z);
+      if constexpr (WITH_TORQUE) {
+        const int rt = io + 3 * (ng + 2 * NB + gi);
+        const V3<T> tq = ct.geom_tq[gi];
+        IGT_OUT(rt, tq.x); IGT_OUT(rt + 1, tq.y); IGT_OUT(rt + 2, tq.z);
+      }
     }
-  }
-#pragma unroll
-  for (int a = 0; a < K; ++a)
-#pragma unroll
-    for (int d = 0; d < ND; ++d) IGT_OUT(NDT + a * ND + d, u[a][d]);
-#undef IGT_IN
+    for (int bi = 0; bi < NB; ++bi) {
+      if (lane != WARP - 1 - bi) continue;
+      const BallState<T>& bs = ct.ball[bi];
+      V3<T> pos = bs.pos, vel = bs.vel, omg = bs.omg;
+      ball_finish(c + multi_ball_off(ND, K) + bi * BALL_STRIDE, pos, vel, omg);
+      const int o = 3 * NDT + 3 * bi;
+      IGT_OUT(o, pos.x); IGT_OUT(o + 1, pos.y); IGT_OUT(o + 2, pos.z);
+      IGT_OUT(o + 3 * NB, vel.x); IGT_OUT(o + 3 * NB + 1, vel.y); IGT_OUT(o + 3 * NB + 2, vel.z);
+      IGT_OUT(o + 6 * NB, omg.x); IGT_OUT(o + 6 * NB + 1, omg.y); IGT_OUT(o + 6 * NB + 2, omg.z);
+      const int rs = io + 3 * (ng + bi), ra = io + 3 * (ng + NB + bi);
+      IGT_OUT(rs, bs.s_imp.x); IGT_OUT(rs + 1, bs.s_imp.y); IGT_OUT(rs + 2, bs.s_imp.z);
+      IGT_OUT(ra, bs.b_art.x); IGT_OUT(ra + 1, bs.b_art.y); IGT_OUT(ra + 2, bs.b_art.z);
+      if constexpr (WITH_TORQUE) {   // ball moment rows after the geom moment rows
+        const int rt = io + 3 * (2 * ng + 2 * NB + bi);
+        IGT_OUT(rt, bs.tq.x); IGT_OUT(rt + 1, bs.tq.y); IGT_OUT(rt + 2, bs.tq.z);
+      }
+    }
+  });
 #undef IGT_OUT
-#undef IGT_ART
 }
 
 }  // namespace igt

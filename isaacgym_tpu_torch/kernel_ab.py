@@ -1,20 +1,30 @@
-"""Compare K4 and K4-tau, the floating-base kernel built without and with
-the torque lanes, from two or more source trees on the card: the same C10
+"""Compare builds of the multi-articulation and floating-base kernels (K3,
+K3-tau, K4, K4-tau) from two or more source trees on the card: the same
 inputs through each build, bit-for-bit equality with the first tree's
-outputs, and the time per launch in turns (A B ... B A, twice over).
+outputs (as int32 words, so -0 and +0 differ), and the time per launch in turns (A B ... B A, twice over).
 
-    python -m isaacgym_tpu_torch.kernel_ab BASE_CSRC [OTHER_CSRC ...] [--num-envs N]
+    python -m isaacgym_tpu_torch.kernel_ab BASE_CSRC [OTHER_CSRC ...]
+        [--kernels k3,k3tau,k4,k4tau] [--num-envs N]
 
-Each argument is a ``csrc`` directory holding ``fused_substep_floating.cu``
-and its headers (this package's own is ``isaacgym_tpu_torch/csrc``; a
-parent commit's can be unpacked with ``git archive``). Each is built with
-the flags of ``ops/_build.py`` into ``build/kernels/``, and its ptxas lines
-(registers, stack, spills, shared memory of each entry) are printed. The
-inputs are ``sim/scripted.k4_inputs``' stand, strike and fall sets and the
-random-action states (``sim/scripted.k4_random_inputs``, as
-``chip_smoke.py``'s ``k4/random``), at
-C10's 2048 envs by default (``--num-envs``: the first N of them); K4-tau
-runs on the same inputs with the pack of C10's scene with a paddle sensor.
+Each argument is a ``csrc`` directory holding ``fused_substep_multi.cu``,
+``fused_substep_floating.cu`` and their headers (this package's own is
+``isaacgym_tpu_torch/csrc``; a parent commit's can be unpacked with ``git
+archive``). Each is built with the flags of ``ops/_build.py`` into
+``build/kernels/``, and its ptxas lines (registers, stack, spills, shared
+memory of each entry) are printed.
+
+The inputs, at each kernel's main-path width (``--num-envs``: the first N
+envs):
+- K3 at 4096 envs: C8's reset, paddle_ball1, paddle_ball2 and ball_rest
+  sets (``sim/scripted.k3_inputs``) and its random-action states
+  (``sim/scripted.k3_random_inputs``, as ``chip_smoke.py``'s ``k3/rollout``)
+  at <7, 2, 1>; the two-arm, two-ball check scene's ball_ball set (PD
+  drive) and effort set (effort drive) at <3, 2, 2>. K3-tau runs on the
+  same inputs with the packs of the same scenes with paddle sensors.
+- K4 at 2048 envs: C10's stand, strike and fall sets
+  (``sim/scripted.k4_inputs``) and its random-action states
+  (``sim/scripted.k4_random_inputs``); K4-tau with the pack of C10's scene
+  with a paddle sensor.
 Prints one JSON line per kernel and set, and the card's name and power
 limit; needs a CUDA device.
 """
@@ -27,9 +37,13 @@ import os
 import statistics
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
+C8 = "Humanoid12PingpongTiltG1"
 C10 = "HumanoidPingpongTiltNESSparse27DOFG1"
-SETS = ("stand", "strike", "fall", "random")
+KERNELS = ("k3", "k3tau", "k4", "k4tau")
+SOURCES = {"k3": "fused_substep_multi", "k3tau": "fused_substep_multi",
+           "k4": "fused_substep_floating", "k4tau": "fused_substep_floating"}
 
 
 def _time_ms(fn, inner=20, repeats=5):
@@ -46,69 +60,146 @@ def _time_ms(fn, inner=20, repeats=5):
     return statistics.median(times)
 
 
-def main(argv) -> int:
+def _k3_cases(kernels, dev, b=4096):
+    """(kernel, set, wrapper, inputs) of K3 and K3-tau at ``b`` envs."""
     import numpy as np
     import torch
     import isaacgym_tpu_torch
-    from isaacgym_tpu_torch.ops import _build
-    from isaacgym_tpu_torch.ops import fused_substep_floating as FF
+    from isaacgym_tpu_torch.sim import scripted
+    from isaacgym_tpu_torch.sim.scene import DRIVE_EFFORT, DRIVE_POS
+    from isaacgym_tpu_torch.sim.simulator import Simulator
+    from isaacgym_tpu_torch.utils.config import load_task_config
+
+    env = isaacgym_tpu_torch.make(seed=0, task=C8, num_envs=b, device=dev)
+    c8tau = Simulator(scripted.paddle_sensor_scene(load_task_config(C8), 2), device=dev)
+    toys = {(d, tau): scripted.ToyEnv(d, device=dev, paddle_sensor=tau)
+            for d in (DRIVE_POS, DRIVE_EFFORT) for tau in (False, True)}
+    sets = [("reset", env, "reset", 0.0), ("paddle_ball1", env, "paddle_ball1", 0.0),
+            ("paddle_ball2", env, "paddle_ball2", 0.0), ("ball_rest", env, "ball_rest", 0.0),
+            ("random", env, None, 0.0), ("ball_ball", DRIVE_POS, "ball_ball", 0.0),
+            ("effort", DRIVE_EFFORT, "paddle_ball1", 15.0)]
+    for i, (name, e, kind, scale) in enumerate(sets):
+        toy = e is not env
+        if kind is None:
+            ins = scripted.k3_random_inputs(env, b)
+        else:
+            ins = tuple(torch.as_tensor(a, device=dev) for a in scripted.k3_inputs(
+                toys[(e, False)] if toy else env, kind, b, np.random.RandomState(501 + i), scale))
+        for kname, tau in (("k3", False), ("k3tau", True)):
+            if kname not in kernels:
+                continue
+            sim = (toys[(e, tau)].sim if toy else c8tau if tau else env.sim)
+            yield kname, name, sim.fused_substep_multi, ins
+
+
+def _k4_cases(kernels, dev, b=2048):
+    """(kernel, set, wrapper, inputs) of K4 and K4-tau at ``b`` envs."""
+    import numpy as np
+    import torch
+    import isaacgym_tpu_torch
     from isaacgym_tpu_torch.sim import scripted
     from isaacgym_tpu_torch.sim.simulator import Simulator
     from isaacgym_tpu_torch.utils.config import load_task_config
 
+    env = isaacgym_tpu_torch.make(seed=0, task=C10, num_envs=b, device=dev)
+    sensor = Simulator(scripted.paddle_sensor_scene(load_task_config(C10), floating_base=True),
+                       device=dev)
+    for i, kind in enumerate(("stand", "strike", "fall", "random")):
+        if kind == "random":
+            ins = scripted.k4_random_inputs(env, b)
+        else:
+            ins = tuple(torch.as_tensor(a, device=dev) for a in
+                        scripted.k4_inputs(env, kind, b, np.random.RandomState(401 + i)))
+        for kname, k in (("k4", env.sim.fused_substep_floating),
+                         ("k4tau", sensor.fused_substep_floating)):
+            if kname in kernels:
+                yield kname, kind, k, ins
+
+
+def _launcher(kname, k, dev, stream):
+    """(pack, output rows, shape, launcher(lib, x, y) -> run()) of wrapper
+    ``k``: K3 through the wrapper's own launcher, K4 through its library
+    entry; run raises if the launch fails."""
+    from isaacgym_tpu_torch.ops import fused_substep_floating as FF
+    from isaacgym_tpu_torch.ops import fused_substep_multi as M
+    if kname in ("k3", "k3tau"):
+        return (M.pack_inputs, M.n_out(k.nd_tot, k.nb, k.ng, k.with_torque), [k.nd, k.K, k.nb],
+                lambda lib, x, y: k.launcher(x, y, lib=lib))
+    entry = ("igt_fused_substep_floating_tau_launch" if k.with_torque
+             else "igt_fused_substep_floating_launch")
+    c = k.device_consts(dev)
+
+    def launcher(lib, x, y):
+        def run():
+            if getattr(lib, entry)(c.data_ptr(), x.data_ptr(), y.data_ptr(), x.shape[1], k.nd,
+                                   k.ng, stream) != 0:
+                raise RuntimeError(f"{kname} launch failed")
+        return run
+    return FF.pack_inputs, FF.n_out(k.nd, k.ng, k.with_torque), [k.nd], launcher
+
+
+def main(argv) -> int:
+    import torch
+    from isaacgym_tpu_torch.ops import _build
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("csrc", nargs="+")
-    ap.add_argument("--num-envs", type=int, default=2048)
+    ap.add_argument("--kernels", default=",".join(KERNELS))
+    ap.add_argument("--num-envs", type=int, default=None)
     if not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
     args = ap.parse_args(argv)
+    kernels = args.kernels.split(",")
+    if set(kernels) - set(KERNELS):
+        ap.error(f"--kernels: known {KERNELS}")
     trees = args.csrc
-    libs = {}
-    for i, d in enumerate(trees):
-        src = os.path.join(d, "fused_substep_floating.cu")
+    jobs = [(src, i, d) for src in sorted({SOURCES[k] for k in kernels})
+            for i, d in enumerate(trees)]
+
+    def build(job):
+        src, i, d = job
         deps = [os.path.join(d, f) for f in sorted(os.listdir(d)) if f.endswith(".cuh")]
-        name = f"libigt_ab{i}_floating.so"
-        libs[d] = _build._bind(_build._build(name, _build._nvcc(), _build.CUDA_FLAGS, [src], deps))
-        ptxas = [ln.strip() for ln in _build.build_logs.get(name, "").splitlines()
+        return _build._build(f"libigt_ab{i}_{src}.so", _build._nvcc(), _build.CUDA_FLAGS,
+                             [os.path.join(d, f"{src}.cu")], deps)
+
+    with ThreadPoolExecutor(len(jobs)) as pool:   # one nvcc per build, all together
+        paths = list(pool.map(build, jobs))
+    libs = {}
+    for (src, i, d), path in zip(jobs, paths):
+        libs[(src, d)] = _build._bind(path)
+        ptxas = [ln.strip() for ln in _build.build_logs.get(os.path.basename(path), "").splitlines()
                  if any(k in ln for k in ("Compiling entry", "Used", "stack frame"))]
-        print(json.dumps({"tree": d, "ptxas": ptxas}), flush=True)
+        print(json.dumps({"tree": d, "source": src, "ptxas": ptxas}), flush=True)
     dev = torch.device("cuda")
-    b = args.num_envs
-    env = isaacgym_tpu_torch.make(seed=0, task=C10, num_envs=2048)
-    sensor = Simulator(scripted.paddle_sensor_scene(load_task_config(C10), floating_base=True),
-                       device=dev)
-    kernels = {"k4": (env.sim.fused_substep_floating, "igt_fused_substep_floating_launch"),
-               "k4tau": (sensor.fused_substep_floating, "igt_fused_substep_floating_tau_launch")}
     stream = torch.cuda.current_stream().cuda_stream
-    for i, kind in enumerate(SETS):
-        if kind == "random":
-            ins = scripted.k4_random_inputs(env, 2048)
-        else:
-            ins = tuple(torch.as_tensor(a, device=dev) for a in
-                        scripted.k4_inputs(env, kind, 2048, np.random.RandomState(401 + i)))
-        x = FF.pack_inputs(*[t[:b] for t in ins])
-        for kname, (k, entry) in kernels.items():
-            c = k.device_consts(dev)
-            ys = {d: torch.empty((FF.n_out(k.nd, k.ng, k.with_torque), b), device=dev)
-                  for d in trees}
-            run = lambda d: getattr(libs[d], entry)(
-                c.data_ptr(), x.data_ptr(), ys[d].data_ptr(), b, k.nd, k.ng, stream)
-            for d in trees:
-                if run(d) != 0:
-                    raise RuntimeError(f"{kname} launch failed for {d}")
-            torch.cuda.synchronize()
-            equal = {d: bool(torch.equal(ys[d], ys[trees[0]])) for d in trees}
-            ms = {d: [] for d in trees}
-            turns = list(trees) + list(reversed(trees))
-            for d in turns + turns:
-                ms[d].append(_time_ms(lambda: run(d)))
-            print(json.dumps({"kernel": kname, "set": kind, "num_envs": b,
-                              "equal_to_first": equal,
-                              "finite": bool(torch.isfinite(ys[trees[-1]]).all()),
-                              "ms_in_turns": ms,
-                              "median_ms": {d: statistics.median(v) for d, v in ms.items()}}),
-                  flush=True)
+    cases = []
+    if {"k3", "k3tau"} & set(kernels):
+        cases += list(_k3_cases(kernels, dev))
+    if {"k4", "k4tau"} & set(kernels):
+        cases += list(_k4_cases(kernels, dev))
+    for kname, kind, k, ins in cases:
+        pack, rows, shape, launcher = _launcher(kname, k, dev, stream)
+        b = ins[0].shape[0] if args.num_envs is None else min(args.num_envs, ins[0].shape[0])
+        x = pack(*[t[:b] for t in ins])
+        ys = {d: torch.empty((rows, b), device=dev) for d in trees}
+        runs = {d: launcher(libs[(SOURCES[kname], d)], x, ys[d]) for d in trees}
+        run = lambda d: runs[d]()
+        for d in trees:
+            run(d)
+        torch.cuda.synchronize()
+        bits = lambda t: t.view(torch.int32)   # -0 and +0 differ
+        equal = {d: bool(torch.equal(bits(ys[d]), bits(ys[trees[0]]))) for d in trees}
+        ms = {d: [] for d in trees}
+        turns = list(trees) + list(reversed(trees))
+        for d in turns + turns:
+            ms[d].append(_time_ms(lambda: run(d)))
+        print(json.dumps({"kernel": kname, "set": kind, "num_envs": b,
+                          "shape": shape, "equal_to_first": equal,
+                          "finite": bool(torch.isfinite(ys[trees[-1]]).all()),
+                          "ms_in_turns": ms,
+                          "median_ms": {d: statistics.median(v) for d, v in ms.items()}}),
+              flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     return 0

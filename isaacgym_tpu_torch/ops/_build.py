@@ -131,6 +131,10 @@ _SIGNATURES = {
     "igt_fused_substep_floating_reversed_host": ([_VP, _VP, _VP, _IP, _IP, _IP], _IP),
     # K4's or K4-tau's (with_torque) envs per block, blocks per SM asked and found
     "igt_floating_occupancy": ([_IP, _VP, _IP], _IP),
+    # K3 or K3-tau (with_torque) on the host, each phase's lanes in reverse order
+    "igt_fused_substep_multi_reversed_host": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP, _IP], _IP),
+    # the same for K3 or K3-tau at (nd, k, nb)
+    "igt_multi_occupancy": ([_IP, _IP, _IP, _IP, _VP, _IP], _IP),
 }
 
 

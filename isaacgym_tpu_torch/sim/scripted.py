@@ -446,6 +446,25 @@ def k3_inputs(env, kind: str, B: int, rng: np.random.RandomState, effort_scale: 
     return tuple(map(f, (q, qd, tgt, eff, bp, bv, bw)))
 
 
+def k3_random_inputs(env, B: int, seed: int = 2, steps: int = 60):
+    """K3's seven inputs, tensors on ``env``'s device, after ``steps`` env
+    steps of ``env`` (a C8 env of ``B`` envs) from reset under uniform
+    random actions, drawn by a generator on that device seeded ``seed``:
+    the random-action states."""
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(seed)
+    n = sum(a.model.tree.n_dof for a in env.scene.articulations)
+    act = lambda: torch.rand((B, n), generator=gen, device=env.device) * 2 - 1
+    state, _ = env.reset()
+    for _ in range(steps):
+        state, *_ = env.step(state, act())
+    tgt, eff = env.action_to_drive(act())
+    s, ba = state.sim, [b.actor_index for b in env.scene.free_bodies]
+    return tuple(t.contiguous() for t in (
+        s.dof_pos, s.dof_vel, tgt, eff, s.root[:, ba, 0:3], s.root[:, ba, 7:10],
+        s.root[:, ba, 10:13]))
+
+
 def paddle_sensor_scene(cfg, humanoids: int = 1, floating_base: bool = False):
     """The pingpong scene of task config ``cfg`` with a force sensor on the
     paddle: registered once on the humanoids' shared asset before the scene
