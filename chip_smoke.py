@@ -16,15 +16,26 @@ Each phase prints one JSON line with its seconds:
           contact pattern agrees, the deviation from each, gated at the CPU
           tests' tolerances beyond the float32 plain run's own rounding (see
           compare), and the flip rate;
-  timing  K2 per launch (CUDA events, median of 15 repeats of 20 launches)
-          beside the plain version and the bound (bytes over 3.35 TB/s vs
-          counted FP32 operations over 67 TFLOP/s, the larger);
+  k2_gates  K2's output with each warp's two env columns swapped (envs 2i
+          and 2i + 1), and K2 on a copy of the pack whose articulated geoms
+          sit 100 m from their links (their reactions dropped, their rows
+          kept), must each fail the gates on some set;
+  k2/odd  K2 at 4095 envs (the last warp's second env idle) on the rollout
+          states, under the same comparison; k2dr/odd, k2tau/odd,
+          k2drtau/odd and k1/odd the same for the other builds and K1;
+  timing  K2 per launch (CUDA events, median of 15 repeats of 20 launches,
+          through its launcher into an output allocated once; the
+          wrapper's call beside it) beside the plain version and the bound
+          (bytes over 3.35 TB/s vs counted FP32 operations over 67 TFLOP/s,
+          the larger), ptxas's registers, stack, spills and shared memory
+          of the entry that ran, and its launch geometry;
   k2dr/*  K2-dr, the domain-randomized build, against its plain version on
           the same five sets with a channel drawn by DomainRandomizer.sample
           at global step 3000 (every scheduled term at full strength), under
           the same comparison and gates; and K2-dr with an identity channel
           against K2 (within 1e-6 of each output's scale);
-  k2dr_timing  K2-dr per launch, its plain version and its bound, as timing;
+  k2dr_timing  K2-dr per launch, its plain version, its bound, ptxas usage
+          and geometry, as timing;
   k3/*    K3, the multi-articulation kernel, against its plain version under
           the same comparison and gates, B = 4096: on C8 (reset, rollout
           after 60 steps, paddle_ball1, paddle_ball2 -- the humanoid yawed
@@ -45,7 +56,7 @@ Each phase prints one JSON line with its seconds:
           gates, the moment rows compared on their own (geom moments to
           1e-5, the ball's to 1e-7: TOL); k2drtau/* K2-dr-tau (DR and torque
           lanes) on two of them; k2tau_timing and k2drtau_timing their
-          times and bounds;
+          times, bounds, ptxas usage and geometry;
   k3tau/*  K3-tau on C8 with a sensor on each paddle (C8's five sets) and on
           the two-arm, two-ball scene with paddle sensors (ball_ball, whose
           ball-pair moments the JAX package's tests never reach, and
@@ -82,8 +93,9 @@ Each phase prints one JSON line with its seconds:
           limits (every joint at or just past a limit, moving outward),
           terrain (60 steps of the terrain flagship under random actions);
   k1_gates  K1's output with qd_new negated must fail the gates on some set;
-  k1_timing  K1 per launch, its plain version, its bound (counted ops) and
-          ptxas's registers, stack and spills;
+  k1_timing  K1 per launch (its launcher, as timing), its plain version,
+          its bound (counted ops), ptxas's registers, stack, spills and
+          shared memory, and its launch geometry;
   main    make(seed=0, flagship, 4096 envs), reset, 5 warm-up steps, then
           3 windows of 100 steps under uniform actions in [-1, 1] from a
           seeded generator: launches must be exactly 2 per step, every
@@ -400,6 +412,18 @@ def time_kernel(phase, launch, wrapped, plain, ops, n_bytes, plain_repeats=10, b
     return out
 
 
+def lift_art_geoms(consts, far=100.0):
+    """A copy of K2 pack ``consts`` with each articulated geom moved ``far``
+    m from its link (its offset's z): the geoms keep their impulse rows, but
+    no ball and no static reaches them."""
+    from isaacgym_tpu_torch.ops import fused_substep as F
+    c = consts.copy()
+    art = F.layout(int(c[F.C_ND]))["art"]
+    for gi in range(int(c[F.C_NART])):
+        c[art + gi * F.ART_STRIDE + F.A_OFF_POS + 2] += far
+    return c
+
+
 def bounced_envs(zs, dev):
     """Envs whose ball went below z = 0.85 and then up again, from a list of
     per-step (B,) heights."""
@@ -484,7 +508,7 @@ def k3_checks(dev, host):
     yc = torch.empty((M.n_out(k.nd_tot, k.nb, k.ng), B))
     usage = ptxas_usage("libigt_fused_substep_multi.so", k3_entry(k))
     t = time_kernel(
-        "k3_timing", k3_launch(k, x), lambda: k(*ins),
+        "k3_timing", fixed_launch(k, x, yc.shape[0]), lambda: k(*ins),
         lambda: M.fused_substep_multi_reference(consts, *ins),
         host.igt_fused_substep_multi_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(), B,
                                                k.nd, k.K, k.nb),
@@ -492,6 +516,129 @@ def k3_checks(dev, host):
         plain_repeats=5, fields={"shape": [k.nd, k.K, k.nb], **usage, **k3_geometry(k, B)})
     return dict(acc, ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                 bound_by=t["bound_by"], **usage)
+
+
+def k2_checks(dev, host):
+    """K2 against its plain version (float32 and float64) on the flagship's
+    five state sets (paddle_table on the raised-table scene); that the gates
+    reject two wrong K2 outputs (k2_gates): each warp's two env columns
+    swapped, and K2 on a pack whose articulated geoms no ball or static
+    reaches (their reactions dropped); K2 at an odd B (k2/odd); its timing,
+    bound, ptxas usage and launch geometry; then K2-dr the same way with a
+    full-strength DR channel (and an identity channel against K2). Returns
+    the sets, the randomizer and the kernels-line numbers of K2 and K2-dr;
+    raises on any failed gate."""
+    import numpy as np
+    import torch
+    import isaacgym_tpu_torch
+    from isaacgym_tpu_torch.env.randomize import DomainRandomizer
+    from isaacgym_tpu_torch.ops import fused_substep as F
+    from isaacgym_tpu_torch.sim import scripted
+    from isaacgym_tpu_torch.utils.config import load_task_config
+
+    env = isaacgym_tpu_torch.make(seed=0, task=TASK, num_envs=B)
+    env_raised = isaacgym_tpu_torch.make(
+        seed=0, task=TASK, num_envs=B, cfg=scripted.raised_table_cfg(load_task_config(TASK)))
+    sets, k2acc, k2_wrong = {}, {"max_err": {}, "excess": {}}, {}
+    lifted = F.FusedSubstep(lift_art_geoms(env.sim.fused_substep.consts))
+    lifted_raised = F.FusedSubstep(lift_art_geoms(env_raised.sim.fused_substep.consts))
+    for i, name in enumerate(("reset", "rollout", "paddle_ball", "paddle_table", "ball_rest")):
+        e = env_raised if name == "paddle_table" else env
+        if name == "rollout":
+            ins = scripted.k2_random_inputs(env, B)
+        else:
+            ins = tuple(torch.as_tensor(a, device=dev) for a in
+                        scripted.k2_inputs(e, name, B, np.random.RandomState(100 + i)))
+        k = e.sim.fused_substep
+        plain = lambda *a, k=k: F.fused_substep_reference(k.device_consts(dev), *a)
+        res = check_kernel(f"k2/{name}", k, plain, ins, keep_outputs=True)
+        got, want, want64 = res.pop("outputs")
+        fold(k2acc, res)
+        sets[name] = (e, ins)
+        # the gates reject K2's wrong forms: the two halves of each warp
+        # writing each other's env columns, and the articulated geoms'
+        # contacts dropped (K2 on a copy of the pack with those geoms 100 m
+        # from their links: their rows stay, their reactions are gone)
+        pairs = lambda t: t.reshape(B // 2, 2, *t.shape[1:]).flip(1).reshape(t.shape)
+        forms = {"env columns swapped in pairs": type(got)(*[pairs(t) for t in got]),
+                 "articulated geoms' contacts dropped":
+                     (lifted_raised if name == "paddle_table" else lifted)(*ins)}
+        for form, out in forms.items():
+            r = compare(out, want, want64)
+            if (any(not v <= TOL[f] for f, v in r["excess"].items())
+                    or r["flip_rate"] > MAX_FLIP_RATE):
+                k2_wrong.setdefault(form, []).append(name)
+    emit({"phase": "k2_gates", "rejected_on_sets": k2_wrong})
+    if set(k2_wrong) != set(forms):
+        raise SystemExit(f"k2_gates: the gates let a wrong K2 output pass on every set: "
+                         f"{k2_wrong}")
+    # an odd B: the last warp's second env idle
+    e, ins = sets["rollout"]
+    k = e.sim.fused_substep
+    odd = tuple(t[:B - 1].contiguous() for t in ins)
+    fold(k2acc, check_kernel("k2/odd", k, lambda *a: F.fused_substep_reference(
+        k.device_consts(dev), *a), odd, fields={"num_envs": B - 1}))
+
+    # timing at the main path's shape, on the rollout states
+    x = F.pack_inputs(*ins)
+    consts = k.device_consts(dev)
+    xc, cc = x.cpu(), torch.as_tensor(k.consts)
+    yc = torch.empty((F.n_out(k.nd, k.ng), B))
+    k2usage = ptxas_usage("libigt_fused_substep.so", k2_entry(k))
+    k2geo = k2_geometry(k, B)
+    k2t = time_kernel(
+        "timing", fixed_launch(k, x, yc.shape[0]), lambda: k(*ins),
+        lambda: F.fused_substep_reference(consts, *ins),
+        host.igt_fused_substep_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(), B, k.nd),
+        4 * B * (F.n_in(k.nd) + F.n_out(k.nd, k.ng)) + 4 * k.consts.size,
+        fields={**k2usage, **k2geo})
+
+    # K2-dr against its plain version, DR at full strength
+    rz = DomainRandomizer(load_task_config(TASK)["task"]["randomization_params"], 7)
+    dr_gen = torch.Generator(device=dev)
+    dr_gen.manual_seed(3)
+    ident = None
+    k2dracc, dr_chans = {"max_err": {}, "excess": {}}, {}
+    for name, (e, ins) in sets.items():
+        chan = e.sim.dr_channel(rz.sample(dr_gen, 3000, B))
+        if ident is None:
+            ident = e.sim.dr_channel(rz.sample(dr_gen, 0, B))   # step 0: the identity
+        k = e.sim.fused_substep_dr
+        k2_out, id_out = e.sim.fused_substep(*ins), k(*ins, ident)
+        id_dev = max(float(((getattr(id_out, f) - getattr(k2_out, f)).abs()
+                            / getattr(k2_out, f).abs().clamp(min=1.0)).max())
+                     for f in k2_out._fields)
+        plain = lambda *a, k=k: F.fused_substep_reference(k.device_consts(dev), *a[:7],
+                                                          dr_chan=a[7])
+        fold(k2dracc, check_kernel(
+            f"k2dr/{name}", k, plain, ins, (chan,), ok=id_dev <= 1e-6,
+            why=f"identity vs K2 {id_dev}",
+            fields={"identity_vs_k2": id_dev,
+                    "mass_scale_range": [float(chan[:, 4 * k.nd].min()),
+                                         float(chan[:, 4 * k.nd].max())]}))
+        dr_chans[name] = chan
+
+    e, ins = sets["rollout"]
+    chan = dr_chans["rollout"]
+    k = e.sim.fused_substep_dr
+    fold(k2dracc, check_kernel("k2dr/odd", k, lambda *a: F.fused_substep_reference(
+        k.device_consts(dev), *a[:7], dr_chan=a[7]), odd, (chan[:B - 1].contiguous(),),
+        fields={"num_envs": B - 1}))
+    x = F.pack_inputs(*ins, chan)
+    xc = x.cpu()
+    k2drusage = ptxas_usage("libigt_fused_substep.so", k2_entry(k))
+    k2drgeo = k2_geometry(k, B)
+    k2drt = time_kernel(
+        "k2dr_timing", fixed_launch(k, x, yc.shape[0]), lambda: k(*ins, chan),
+        lambda: F.fused_substep_reference(consts, *ins, dr_chan=chan),
+        host.igt_fused_substep_dr_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(), B,
+                                            k.nd),
+        4 * B * (k.n_in() + F.n_out(k.nd, k.ng)) + 4 * k.consts.size,
+        fields={**k2drusage, **k2drgeo})
+    line = lambda acc, t, usage, geo: dict(
+        acc, ms=t["kernel_ms"], wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"], **usage, geometry=geo)
+    return sets, rz, line(k2acc, k2t, k2usage, k2geo), line(k2dracc, k2drt, k2drusage, k2drgeo)
 
 
 def tau_checks(dev, host, k2_sets, rz, k4_sets):
@@ -538,34 +685,50 @@ def tau_checks(dev, host, k2_sets, rz, k4_sets):
                 k.device_consts(dev), *a[:7], dr_chan=a[7], with_torque=True)
             fold(k2dr, check_kernel(f"k2drtau/{name}", kd, plain_dr, ins, (chan,)))
 
-    # K2-tau timing on the rollout states, the bound from the host body's count
+    # K2-tau and K2-dr-tau at an odd B: the last warp's second env idle
     _, ins = k2_sets["rollout"]
+    odd = tuple(t[:B - 1].contiguous() for t in ins)
+    k, kd = sims[False].fused_substep, sims[False].fused_substep_dr
+    fold(k2, check_kernel("k2tau/odd", k, lambda *a: F.fused_substep_reference(
+        k.device_consts(dev), *a, with_torque=True), odd, fields={"num_envs": B - 1}))
+    chan = sims[False].dr_channel(rz.sample(gen, 3000, B))[:B - 1].contiguous()
+    fold(k2dr, check_kernel("k2drtau/odd", kd, lambda *a: F.fused_substep_reference(
+        kd.device_consts(dev), *a[:7], dr_chan=a[7], with_torque=True), odd, (chan,),
+        fields={"num_envs": B - 1}))
+
+    # K2-tau timing on the rollout states, the bound from the host body's count
     k = sims[False].fused_substep
     x = F.pack_inputs(*ins)
     xc, cc = x.cpu(), torch.as_tensor(k.consts)
     yc = torch.empty((F.n_out(k.nd, k.ng, True), B))
     consts = k.device_consts(dev)
+    usage = ptxas_usage("libigt_fused_substep.so", k2_entry(k))
     t = time_kernel(
-        "k2tau_timing", lambda: k.launch(x), lambda: k(*ins),
+        "k2tau_timing", fixed_launch(k, x, yc.shape[0]), lambda: k(*ins),
         lambda: F.fused_substep_reference(consts, *ins, with_torque=True),
         host.igt_fused_substep_tau_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(), B,
                                              k.nd, 0),
-        4 * B * (F.n_in(k.nd) + F.n_out(k.nd, k.ng, True)) + 4 * k.consts.size)
-    k2.update(ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-              bound_by=t["bound_by"])
+        4 * B * (F.n_in(k.nd) + F.n_out(k.nd, k.ng, True)) + 4 * k.consts.size,
+        fields={**usage, **k2_geometry(k, B)})
+    k2.update(ms=t["kernel_ms"], wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"],
+              bound_ms=t["bound_ms"], bound_by=t["bound_by"], **usage,
+              geometry=k2_geometry(k, B))
     # K2-dr-tau on the same states with a full-strength DR channel
     kd = sims[False].fused_substep_dr
     chan = sims[False].dr_channel(rz.sample(gen, 3000, B))
     xd = F.pack_inputs(*ins, chan)
     xdc = xd.cpu()
+    usage = ptxas_usage("libigt_fused_substep.so", k2_entry(kd))
     t = time_kernel(
-        "k2drtau_timing", lambda: kd.launch(xd), lambda: kd(*ins, chan),
+        "k2drtau_timing", fixed_launch(kd, xd, yc.shape[0]), lambda: kd(*ins, chan),
         lambda: F.fused_substep_reference(consts, *ins, dr_chan=chan, with_torque=True),
         host.igt_fused_substep_tau_count_ops(cc.data_ptr(), xdc.data_ptr(), yc.data_ptr(), B,
                                              kd.nd, 1),
-        4 * B * (kd.n_in() + F.n_out(kd.nd, kd.ng, True)) + 4 * kd.consts.size)
-    k2dr.update(ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                bound_by=t["bound_by"])
+        4 * B * (kd.n_in() + F.n_out(kd.nd, kd.ng, True)) + 4 * kd.consts.size,
+        fields={**usage, **k2_geometry(kd, B)})
+    k2dr.update(ms=t["kernel_ms"], wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"], **usage,
+                geometry=k2_geometry(kd, B))
 
     # K3-tau
     c8cfg = load_task_config(C8)
@@ -632,7 +795,7 @@ def tau_checks(dev, host, k2_sets, rz, k4_sets):
     consts = k.device_consts(dev)
     usage = ptxas_usage("libigt_fused_substep_multi.so", k3_entry(k))
     t = time_kernel(
-        "k3tau_timing", k3_launch(k, x), lambda: k(*rollout),
+        "k3tau_timing", fixed_launch(k, x, yc.shape[0]), lambda: k(*rollout),
         lambda: M.fused_substep_multi_reference(consts, *rollout, with_torque=True),
         host.igt_fused_substep_multi_tau_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(),
                                                    B, k.nd, k.K, k.nb),
@@ -810,27 +973,52 @@ def ptxas_usage(lib_name, entry=""):
 
 
 def launch_geometry(occupancy, b, what):
-    """A warp-per-env kernel's launch at ``b`` envs. ``occupancy(out)`` is
-    the library's occupancy entry (``igt_floating_occupancy``,
-    ``igt_multi_occupancy``) filling ``out`` with the envs (warps) of a block
-    and the blocks per SM that its ``__launch_bounds__`` asks for, from the
-    library, and the blocks an SM holds, from the CUDA runtime's occupancy
-    calculator on the built kernel (computed, not a reading of the run).
-    Returns those and how the blocks land on the card's SMs."""
+    """A warp kernel's launch at ``b`` envs. ``occupancy(out)`` is the
+    library's occupancy entry (``igt_floating_occupancy``,
+    ``igt_multi_occupancy``: a warp per env; ``igt_fused_occupancy``,
+    ``igt_arm_occupancy``: two envs to a warp) filling ``out`` with the envs
+    of a block and the blocks per SM that its ``__launch_bounds__`` asks for,
+    from the library, the blocks an SM holds, from the CUDA runtime's
+    occupancy calculator on the built kernel (computed, not a reading of the
+    run), and (the two-env entries) the warps of a block. Returns those and
+    how the blocks land on the card's SMs."""
     import ctypes
     import torch
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     err = occupancy(ctypes.addressof(out))
     if err != 0:
         raise SystemExit(f"{what} geometry: the occupancy calculator returned {err}")
-    envs, asked, fit = out
+    envs, asked, fit, warps = out
+    warps = warps or envs
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = (b + envs - 1) // envs
     busy = min(blocks, sms)
-    return {"envs_per_block": envs, "threads_per_block": 32 * envs, "blocks": blocks,
-            "sms": sms, "blocks_per_sm_asked": asked, "blocks_per_sm_fit": fit,
-            "waves": -(-blocks // (sms * fit)), "sms_busy": busy,
-            "warps_per_busy_sm": blocks * envs / busy}
+    return {"envs_per_block": envs, "warps_per_block": warps, "threads_per_block": 32 * warps,
+            "blocks": blocks, "sms": sms, "blocks_per_sm_asked": asked,
+            "blocks_per_sm_fit": fit, "waves": -(-blocks // (sms * fit)), "sms_busy": busy,
+            "warps_per_busy_sm": blocks * warps / busy}
+
+
+def k2_geometry(k, b):
+    """The launch of K2 wrapper ``k``'s build (K2, K2-dr, K2-tau, K2-dr-tau)
+    at ``b`` envs (launch_geometry)."""
+    from isaacgym_tpu_torch.ops import _build
+    lib = _build.cuda_library("fused_substep")
+    return launch_geometry(lambda out: lib.igt_fused_occupancy(
+        int(k.with_dr), int(k.with_torque), out, 4), b, "k2")
+
+
+def k2_entry(k):
+    """The mangled-name fragment of K2 wrapper ``k``'s kernel in ptxas's log:
+    its template arguments <ND, WITH_DR, WITH_TORQUE>."""
+    return f"ILi{k.nd}ELb{int(k.with_dr)}ELb{int(k.with_torque)}E"
+
+
+def k1_geometry(b):
+    """K1's launch at ``b`` envs (launch_geometry)."""
+    from isaacgym_tpu_torch.ops import _build
+    lib = _build.cuda_library("arm_step")
+    return launch_geometry(lambda out: lib.igt_arm_occupancy(out, 4), b, "k1")
 
 
 def k4_geometry(with_torque, b):
@@ -850,15 +1038,15 @@ def k3_geometry(k, b):
         k.nd, k.K, k.nb, int(k.with_torque), out, 3), b, "k3")
 
 
-def k3_launch(k, x):
-    """One launch of K3 (K3-tau) wrapper ``k`` on the packed buffer ``x``
-    into an output allocated once (its ``launcher``): the kernel's time alone.
-    The wrapper's call allocates and unpacks its output every time, which at
-    K3's ~55 us a launch sets the pace from the host (wrapper_ms)."""
+def fixed_launch(k, x, rows):
+    """One launch of wrapper ``k`` (K1, K2's builds, K3, K3-tau) on the
+    packed buffer ``x`` into a (rows, B) output allocated once (its
+    ``launcher``): the kernel's time alone. The wrapper's call packs its
+    inputs and allocates and unpacks its output every time, which at these
+    kernels' tens of microseconds a launch sets the pace from the host
+    (wrapper_ms)."""
     import torch
-    from isaacgym_tpu_torch.ops import fused_substep_multi as M
-    y = torch.empty((M.n_out(k.nd_tot, k.nb, k.ng, k.with_torque), x.shape[1]), device=x.device)
-    return k.launcher(x, y)
+    return k.launcher(x, torch.empty((rows, x.shape[1]), device=x.device))
 
 
 def k3_entry(k):
@@ -1148,21 +1336,30 @@ def k1_checks(dev, host, env_t):
             rejected.append(name)
         if name == "random":
             timing_ins = ins
+    # an odd B: the last warp's second env idle
+    t0 = time.perf_counter()
+    ins = tuple(t[:B - 1].contiguous() for t in timing_ins)
+    got = k(*ins)
+    res = compare(got, plain(*ins), plain(*[x.double() for x in ins]), pattern=limit_pattern)
+    emit({"phase": "k1/odd", "num_envs": B - 1, **res, "seconds": time.perf_counter() - t0})
+    gate("k1/odd", res)
+    fold(acc, res)
     emit({"phase": "k1_gates", "negated_qd_new_rejected_on": rejected})
     if not rejected:
         raise SystemExit("k1_gates: the gates let K1 with a negated qd_new pass")
     x = A.pack_inputs(*timing_ins)
     xc, cc = x.cpu(), torch.as_tensor(k.consts)
     yc = torch.empty((A.n_out(7), B))
+    usage = ptxas_usage("libigt_arm_step.so")
     tk = time_kernel(
-        "k1_timing", lambda: k.launch(x), lambda: k(*timing_ins),
+        "k1_timing", fixed_launch(k, x, A.n_out(7)), lambda: k(*timing_ins),
         lambda: A.arm_step_plain(k.device_consts(dev), *timing_ins),
         host.igt_arm_step_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(), B, 7),
         4 * B * (A.n_in(7) + A.n_out(7)) + 4 * k.consts.size,
-        fields=ptxas_usage("libigt_arm_step.so"))
-    return {**acc, "ms": tk["kernel_ms"], "plain_ms": tk["plain_ms"],
-            "bound_ms": tk["bound_ms"], "bound_by": tk["bound_by"],
-            "ptxas": ptxas_usage("libigt_arm_step.so")}
+        fields={**usage, **k1_geometry(B)})
+    return {**acc, "ms": tk["kernel_ms"], "wrapper_ms": tk["wrapper_ms"],
+            "plain_ms": tk["plain_ms"], "bound_ms": tk["bound_ms"], "bound_by": tk["bound_by"],
+            **usage, "geometry": k1_geometry(B)}
 
 
 def terrain_main(dev, env_t):
@@ -1435,84 +1632,9 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compile_seconds": _build.build_seconds, "ptxas": ptxas})
 
-    # ---- 2: K2 against its plain version on the card
-    env = isaacgym_tpu_torch.make(seed=0, task=TASK, num_envs=B)
-    env_raised = isaacgym_tpu_torch.make(
-        seed=0, task=TASK, num_envs=B, cfg=scripted.raised_table_cfg(load_task_config(TASK)))
+    # ---- 2: K2 and K2-dr against their plain versions, the gates' bite, timings
+    sets, rz, k2_line, k2dr_line = k2_checks(dev, host)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-
-    def rollout_inputs():
-        state, _ = env.reset()
-        for _ in range(60):
-            state, *_ = env.step(state, torch.rand((B, 7), generator=gen, device=dev) * 2 - 1)
-        tgt, eff = env.action_to_drive(torch.rand((B, 7), generator=gen, device=dev) * 2 - 1)
-        s = state.sim
-        return tuple(t.contiguous() for t in (s.dof_pos, s.dof_vel, tgt, eff, s.root[:, 2, 0:3],
-                                              s.root[:, 2, 7:10], s.root[:, 2, 10:13]))
-
-    sets, k2acc = {}, {"max_err": {}, "excess": {}}
-    for i, name in enumerate(("reset", "rollout", "paddle_ball", "paddle_table", "ball_rest")):
-        e = env_raised if name == "paddle_table" else env
-        if name == "rollout":
-            ins = rollout_inputs()
-        else:
-            ins = tuple(torch.as_tensor(a, device=dev) for a in
-                        scripted.k2_inputs(e, name, B, np.random.RandomState(100 + i)))
-        k = e.sim.fused_substep
-        plain = lambda *a, k=k: F.fused_substep_reference(k.device_consts(dev), *a)
-        fold(k2acc, check_kernel(f"k2/{name}", k, plain, ins))
-        sets[name] = (e, ins)
-
-    # ---- timing at the main path's shape, on the rollout states
-    e, ins = sets["rollout"]
-    k = e.sim.fused_substep
-    x = F.pack_inputs(*ins)
-    consts = k.device_consts(dev)
-    xc, cc = x.cpu(), torch.as_tensor(k.consts)
-    yc = torch.empty((F.n_out(k.nd, k.ng), B))
-    k2t = time_kernel(
-        "timing", lambda: k.launch(x), lambda: k(*ins),
-        lambda: F.fused_substep_reference(consts, *ins),
-        host.igt_fused_substep_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(), B, k.nd),
-        4 * B * (F.n_in(k.nd) + F.n_out(k.nd, k.ng)) + 4 * k.consts.size)
-
-    # ---- 2b: K2-dr against its plain version, DR at full strength
-    rz = DomainRandomizer(load_task_config(TASK)["task"]["randomization_params"], 7)
-    dr_gen = torch.Generator(device=dev)
-    dr_gen.manual_seed(3)
-    ident = None
-    k2dracc, dr_chans = {"max_err": {}, "excess": {}}, {}
-    for name, (e, ins) in sets.items():
-        chan = e.sim.dr_channel(rz.sample(dr_gen, 3000, B))
-        if ident is None:
-            ident = e.sim.dr_channel(rz.sample(dr_gen, 0, B))   # step 0: the identity
-        k = e.sim.fused_substep_dr
-        k2_out, id_out = e.sim.fused_substep(*ins), k(*ins, ident)
-        id_dev = max(float(((getattr(id_out, f) - getattr(k2_out, f)).abs()
-                            / getattr(k2_out, f).abs().clamp(min=1.0)).max())
-                     for f in k2_out._fields)
-        plain = lambda *a, k=k: F.fused_substep_reference(k.device_consts(dev), *a[:7],
-                                                          dr_chan=a[7])
-        fold(k2dracc, check_kernel(
-            f"k2dr/{name}", k, plain, ins, (chan,), ok=id_dev <= 1e-6,
-            why=f"identity vs K2 {id_dev}",
-            fields={"identity_vs_k2": id_dev,
-                    "mass_scale_range": [float(chan[:, 4 * k.nd].min()),
-                                         float(chan[:, 4 * k.nd].max())]}))
-        dr_chans[name] = chan
-
-    e, ins = sets["rollout"]
-    chan = dr_chans["rollout"]
-    k = e.sim.fused_substep_dr
-    x = F.pack_inputs(*ins, chan)
-    xc = x.cpu()
-    k2drt = time_kernel(
-        "k2dr_timing", lambda: k.launch(x), lambda: k(*ins, chan),
-        lambda: F.fused_substep_reference(consts, *ins, dr_chan=chan),
-        host.igt_fused_substep_dr_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(), B,
-                                            k.nd),
-        4 * B * (k.n_in() + F.n_out(k.nd, k.ng)) + 4 * k.consts.size)
 
     # ---- 2c: K3 against its plain version, and its timing
     k3 = k3_checks(dev, host)
@@ -2015,28 +2137,24 @@ def main():
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:447",
         "launches": k1_launches, "launches_by_path": {
             "terrain_main": k1_launches, "terrain_train": k1_train_launches},
-        **{k_: v for k_, v in k1.items() if k_ != "ptxas"}, "library_ms": None,
+        **k1, "library_ms": None,
         "us": k1["ms"] * 1e3, "plain_us": k1["plain_ms"] * 1e3,
-        "bound_us": k1["bound_ms"] * 1e3, **k1["ptxas"]}, {
+        "bound_us": k1["bound_ms"] * 1e3}, {
         "name": "fused_substep", "route": "cuda",
         "source": "isaacgym_tpu_torch/csrc/fused_substep.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:754",
         "launches": launches, "launches_by_path": {
             "main": launches, "train": train_launches["k2"], "train_nodr": nodr_launches["k2"]},
-        **k2acc, "ms": k2t["kernel_ms"],
-        "plain_ms": k2t["plain_ms"], "bound_ms": k2t["bound_ms"], "bound_by": k2t["bound_by"],
-        "library_ms": None, "us": k2t["kernel_ms"] * 1e3, "plain_us": k2t["plain_ms"] * 1e3,
-        "bound_us": k2t["bound_ms"] * 1e3}, {
+        **k2_line, "library_ms": None, "us": k2_line["ms"] * 1e3,
+        "plain_us": k2_line["plain_ms"] * 1e3, "bound_us": k2_line["bound_ms"] * 1e3}, {
         "name": "fused_substep_dr", "route": "cuda",
         "source": "isaacgym_tpu_torch/csrc/fused_substep.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:754 (with_dr=True, "
                     "isaacgym_tpu/sim/simulator.py:521)",
         "launches": train_launches["k2dr"], "launches_by_path": {
             "main": 0, "train": train_launches["k2dr"], "train_nodr": nodr_launches["k2dr"]},
-        **k2dracc, "ms": k2drt["kernel_ms"],
-        "plain_ms": k2drt["plain_ms"], "bound_ms": k2drt["bound_ms"],
-        "bound_by": k2drt["bound_by"], "library_ms": None, "us": k2drt["kernel_ms"] * 1e3,
-        "plain_us": k2drt["plain_ms"] * 1e3, "bound_us": k2drt["bound_ms"] * 1e3}, {
+        **k2dr_line, "library_ms": None, "us": k2dr_line["ms"] * 1e3,
+        "plain_us": k2dr_line["plain_ms"] * 1e3, "bound_us": k2dr_line["bound_ms"] * 1e3}, {
         "name": "fused_substep_multi", "route": "cuda",
         "source": "isaacgym_tpu_torch/csrc/fused_substep_multi.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:1477",

@@ -1,11 +1,15 @@
 // The dynamics of K fixed-base articulations side by side in one warp, and
 // the pieces of a contact's joint-space reaction, in warp phases (warp.cuh).
-// K3 and K3-tau run their two arms with it (fused_substep_multi.cuh); K1 and
-// K2 still call the one-thread art_dynamics of fused_substep.cuh.
+// K3 and K3-tau run their two arms with it (fused_substep_multi.cuh); K1
+// (arm_step.cuh, four envs to a warp) and K2's builds
+// (fused_substep_warp.cuh, two) run several envs to a warp with it, one arm
+// each.
 //
 // Articulation a takes the HW = 32 / K lanes a HW .. a HW + HW - 1 (16 each
 // at K = 2). Every articulation runs the same phases on its own constant
-// block, so one __syncwarp serves them all:
+// block and its own rows of x and y (the Io policy: ArmRows for K3's arms of
+// one env, EnvCols for K1's and K2's envs, each its own column), so one
+// __syncwarp serves them all:
 //   - drive with the effort clamp (and each revolute DOF's sin and cos of
 //     q / 2), Euler with the limits (and the same at the new q): one lane per
 //     DOF;
@@ -21,21 +25,28 @@
 //     lane per (link, column) pair, in one phase;
 //   - each entry of M sums over its links in ascending l on a lane of its
 //     own, a diagonal entry's lane also its DOF's bias over the same links;
-//   - the left-looking Cholesky: one phase per column j, row i > j on its own
-//     lane with its serial k-sum, which also subtracts L_ij^2 from the row's
-//     diagonal and carries the forward solve's column j (its terms in
-//     ascending j, as fwd_sub takes them); the owner of row j + 1 then takes
-//     that pivot's root and y_(j+1);
-//   - the back solve: one lane per articulation, K2's back_sub: its sums run
-//     in ascending j from the diagonal, so no row can start before the one
-//     below it is done;
+//   - the Cholesky factor with its forward and back solve: with
+//     SERIAL_FACTOR (K1, K2) one lane per articulation runs it (factor_solve):
+//     a 7 x 7 factor is a chain of short serial steps, which phases of a lane
+//     per row lengthen with their seven syncs and shared-memory round trips
+//     (PERF.md). Without it (K3, whose 64-register cap makes the serial factor
+//     slower) the left-looking Cholesky runs one phase per column j, row
+//     i > j on its own lane with its serial k-sum, which also subtracts L_ij^2
+//     from the row's diagonal and carries the forward solve's column j (its
+//     terms in ascending j, as a forward substitution takes them); the owner
+//     of row j + 1 then takes that pivot's root and y_(j+1); then the back
+//     solve on one lane per articulation;
 //   - a contact: its Jacobian columns one per lane, the two directions'
 //     forward solves column by column in the same phases, the sums (the
-//     point's velocity, |y|^2) and the back solve on one lane in K2's order.
-// Every value is formed by the operations of fused_substep.cuh's
-// art_dynamics, ball_art and art_static in the same order, so the outputs
-// are the same bits, with one saving: art_dynamics forms I_l axw_j again
-// for every entry of M, these phases once per column.
+//     point's velocity, |y|^2) and the back solve on one lane.
+// K2-dr's randomization (WITH_DR) is read per articulation where the
+// one-thread body took it: the kp and kd scales in the drive, the mass scale
+// and gravity offset in each link's force and moment and on M before the
+// armature, the limit shifts in Euler. Every value is formed by the
+// operations of the one-thread-per-env bodies these phases replaced (K1's,
+// K2's, K3's) in the same order, so the outputs are the same bits, with one
+// saving: those bodies formed I_l axw_j again for every entry of M, these
+// phases once per column.
 #pragma once
 
 #include "fused_substep.cuh"
@@ -84,6 +95,12 @@ struct ArmContact {
   T bn[ND], bt[ND], yn[ND], yt[ND], sqn[ND], sqt[ND], jv[ND], du[ND];
 };
 
+// The dynamics' scratch of K articulations.
+template <class T, int ND, int K>
+struct ArmsDyn {
+  ArmDyn<T, ND> arm[K];
+};
+
 // A phase over the K articulations side by side: f(a, s) on lane a HW + s.
 template <int K, class F>
 IGT_HD void each_arm(const Lanes& w, F f) {
@@ -92,7 +109,75 @@ IGT_HD void each_arm(const Lanes& w, F f) {
   each(w, [&](int lane) { f(lane / HW, lane % HW); });
 }
 
-// DOF d's parent as art_dynamics' fk takes it: a parent index below d, else
+// ------------------------------------------------------------------ rows --
+// Where articulation a's rows lie in the channel-major x and y (``sB`` the
+// batch stride): in(blk, a, d) and out(blk, a, d, v) its DOF d's row of
+// block blk (q, qd, targets, efforts in; q, qd, tau out), base(a, c, ...)
+// its base pose, and (EnvCols, read only by WITH_DR builds) dr(a, k) its
+// env's K2-dr channel k.
+//
+// ArmRows: K3's arms, all of env b: arm a's DOF d is row blk nd_tot + a ND +
+// d of column b; the base pose is the arm's block's (C_BASE_P, C_BASE_Q).
+template <int ND>
+struct ArmRows {
+  const float* x;
+  float* y;
+  int b;
+  size_t sB;
+  int nd_tot;
+  IGT_HD float in(int blk, int a, int d) const {
+    return x[(size_t)(blk * nd_tot + a * ND + d) * sB + b];
+  }
+  template <class T>
+  IGT_HD void out(int blk, int a, int d, T v) const {
+    y[(size_t)(blk * nd_tot + a * ND + d) * sB + b] = to_f(v);
+  }
+  template <class T>
+  IGT_HD void base(int, const float* c, V3<T>& bp, Q4<T>& bq) const {
+    bp = cv3<T>(c + C_BASE_P);
+    bq = cq4<T>(c + C_BASE_Q);
+  }
+};
+
+// EnvCols: K1's and K2's envs, G to a warp: group a is env b0 + a, its DOF d
+// row blk ND + d of its own column; its DR channel k (K2-dr) row dr0 + k;
+// its base pose the pack's, or with BASE_IN_X (K1) rows 4 ND .. 4 ND + 6 of
+// its column. A group past the last env (b0 + a >= B: the last warp of an
+// odd B) runs env B - 1 again and writes nothing, so every phase still has
+// all 32 lanes.
+template <int ND, int G, bool BASE_IN_X = false>
+struct EnvCols {
+  const float* x;
+  float* y;
+  int b0, B;
+  size_t sB;
+  int dr0;
+  IGT_HD int col(int a) const { return b0 + a < B ? b0 + a : B - 1; }
+  IGT_HD bool owns(int a) const { return b0 + a < B; }
+  IGT_HD float get(int ch, int a) const { return x[(size_t)ch * sB + col(a)]; }
+  template <class T>
+  IGT_HD void put(int ch, int a, T v) const {
+    if (owns(a)) y[(size_t)ch * sB + col(a)] = to_f(v);
+  }
+  IGT_HD float in(int blk, int a, int d) const { return get(blk * ND + d, a); }
+  template <class T>
+  IGT_HD void out(int blk, int a, int d, T v) const { put(blk * ND + d, a, v); }
+  IGT_HD float dr(int a, int k) const { return ldc(x + (size_t)(dr0 + k) * sB + col(a)); }
+  template <class T>
+  IGT_HD void base(int a, const float* c, V3<T>& bp, Q4<T>& bq) const {
+    if constexpr (BASE_IN_X) {
+      const int r = 4 * ND;
+      bp = v3<T>(T(get(r, a)), T(get(r + 1, a)), T(get(r + 2, a)));
+      bq.x = T(get(r + 3, a)); bq.y = T(get(r + 4, a));
+      bq.z = T(get(r + 5, a)); bq.w = T(get(r + 6, a));
+    } else {
+      bp = cv3<T>(c + C_BASE_P);
+      bq = cq4<T>(c + C_BASE_Q);
+    }
+  }
+};
+
+// DOF d's parent as the FK takes it: a parent index below d, else
 // the base (-1).
 IGT_HD int dof_parent(const float* c, int d) {
   const int p = (int)ldc(c + DOF_OFF + d * DOF_STRIDE + D_PARENT);
@@ -111,19 +196,18 @@ IGT_HD void dof_half_angle(const float* c, ArmState<T, ND>& ar, int d) {
   ar.cs[d] = cos_(half);
 }
 
-// The articulation's DOF frames and world axes at ar.q, fk's arithmetic (sin
-// and cos from dof_half_angle), DOF by DOF in index order on one lane; with
-// ``vel`` also the velocity and bias propagation (qdd = 0). A DOF's parent
-// frame and rates come from registers when the parent is the DOF just
-// formed (every DOF of a chain), else from the block. C8's arms and the
-// check scene's are chains, where one phase per depth of the tree (K4's
-// fk_levels) has no parallelism to offer and costs a sync and a reload per
-// depth.
+// The articulation's DOF frames and world axes at ar.q from the base pose
+// (bp, bq) (sin and cos from dof_half_angle), DOF by DOF in index order on
+// one lane; with ``vel`` also the velocity and bias propagation (qdd = 0). A
+// DOF's parent frame and rates come from registers when the parent is the
+// DOF just formed (every DOF of a chain), else from the block. C8's arms,
+// the flagship's and the check scene's are chains, where one phase per depth
+// of the tree (K4's fk_levels) has no parallelism to offer and costs a sync
+// and a reload per depth.
 template <class T, int ND>
-IGT_HD void fk_walk(const float* c, ArmState<T, ND>& ar, ArmDyn<T, ND>& dy, bool vel) {
+IGT_HD void fk_walk(const float* c, V3<T> bp, Q4<T> bq, ArmState<T, ND>& ar, ArmDyn<T, ND>& dy,
+                    bool vel) {
   const V3<T> zero3 = v3<T>(T(0.0f), T(0.0f), T(0.0f));
-  const V3<T> bp = cv3<T>(c + C_BASE_P);
-  const Q4<T> bq = cq4<T>(c + C_BASE_Q);
   V3<T> lp = bp, lw = zero3, lwd = zero3, lao = zero3;   // DOF d - 1's
   Q4<T> lq = bq;
   for (int d = 0; d < ND; ++d) {
@@ -177,9 +261,12 @@ IGT_HD void fk_walk(const float* c, ArmState<T, ND>& ar, ArmDyn<T, ND>& dy, bool
   }
 }
 
-// Link l's world COM, inertia, force and moment.
-template <class T, int ND>
-IGT_HD void link_terms_fixed(const float* c, const ArmState<T, ND>& ar, ArmDyn<T, ND>& dy, int l) {
+// Link l's world COM, inertia, force and moment; with WITH_DR the force
+// (a_com - g - g_offset) m ms and the moment times ms, articulation a's mass
+// scale ms and gravity offset from io.
+template <class T, int ND, bool WITH_DR, class Io>
+IGT_HD void link_terms_fixed(const float* c, const ArmState<T, ND>& ar, ArmDyn<T, ND>& dy, int l,
+                             const Io& io, int a) {
   const float* lc = c + DOF_OFF + l * DOF_STRIDE;
   const Q4<T> qq = ar.fq[l];
   const V3<T> com = add(ar.fp[l], qrot(qq, cv3<T>(lc + D_COM)));
@@ -214,15 +301,50 @@ IGT_HD void link_terms_fixed(const float* c, const ArmState<T, ND>& ar, ArmDyn<T
                           Iw[1][0] * wl.x + Iw[1][1] * wl.y + Iw[1][2] * wl.z,
                           Iw[2][0] * wl.x + Iw[2][1] * wl.y + Iw[2][2] * wl.z);
   dy.com[l] = com;
-  dy.f[l] = scale(v3<T>(a_com.x - T(ldc(c + C_GX)), a_com.y - T(ldc(c + C_GY)),
-                        a_com.z - T(ldc(c + C_GZ))), m);
-  dy.nn[l] = add(Iwd, cross(wl, Iww));
+  if constexpr (WITH_DR) {
+    const T ms = T(io.dr(a, 4 * ND));
+    dy.f[l] = scale(v3<T>(a_com.x - (T(ldc(c + C_GX)) + T(io.dr(a, 4 * ND + 1))),
+                          a_com.y - (T(ldc(c + C_GY)) + T(io.dr(a, 4 * ND + 2))),
+                          a_com.z - (T(ldc(c + C_GZ)) + T(io.dr(a, 4 * ND + 3)))),
+                    m * ms);
+    dy.nn[l] = scale(add(Iwd, cross(wl, Iww)), ms);   // gyroscopic term x ms
+  } else {
+    dy.f[l] = scale(v3<T>(a_com.x - T(ldc(c + C_GX)), a_com.y - T(ldc(c + C_GY)),
+                          a_com.z - T(ldc(c + C_GZ))), m);
+    dy.nn[l] = add(Iwd, cross(wl, Iww));
+  }
   T* iw = dy.Iw[l];
   iw[0] = Iw[0][0]; iw[1] = Iw[0][1]; iw[2] = Iw[0][2];
   iw[3] = Iw[1][1]; iw[4] = Iw[1][2]; iw[5] = Iw[2][2];
 }
 
-// Link l's inertia times a (art_dynamics' Ia).
+// The packed lower factor L of M in place (left-looking Cholesky: each sum in
+// ascending k), y = L^-1 rhs and x = L^-T y.
+template <class T, int ND>
+IGT_HD void factor_solve(T* L, const T* rhs, T* y, T* x) {
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    T* Lj = L + tri(j);
+    T s = Lj[j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) s = s - Lj[k] * Lj[k];
+    const T dia = sqrt_floor(s, 1e-12f);
+    Lj[j] = dia;
+    const T inv_d = T(1.0f) / dia;
+#pragma unroll
+    for (int i = j + 1; i < ND; ++i) {
+      T* Li = L + tri(i);
+      T s2 = Li[j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) s2 = s2 - Li[k] * Lj[k];
+      Li[j] = s2 * inv_d;
+    }
+  }
+  fwd_sub<T, ND>(L, rhs, y);
+  back_sub<T, ND>(L, y, x);
+}
+
+// Link l's inertia times a.
 template <class T, int ND>
 IGT_HD V3<T> inertia_times(const ArmDyn<T, ND>& dy, int l, V3<T> a) {
   const T* iw = dy.Iw[l];
@@ -230,25 +352,25 @@ IGT_HD V3<T> inertia_times(const ArmDyn<T, ND>& dy, int l, V3<T> a) {
                iw[2] * a.x + iw[4] * a.y + iw[5] * a.z);
 }
 
-// The K articulations' dynamics, art_dynamics' steps: drive (PD, or the
-// effort input when the block's C_DRIVE is 1) with the effort clamp -> FK ->
-// RNEA bias -> mass matrix -> Cholesky -> semi-implicit Euler with limits ->
-// FK at the new q. ``art(a)``: articulation a's constant block (its base pose
-// folded in, C_BASE_P and C_BASE_Q). Its DOFs are rows a ND .. of the q, qd,
-// target and effort blocks of x (each nd_tot rows); q and tau are written to
-// the same rows of y's q and tau blocks. Leaves in sh.arm[a] the packed lower
-// factor, the joint velocities and the post-step frames.
+// The K articulations' dynamics: drive (PD, or the effort input when the
+// block's C_DRIVE is 1) with the effort clamp -> FK -> RNEA bias -> mass
+// matrix -> Cholesky -> semi-implicit Euler with limits -> FK at the new q.
+// ``art(a)``: articulation a's constant block. ``io`` (ArmRows, EnvCols):
+// where its DOFs' rows of x and y lie, its base pose and (WITH_DR) its env's
+// randomization. Reads q, qd, targets and efforts; writes q and tau. Leaves
+// in sh.arm[a] the packed lower factor, the joint velocities and the
+// post-step frames.
 //
-// The bias and M sum over the links in ascending l, as art_dynamics does:
-// every link's active columns J_li and I_l axw_i (which art_dynamics forms
+// The bias and M sum over the links in ascending l, as the one-thread bodies
+// did: every link's active columns J_li and I_l axw_i (which those formed
 // again for each entry) in one phase, then each entry of M and of the bias
 // sums its links on a lane of its own.
-template <class T, int ND, int K, class Art, class Sh>
-IGT_HD void arms_dynamics(Art art, const float* __restrict__ x, float* __restrict__ y, int b,
-                          size_t sB, int nd_tot, Sh& sh, const Lanes& w) {
+template <class T, int ND, int K, bool WITH_DR = false, bool SERIAL_FACTOR = false, class Art,
+          class Io, class Sh>
+IGT_HD void arms_dynamics(Art art, const Io& io, Sh& sh, const Lanes& w) {
   constexpr int HW = WARP / K;
-#define IGT_IN(blk, a, d) T(x[(size_t)((blk) * nd_tot + (a) * ND + (d)) * sB + b])
-#define IGT_OUT(blk, a, d, v) (y[(size_t)((blk) * nd_tot + (a) * ND + (d)) * sB + b] = to_f(v))
+#define IGT_IN(blk, a, d) T(io.in(blk, a, d))
+#define IGT_OUT(blk, a, d, v) io.out(blk, a, d, v)
 
   // drive; u before the step; each link's active columns
   each_arm<K>(w, [=, &sh](int a, int s) {
@@ -262,7 +384,11 @@ IGT_HD void arms_dynamics(Art art, const float* __restrict__ x, float* __restric
       if (effort_drive) {
         t = IGT_IN(3, a, d);
       } else {
-        const T kp = T(ldc(dc + D_KP)), kd = T(ldc(dc + D_KD));
+        T kp = T(ldc(dc + D_KP)), kd = T(ldc(dc + D_KD));
+        if constexpr (WITH_DR) {   // DR rows d and ND + d: the kp and kd scales
+          kp = kp * T(io.dr(a, d));
+          kd = kd * T(io.dr(a, ND + d));
+        }
         t = kp * (IGT_IN(2, a, d) - q) - kd * qd + IGT_IN(3, a, d);
       }
       const T eff = T(ldc(dc + D_EFFORT));
@@ -288,12 +414,17 @@ IGT_HD void arms_dynamics(Art art, const float* __restrict__ x, float* __restric
 
   // FK with the velocity and bias propagation, one lane per articulation
   each_arm<K>(w, [=, &sh](int a, int s) {
-    if (s == 0) fk_walk<T, ND>(art(a), sh.arm[a], sh.s.dyn.arm[a], true);
+    if (s != 0) return;
+    V3<T> bp;
+    Q4<T> bq;
+    io.base(a, art(a), bp, bq);
+    fk_walk<T, ND>(art(a), bp, bq, sh.arm[a], sh.s.dyn.arm[a], true);
   });
 
   // per link: world COM, inertia, force and moment
   each_arm<K>(w, [=, &sh](int a, int s) {
-    for (int l = s; l < ND; l += HW) link_terms_fixed<T, ND>(art(a), sh.arm[a], sh.s.dyn.arm[a], l);
+    for (int l = s; l < ND; l += HW)
+      link_terms_fixed<T, ND, WITH_DR>(art(a), sh.arm[a], sh.s.dyn.arm[a], l, io, a);
   });
 
   // every link's active columns
@@ -320,13 +451,19 @@ IGT_HD void arms_dynamics(Art art, const float* __restrict__ x, float* __restric
     const float* c = art(a);
     auto& ar = sh.arm[a];
     auto& dy = sh.s.dyn.arm[a];
-    for (int t = s; t < tri(ND); t += HW) {
+#pragma unroll
+    for (int pass = 0; pass * HW < tri(ND); ++pass) {
+      const int t = pass * HW + s;
+      if (t >= tri(ND)) continue;
       int i, j;
       tri_entry(t, i, j);
       const bool rev_i = dof_rev(c, i), revs = rev_i && dof_rev(c, j), diag = i == j;
       const V3<T> axi = ar.axw[i];
       T Mij = T(0.0f), acc = T(0.0f);
-      for (int l = 0; l < ND; ++l) {
+      // the pass's first row, a link below which has none of its columns
+      // (a DOF's ancestors come before it)
+#pragma unroll
+      for (int l = tri_row(pass * HW); l < ND; ++l) {
         const unsigned cb = dy.cbits[l];
         if (!((cb >> i & 1u) && (cb >> j & 1u))) continue;
         if (diag) {
@@ -336,6 +473,7 @@ IGT_HD void arms_dynamics(Art art, const float* __restrict__ x, float* __restric
         if (revs) Mij = Mij + dot(axi, dy.Ia[l][j]);
         Mij = Mij + T(ldc(c + DOF_OFF + l * DOF_STRIDE + D_MASS)) * dot(dy.J[l][i], dy.J[l][j]);
       }
+      if constexpr (WITH_DR) Mij = Mij * T(io.dr(a, 4 * ND));   // M x ms, before the armature
       if (diag) {
         Mij = Mij + T(ldc(c + DOF_OFF + i * DOF_STRIDE + D_ARMATURE));
         dy.rhs[i] = ar.tau[i] - acc;
@@ -343,43 +481,53 @@ IGT_HD void arms_dynamics(Art art, const float* __restrict__ x, float* __restric
       ar.L[tri(i) + j] = Mij;
     }
   });
-  // row 0's pivot and y_0
-  each_arm<K>(w, [=, &sh](int a, int s) {
-    if (s != 0) return;
-    auto& ar = sh.arm[a];
-    auto& dy = sh.s.dyn.arm[a];
-    chol_pivot(ar.L, dy.dinv, 0);
-    dy.y[0] = dy.rhs[0] / ar.L[0];
-  });
-  // Cholesky in place (left-looking) with the forward solve: phase j forms
-  // column j below the diagonal, each row i also subtracting L_ij^2 from its
-  // diagonal and L_ij y_j from its rhs (so both take their terms in
-  // ascending j, as the one-row sums would); the owner of row j + 1 then
-  // forms that pivot and y_(j+1)
-  for (int j = 0; j < ND - 1; ++j) {
+  if constexpr (SERIAL_FACTOR) {
+    // the factor, the forward and the back solve for qdd on one lane per
+    // articulation (factor_solve)
     each_arm<K>(w, [=, &sh](int a, int s) {
+      if (s != 0) return;
+      auto& dy = sh.s.dyn.arm[a];
+      factor_solve<T, ND>(sh.arm[a].L, dy.rhs, dy.y, dy.qdd);
+    });
+  } else {
+    // row 0's pivot and y_0
+    each_arm<K>(w, [=, &sh](int a, int s) {
+      if (s != 0) return;
       auto& ar = sh.arm[a];
       auto& dy = sh.s.dyn.arm[a];
-      const T* Lj = ar.L + tri(j);
-      for (int i = s; i < ND; i += HW) {
-        if (i <= j) continue;
-        T* Li = ar.L + tri(i);
-        T s2 = Li[j];
-        for (int k = 0; k < j; ++k) s2 = s2 - Li[k] * Lj[k];
-        const T lij = s2 * dy.dinv[j];
-        Li[j] = lij;
-        Li[i] = Li[i] - lij * lij;
-        dy.rhs[i] = dy.rhs[i] - lij * dy.y[j];
-        if (i != j + 1) continue;
-        chol_pivot(ar.L, dy.dinv, i);
-        dy.y[i] = dy.rhs[i] / Li[i];
-      }
+      chol_pivot(ar.L, dy.dinv, 0);
+      dy.y[0] = dy.rhs[0] / ar.L[0];
+    });
+    // Cholesky in place (left-looking) with the forward solve: phase j forms
+    // column j below the diagonal, each row i also subtracting L_ij^2 from its
+    // diagonal and L_ij y_j from its rhs (so both take their terms in
+    // ascending j, as the one-row sums would); the owner of row j + 1 then
+    // forms that pivot and y_(j+1)
+    for (int j = 0; j < ND - 1; ++j) {
+      each_arm<K>(w, [=, &sh](int a, int s) {
+        auto& ar = sh.arm[a];
+        auto& dy = sh.s.dyn.arm[a];
+        const T* Lj = ar.L + tri(j);
+        for (int i = s; i < ND; i += HW) {
+          if (i <= j) continue;
+          T* Li = ar.L + tri(i);
+          T s2 = Li[j];
+          for (int k = 0; k < j; ++k) s2 = s2 - Li[k] * Lj[k];
+          const T lij = s2 * dy.dinv[j];
+          Li[j] = lij;
+          Li[i] = Li[i] - lij * lij;
+          dy.rhs[i] = dy.rhs[i] - lij * dy.y[j];
+          if (i != j + 1) continue;
+          chol_pivot(ar.L, dy.dinv, i);
+          dy.y[i] = dy.rhs[i] / Li[i];
+        }
+      });
+    }
+    // qdd = L^-T y, one lane per articulation
+    each_arm<K>(w, [=, &sh](int a, int s) {
+      if (s == 0) back_sub<T, ND>(sh.arm[a].L, sh.s.dyn.arm[a].y, sh.s.dyn.arm[a].qdd);
     });
   }
-  // qdd = L^-T y, one lane per articulation
-  each_arm<K>(w, [=, &sh](int a, int s) {
-    if (s == 0) back_sub<T, ND>(sh.arm[a].L, sh.s.dyn.arm[a].y, sh.s.dyn.arm[a].qdd);
-  });
 
   // semi-implicit Euler, velocity clamp, joint limits
   each_arm<K>(w, [=, &sh](int a, int s) {
@@ -392,7 +540,11 @@ IGT_HD void arms_dynamics(Art art, const float* __restrict__ x, float* __restric
       const float mv = ldc(dc + D_MAXVEL);
       if (mv > 0.0f) v = clip_(v, T(-mv), T(mv));
       T p = ar.q[d] + dt * v;
-      const T lo = T(ldc(dc + D_LO)), hi = T(ldc(dc + D_HI));
+      T lo = T(ldc(dc + D_LO)), hi = T(ldc(dc + D_HI));
+      if constexpr (WITH_DR) {   // DR rows 2 ND + d and 3 ND + d: the limit shifts
+        lo = lo + T(io.dr(a, 2 * ND + d));
+        hi = hi + T(io.dr(a, 3 * ND + d));
+      }
       const bool at_lo = p < lo, at_hi = p > hi;
       p = clip_(p, lo, hi);
       if (at_lo) v = max_(v, T(0.0f));
@@ -406,7 +558,11 @@ IGT_HD void arms_dynamics(Art art, const float* __restrict__ x, float* __restric
   });
   // FK at the new q
   each_arm<K>(w, [=, &sh](int a, int s) {
-    if (s == 0) fk_walk<T, ND>(art(a), sh.arm[a], sh.s.dyn.arm[a], false);
+    if (s != 0) return;
+    V3<T> bp;
+    Q4<T> bq;
+    io.base(a, art(a), bp, bq);
+    fk_walk<T, ND>(art(a), bp, bq, sh.arm[a], sh.s.dyn.arm[a], false);
   });
 #undef IGT_IN
 #undef IGT_OUT
@@ -440,7 +596,8 @@ IGT_HD V3<T> point_velocity(const ArmContact<T, ND>& ct) {
 
 // yn = L^-1 J^T n and yt = L^-1 J^T t_hat with their squares, for every
 // articulation whose contact acts: column by column, row i on lane i of the
-// articulation's lanes subtracting in ascending j as fwd_sub does.
+// articulation's lanes subtracting in ascending j, as a forward substitution
+// does.
 template <class T, int ND, int K, class Sh>
 IGT_HD void contact_solve(Sh& sh, const Lanes& w) {
   constexpr int HW = WARP / K;
@@ -494,6 +651,107 @@ IGT_HD void contact_back(Sh& sh, const Lanes& w) {
     back_sub<T, ND>(ar.L, ct.jv, ct.du);
     for (int i = 0; i < ND; ++i) ar.u[i] = ar.u[i] + ct.du[i];
   });
+}
+
+// ---------------------------------------------------- a ball's contacts --
+// Shared by K2 (fused_substep_warp.cuh) and K3 (fused_substep_multi.cuh).
+
+// A ball through the contact phase: its state, its plane and static impulse,
+// its articulated geoms' reaction and (WITH_TORQUE) its moment.
+template <class T>
+struct BallState {
+  V3<T> pos, vel, omg, s_imp, b_art, tq;
+};
+
+// The test of a ball against one articulated geom, split over lanes (the
+// ball-vs-art contact's arithmetic up to its test): the geometry (the ball in
+// the geom's frame, its depth and normal there and in the world, the contact
+// point), the point's Jacobian columns and each times u, the relative
+// velocity, the four sweep samples and each one's sphere test, the swept
+// normal and the normal velocity.
+constexpr int SWEEP_ART = 4;   // the ball-vs-art contact's sweep samples
+template <class T, int ND>
+struct ArtTest {
+  V3<T> c0, n_now_l, n_now, cp, v_rel, n;
+  Q4<T> gq;
+  T d_now, vn;
+  V3<T> Jc[ND], cu[ND];
+  unsigned char on[ND];
+  V3<T> ck[SWEEP_ART], nk[SWEEP_ART];
+  T dk[SWEEP_ART];
+  int near;   // not culled (apart): the test runs
+};
+
+// The radius of a sphere about a geom's centre that holds the geom (kind,
+// half sizes s): its radius, a box's half diagonal, a cylinder's corner.
+template <class T>
+IGT_HD T hull_radius(int kind, const float* s) {
+  const T a = T(ldc(s)), b = T(ldc(s + 1)), c = T(ldc(s + 2));
+  if (kind == GEOM_SPHERE) return a;
+  if (kind == GEOM_BOX) return sqrt_(a * a + b * b + c * c);
+  return sqrt_(a * a + b * b);
+}
+
+// Whether two bodies whose centres are ``gap`` apart, within radii ra and rb
+// of them, stay apart while one moves ``reach`` further: the distance tests
+// of the contacts below are 1-Lipschitz and at least the centre distance less
+// the hull radii, so no sample of such a pair can penetrate. The margin (1
+// cm and 0.1 %) dwarfs the float32 rounding of both sides, so a cull only
+// skips tests that cannot act.
+template <class T>
+IGT_HD bool apart(T gap, T ra, T rb, T reach) {
+  const T need = ra + rb + reach;
+  return gap - need > T(0.01f) + T(1e-3f) * (gap + need);
+}
+
+// The frame of ``link`` as the ball-vs-art and art-vs-static contacts take it: the link's
+// post-step frame, or for a link outside the articulation the origin with
+// the base's orientation.
+template <class T, int ND>
+IGT_HD void link_frame(const float* ca, const ArmState<T, ND>& ar, int link, V3<T>& lp,
+                       Q4<T>& lq) {
+  if (link >= 0 && link < ND) {
+    lp = ar.fp[link];
+    lq = ar.fq[link];
+    return;
+  }
+  lp = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+  lq = cq4<T>(ca + C_BASE_Q);
+}
+
+// Pair entry pr (art geom g of the articulation with block ca, true static
+// sg): the art-vs-static contact's narrowphase of the geom's bounding sphere, with exact
+// support of a cylinder or box along the normal where the pair says so: the
+// contact point, normal and depth.
+template <class T, int ND>
+IGT_HD void pair_narrowphase(const float* ca, const ArmState<T, ND>& ar, const float* pr,
+                             const float* g, const float* sg, V3<T>& point, V3<T>& n, T& dist) {
+  const T rbound = T(ldc(g + A_RBOUND));
+  V3<T> lp;
+  Q4<T> lq;
+  link_frame<T, ND>(ca, ar, (int)ldc(g + A_LINK), lp, lq);
+  const V3<T> center = add(lp, qrot(lq, cv3<T>(g + A_OFF_POS)));
+  const float* R = sg + G_ROT;
+  const V3<T> c_local = mat_t(R, sub(center, cv3<T>(sg + G_POS)));
+  V3<T> n_local;
+  sphere_geom((int)ldc(sg + G_KIND), sg + G_SIZE, c_local, rbound, dist, n_local);
+  n = mat(R, n_local);
+  if (ldc(pr + P_EXACT) != 0.0f) {
+    const V3<T> n_g = qrot(conj(qmul(lq, cq4<T>(g + A_OFF_QUAT))), n);
+    const float* gs = g + A_SIZE;
+    T sup;
+    if ((int)ldc(g + A_KIND) == GEOM_CYLINDER) {
+      const T na = abs_(n_g.z);
+      sup = na * T(ldc(gs + 1)) + sqrt_floor(T(1.0f) - na * na, 0.0f) * T(ldc(gs));
+    } else {
+      sup = abs_(n_g.x) * T(ldc(gs)) + abs_(n_g.y) * T(ldc(gs + 1))
+            + abs_(n_g.z) * T(ldc(gs + 2));
+    }
+    dist = dist + rbound - sup;
+    point = sub(center, scale(n, sup));
+  } else {
+    point = sub(center, scale(n, rbound));
+  }
 }
 
 }  // namespace igt

@@ -1,8 +1,9 @@
 // Host loops over the kernels' per-env bodies (arm_step.cuh for K1,
-// fused_substep.cuh for K2, K2-dr and K2-tau, fused_substep_multi.cuh for K3
-// and K3-tau, fused_substep_floating.cuh for K4 and K4-tau), for the CPU
-// tests and for counting the operations the kernels do on given inputs.
-// Never on the main path.
+// fused_substep_warp.cuh for K2, K2-dr, K2-tau and K2-dr-tau,
+// fused_substep_multi.cuh for K3 and K3-tau, fused_substep_floating.cuh for
+// K4 and K4-tau), for the CPU tests and for counting the operations the
+// kernels do on given inputs. Each warp's 32 lanes run every phase one after
+// another (warp.cuh), in order or reversed. Never on the main path.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -I csrc -o libigt_host.so csrc/fused_substep_host.cpp
 #include <cmath>
@@ -41,29 +42,56 @@ inline void ops_drop(CountF, long long n) { g_ops -= n; }
 }  // namespace igt
 
 #include "arm_step.cuh"
-#include "fused_substep_multi.cuh"
 #include "fused_substep_floating.cuh"
+#include "fused_substep_multi.cuh"
+#include "fused_substep_warp.cuh"
 
 namespace {
 
-// Runs the body on every env in float; returns 0, or 1 on a bad shape.
-template <bool WITH_DR, bool WITH_TORQUE = false>
-int run(const float* consts, const float* x, float* y, int B, int nd) {
-  if (nd != 7 || B < 1) return 1;
-  for (int b = 0; b < B; ++b)
-    igt::fused_substep_env<float, 7, WITH_DR, WITH_TORQUE>(consts, x, y, b, B);
-  return 0;
+// Takes back out of the count the work of a last warp's groups past the last
+// env: they run env B - 1 again (EnvCols). ``warp(b)`` runs the warp from env
+// b; from B - 1 every one of its G groups runs env B - 1, so a G-th of that
+// warp's count is one group's.
+template <class Warp>
+void drop_idle_groups(int b0, int G, int B, Warp warp) {
+  const int idle = b0 + G - B;
+  if (idle <= 0) return;
+  const long long o = igt::g_ops;
+  warp(B - 1);
+  igt::g_ops = o - (igt::g_ops - o) / G * idle;
 }
 
-// Runs the body on every env with the counting float; returns the total
-// number of operations, or -1 on a bad shape (outputs are written as by run).
-template <bool WITH_DR, bool WITH_TORQUE = false>
-long long count_ops(const float* consts, const float* x, float* y, int B, int nd) {
+// K2 (K2-dr, K2-tau, K2-dr-tau) over every warp of two envs, in float or with
+// the counting float (nd 7), the warp's 32 lanes of each phase in turn
+// (``reverse``: 31 .. 0). Each warp's block starts as 0xff bytes (a NaN in
+// every float), so a value read before it is written shows. Returns 0 (or
+// the operation count), or -1 on another DOF count.
+template <class T, bool WITH_DR, bool WITH_TORQUE = false>
+long long run_k2(const float* consts, const float* x, float* y, int B, int nd,
+                 bool reverse = false) {
   if (nd != 7 || B < 1) return -1;
   igt::g_ops = 0;
-  for (int b = 0; b < B; ++b)
-    igt::fused_substep_env<igt::CountF, 7, WITH_DR, WITH_TORQUE>(consts, x, y, b, B);
+  igt::K2Shared<T, 7, WITH_TORQUE> sh;
+  const auto warp = [&](int b0) {
+    std::memset(static_cast<void*>(&sh), 0xff, sizeof sh);
+    igt::fused_substep_warp<T, 7, WITH_DR, WITH_TORQUE>(consts, x, y, b0, B, sh,
+                                                         igt::Lanes{0, reverse});
+  };
+  for (int b0 = 0; b0 < B; b0 += igt::K2_ENVS) {
+    warp(b0);
+    drop_idle_groups(b0, igt::K2_ENVS, B, warp);
+  }
   return igt::g_ops;
+}
+
+template <class T>
+long long run_k2_flags(const float* consts, const float* x, float* y, int B, int nd,
+                       int with_dr, int with_torque, bool reverse = false) {
+  if (with_torque)
+    return with_dr ? run_k2<T, true, true>(consts, x, y, B, nd, reverse)
+                   : run_k2<T, false, true>(consts, x, y, B, nd, reverse);
+  return with_dr ? run_k2<T, true>(consts, x, y, B, nd, reverse)
+                 : run_k2<T, false>(consts, x, y, B, nd, reverse);
 }
 
 // K3 (K3-tau) over every env, in float or with the counting float; the
@@ -126,13 +154,24 @@ long long run_floating(const float* consts, const float* x, float* y, int B, int
   return igt::g_ops;
 }
 
-// K1 over every env, in float or with the counting float (nd 7). Returns 0
-// (or the operation count), or -1 on another DOF count.
+// K1 over every warp of K1_ENVS envs, in float or with the counting float
+// (nd 7), the lanes of each phase in turn (``reverse``: 31 .. 0), each warp's
+// block starting as 0xff bytes. Returns 0 (or the operation count), or -1 on
+// another DOF count.
 template <class T>
-long long run_arm(const float* consts, const float* x, float* y, int B, int nd) {
+long long run_arm(const float* consts, const float* x, float* y, int B, int nd,
+                  bool reverse = false) {
   if (nd != 7 || B < 1) return -1;
   igt::g_ops = 0;
-  for (int b = 0; b < B; ++b) igt::arm_step_env<T, 7>(consts, x, y, b, B);
+  igt::ArmStepShared<T, 7, igt::K1_ENVS> sh;
+  const auto warp = [&](int b0) {
+    std::memset(static_cast<void*>(&sh), 0xff, sizeof sh);
+    igt::arm_step_warp<T, 7>(consts, x, y, b0, B, sh, igt::Lanes{0, reverse});
+  };
+  for (int b0 = 0; b0 < B; b0 += igt::K1_ENVS) {
+    warp(b0);
+    drop_idle_groups(b0, igt::K1_ENVS, B, warp);
+  }
   return igt::g_ops;
 }
 
@@ -148,38 +187,50 @@ extern "C" long long igt_arm_step_count_ops(const float* consts, const float* x,
   return run_arm<igt::CountF>(consts, x, y, B, nd);
 }
 
+// K1 in float with the lanes of every phase run in reverse order, 31 .. 0
+extern "C" int igt_arm_step_reversed_host(const float* consts, const float* x, float* y, int B,
+                                          int nd) {
+  return run_arm<float>(consts, x, y, B, nd, true) == 0 ? 0 : 1;
+}
+
 // K2: x is (n_in(7), B)
 extern "C" int igt_fused_substep_host(const float* consts, const float* x, float* y,
                                       int B, int nd) {
-  return run<false>(consts, x, y, B, nd);
+  return run_k2_flags<float>(consts, x, y, B, nd, 0, 0) == 0 ? 0 : 1;
 }
 
 extern "C" long long igt_fused_substep_count_ops(const float* consts, const float* x,
                                                  float* y, int B, int nd) {
-  return count_ops<false>(consts, x, y, B, nd);
+  return run_k2_flags<igt::CountF>(consts, x, y, B, nd, 0, 0);
 }
 
 // K2-dr: x is (n_in(7) + n_dr(7), B), the randomization channel last
 extern "C" int igt_fused_substep_dr_host(const float* consts, const float* x, float* y,
                                          int B, int nd) {
-  return run<true>(consts, x, y, B, nd);
+  return run_k2_flags<float>(consts, x, y, B, nd, 1, 0) == 0 ? 0 : 1;
 }
 
 extern "C" long long igt_fused_substep_dr_count_ops(const float* consts, const float* x,
                                                     float* y, int B, int nd) {
-  return count_ops<true>(consts, x, y, B, nd);
+  return run_k2_flags<igt::CountF>(consts, x, y, B, nd, 1, 0);
 }
 
 // K2-tau (with_dr 0) and K2-dr-tau (with_dr 1): y gains the moment rows
 extern "C" int igt_fused_substep_tau_host(const float* consts, const float* x, float* y,
                                           int B, int nd, int with_dr) {
-  return with_dr ? run<true, true>(consts, x, y, B, nd) : run<false, true>(consts, x, y, B, nd);
+  return run_k2_flags<float>(consts, x, y, B, nd, with_dr, 1) == 0 ? 0 : 1;
 }
 
 extern "C" long long igt_fused_substep_tau_count_ops(const float* consts, const float* x,
                                                      float* y, int B, int nd, int with_dr) {
-  return with_dr ? count_ops<true, true>(consts, x, y, B, nd)
-                 : count_ops<false, true>(consts, x, y, B, nd);
+  return run_k2_flags<igt::CountF>(consts, x, y, B, nd, with_dr, 1);
+}
+
+// K2's build (with_dr, with_torque) in float with the lanes of every phase run
+// in reverse order, 31 .. 0
+extern "C" int igt_fused_substep_reversed_host(const float* consts, const float* x, float* y,
+                                               int B, int nd, int with_dr, int with_torque) {
+  return run_k2_flags<float>(consts, x, y, B, nd, with_dr, with_torque, true) == 0 ? 0 : 1;
 }
 
 extern "C" int igt_fused_layout(int nd, int* out, int n) {

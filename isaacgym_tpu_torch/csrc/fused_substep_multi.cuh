@@ -172,37 +172,7 @@ IGT_HD void ball_pair(const float* c, const float* ca, const float* cb, V3<T>& p
 }
 
 // ---------------------------------------------------------- shared block --
-// A ball through the contact phase: its state, its plane and static impulse,
-// its articulated geoms' reaction and (WITH_TORQUE) its moment.
-template <class T>
-struct BallState {
-  V3<T> pos, vel, omg, s_imp, b_art, tq;
-};
-
-// The test of one ball against one articulated geom, split over lanes
-// (ball_art's arithmetic up to its test): the geometry (the ball in the
-// geom's frame, its depth and normal there and in the world, the contact
-// point), the point's Jacobian columns and each times u, the relative
-// velocity, the four sweep samples and each one's sphere test, the swept
-// normal and the normal velocity.
-constexpr int ART_CHUNK = 4;   // geoms tested together
-constexpr int SWEEP_ART = 4;   // ball_art's sweep samples
-template <class T, int ND>
-struct ArtTest {
-  V3<T> c0, n_now_l, n_now, cp, v_rel, n;
-  Q4<T> gq;
-  T d_now, vn;
-  V3<T> Jc[ND], cu[ND];
-  unsigned char on[ND];
-  V3<T> ck[SWEEP_ART], nk[SWEEP_ART];
-  T dk[SWEEP_ART];
-  int near;   // not culled (apart): the test runs
-};
-
-template <class T, int ND, int K>
-struct MultiDyn {
-  ArmDyn<T, ND> arm[K];
-};
+constexpr int ART_CHUNK = 4;   // articulated geoms tested together
 
 // The contacts' scratch.
 template <class T, int ND, int K, int NB, bool WITH_TORQUE>
@@ -236,48 +206,11 @@ struct MultiContact {
 template <class T, int ND, int K, int NB, bool WITH_TORQUE>
 struct MultiShared {
   ArmState<T, ND> arm[K];
-  Overlay<MultiDyn<T, ND, K>, MultiContact<T, ND, K, NB, WITH_TORQUE>,
+  Overlay<ArmsDyn<T, ND, K>, MultiContact<T, ND, K, NB, WITH_TORQUE>,
           std::is_trivially_default_constructible<T>::value> s;
 };
 
 // ---------------------------------------------------------------- contacts --
-// The radius of a sphere about a geom's centre that holds the geom (kind,
-// half sizes s): its radius, a box's half diagonal, a cylinder's corner.
-template <class T>
-IGT_HD T hull_radius(int kind, const float* s) {
-  const T a = T(ldc(s)), b = T(ldc(s + 1)), c = T(ldc(s + 2));
-  if (kind == GEOM_SPHERE) return a;
-  if (kind == GEOM_BOX) return sqrt_(a * a + b * b + c * c);
-  return sqrt_(a * a + b * b);
-}
-
-// Whether two bodies whose centres are ``gap`` apart, within radii ra and rb
-// of them, stay apart while one moves ``reach`` further: the distance tests
-// of the contacts below are 1-Lipschitz and at least the centre distance less
-// the hull radii, so no sample of such a pair can penetrate. The margin (1
-// cm and 0.1 %) dwarfs the float32 rounding of both sides, so a cull only
-// skips tests that cannot act.
-template <class T>
-IGT_HD bool apart(T gap, T ra, T rb, T reach) {
-  const T need = ra + rb + reach;
-  return gap - need > T(0.01f) + T(1e-3f) * (gap + need);
-}
-
-// The frame of ``link`` as ball_art and art_static take it: the link's
-// post-step frame, or for a link outside the articulation the origin with
-// the base's orientation.
-template <class T, int ND>
-IGT_HD void link_frame(const float* ca, const ArmState<T, ND>& ar, int link, V3<T>& lp,
-                       Q4<T>& lq) {
-  if (link >= 0 && link < ND) {
-    lp = ar.fp[link];
-    lq = ar.fq[link];
-    return;
-  }
-  lp = v3<T>(T(0.0f), T(0.0f), T(0.0f));
-  lq = cq4<T>(ca + C_BASE_Q);
-}
-
 // Ball bi's flight and plane, from the inputs (K2's phase functions): its
 // state, plane impulse and moment before the statics.
 template <class T, int ND, int K, int NB, bool WITH_TORQUE>
@@ -379,7 +312,7 @@ IGT_HD void statics_walk(const float* c, int bi, BallState<T>& bs, const unsigne
 
 // Whether ball bi acts on each of the articulated geoms g0 .. g0 + ng - 1
 // (ng <= ART_CHUNK) in the ball's and the articulations' current state: the
-// arithmetic of ball_art up to its test, split over lanes (each geom's
+// arithmetic of the ball-vs-art contact up to its test, split over lanes (each geom's
 // geometry, then one Jacobian column per lane, then each geom's point
 // velocity and sweep samples, then one sample's sphere test per lane, then
 // each geom's first penetrating sample and the test) -> ct.ga_act; the
@@ -510,44 +443,10 @@ IGT_HD void ball_art_tests(const float* c, int bi, int g0, int ng, Sh& sh, const
   });
 }
 
-// Pair entry pr (art geom g of the articulation with block ca, true static
-// sg): art_static's narrowphase of the geom's bounding sphere, with exact
-// support of a cylinder or box along the normal where the pair says so: the
-// contact point, normal and depth.
-template <class T, int ND>
-IGT_HD void pair_narrowphase(const float* ca, const ArmState<T, ND>& ar, const float* pr,
-                             const float* g, const float* sg, V3<T>& point, V3<T>& n, T& dist) {
-  const T rbound = T(ldc(g + A_RBOUND));
-  V3<T> lp;
-  Q4<T> lq;
-  link_frame<T, ND>(ca, ar, (int)ldc(g + A_LINK), lp, lq);
-  const V3<T> center = add(lp, qrot(lq, cv3<T>(g + A_OFF_POS)));
-  const float* R = sg + G_ROT;
-  const V3<T> c_local = mat_t(R, sub(center, cv3<T>(sg + G_POS)));
-  V3<T> n_local;
-  sphere_geom((int)ldc(sg + G_KIND), sg + G_SIZE, c_local, rbound, dist, n_local);
-  n = mat(R, n_local);
-  if (ldc(pr + P_EXACT) != 0.0f) {
-    const V3<T> n_g = qrot(conj(qmul(lq, cq4<T>(g + A_OFF_QUAT))), n);
-    const float* gs = g + A_SIZE;
-    T sup;
-    if ((int)ldc(g + A_KIND) == GEOM_CYLINDER) {
-      const T na = abs_(n_g.z);
-      sup = na * T(ldc(gs + 1)) + sqrt_floor(T(1.0f) - na * na, 0.0f) * T(ldc(gs));
-    } else {
-      sup = abs_(n_g.x) * T(ldc(gs)) + abs_(n_g.y) * T(ldc(gs + 1))
-            + abs_(n_g.z) * T(ldc(gs + 2));
-    }
-    dist = dist + rbound - sup;
-    point = sub(center, scale(n, sup));
-  } else {
-    point = sub(center, scale(n, rbound));
-  }
-}
-
 // An acting ball-vs-art contact's restitution, tangent and slip speed, from
 // the relative velocity v_rel, the swept normal n and vn = v_rel . n
-// (ball_art after its test), into the articulation's contact ``ac``.
+// (the ball-vs-art contact after its test), into the articulation's contact
+// ``ac``.
 template <class T, int ND>
 IGT_HD void ball_art_dirs(const float* cb, const float* g, int bi, const BallState<T>& bs,
                           V3<T> v_rel, V3<T> n, T vn, ArmContact<T, ND>& ac) {
@@ -562,7 +461,7 @@ IGT_HD void ball_art_dirs(const float* cb, const float* g, int bi, const BallSta
 }
 
 // The reaction of an acting contact of ball bi with articulated geom gi of
-// articulation a (ball_art after its test; ct.d_now, ct.n_now and the
+// articulation a (the ball-vs-art contact after its test; ct.d_now, ct.n_now and the
 // articulation's contact set): the solves, the impulse, the ball's change,
 // the rows, the joint-space reaction. The impulse joins the ball's b_art
 // row, its reaction the geom's row; with WITH_TORQUE its moments join the
@@ -632,7 +531,7 @@ IGT_HD void ball_art_take(const float* c, int a, int gi, int bi, int k, Sh& sh, 
   ball_art_react<T, ND, K, WITH_TORQUE>(c, a, gi, bi, sh, w);
 }
 
-// Round p of the art-vs-static pairs (art_static): articulation a's p-th
+// Round p of the art-vs-static pairs: articulation a's p-th
 // pair, where its narrowphase penetrates (``hit[a]``), on a's lanes, all
 // articulations at once. The impulse joins the geom's row; with WITH_TORQUE
 // its moment about the geom body's frame origin joins the geom's moment row.
@@ -728,7 +627,7 @@ IGT_HD void fused_substep_multi_env(const float* __restrict__ c, const float* __
   const size_t sB = (size_t)B;
 #define IGT_OUT(ch, v) (y[(size_t)(ch) * sB + b] = to_f(v))
   const auto art = [c](int a) { return c + MULTI_HEAD + a * multi_art_stride(ND); };
-  arms_dynamics<T, ND, K>(art, x, y, b, sB, NDT, sh, w);
+  arms_dynamics<T, ND, K>(art, ArmRows<ND>{x, y, b, sB, NDT}, sh, w);
 
   auto& ct = sh.s.ct;
   const int ng = (int)ldc(c + C_NART);

@@ -65,6 +65,13 @@ IGT_HD constexpr int top_index(int lane, int n) {
   return lane >= n ? -1 : lane + WARP * ((n - 1 - lane) / WARP);
 }
 
+// The row of entry t of a packed lower triangle (compile-time where t is).
+IGT_HD constexpr int tri_row(int t) {
+  int r = 0;
+  while (tri(r + 1) <= t) ++r;
+  return r;
+}
+
 // Entry t = tri(k1) + k2 (k2 <= k1) of a packed lower triangle, in closed
 // form: a loop per lane would run as long as the lane that needs most.
 IGT_HD void tri_entry(int t, int& k1, int& k2) {

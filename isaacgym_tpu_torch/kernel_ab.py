@@ -1,12 +1,14 @@
-"""Compare builds of the multi-articulation and floating-base kernels (K3,
-K3-tau, K4, K4-tau) from two or more source trees on the card: the same
+"""Compare builds of the port's kernels (K1; K2, K2-dr, K2-tau, K2-dr-tau;
+K3, K3-tau; K4, K4-tau) from two or more source trees on the card: the same
 inputs through each build, bit-for-bit equality with the first tree's
-outputs (as int32 words, so -0 and +0 differ), and the time per launch in turns (A B ... B A, twice over).
+outputs (as int32 words, so -0 and +0 differ), and the time per launch in
+turns (A B ... B A, twice over).
 
     python -m isaacgym_tpu_torch.kernel_ab BASE_CSRC [OTHER_CSRC ...]
-        [--kernels k3,k3tau,k4,k4tau] [--num-envs N]
+        [--kernels k1,k2,k2dr,k2tau,k2drtau,k3,k3tau,k4,k4tau] [--num-envs N]
 
-Each argument is a ``csrc`` directory holding ``fused_substep_multi.cu``,
+Each argument is a ``csrc`` directory holding ``arm_step.cu``,
+``fused_substep.cu``, ``fused_substep_multi.cu``,
 ``fused_substep_floating.cu`` and their headers (this package's own is
 ``isaacgym_tpu_torch/csrc``; a parent commit's can be unpacked with ``git
 archive``). Each is built with the flags of ``ops/_build.py`` into
@@ -14,7 +16,16 @@ archive``). Each is built with the flags of ``ops/_build.py`` into
 memory of each entry) are printed.
 
 The inputs, at each kernel's main-path width (``--num-envs``: the first N
-envs):
+envs); every launch goes through the wrapper's ``launcher`` into an output
+allocated once:
+- K2 at 4096 envs: the flagship's reset and paddle_ball sets, paddle_table
+  and ball_rest on the raised-table scene (``sim/scripted.k2_inputs``), and
+  its random-action states (``sim/scripted.k2_random_inputs``, as
+  ``chip_smoke.py``'s ``timing``). K2-dr on the same with a channel drawn
+  by ``DomainRandomizer.sample`` at global step 3000 (every term at full
+  strength); K2-tau and K2-dr-tau with the same packs and the torque lanes.
+- K1 at 4096 envs: those sets' joints, targets and efforts with the arm's
+  base pose (``sim/scripted.k1_inputs``), through the terrain flagship's K1.
 - K3 at 4096 envs: C8's reset, paddle_ball1, paddle_ball2 and ball_rest
   sets (``sim/scripted.k3_inputs``) and its random-action states
   (``sim/scripted.k3_random_inputs``, as ``chip_smoke.py``'s ``k3/rollout``)
@@ -39,10 +50,14 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
+TASK = "HumanoidPingpongTiltNoEarlyStopG1"
 C8 = "Humanoid12PingpongTiltG1"
 C10 = "HumanoidPingpongTiltNESSparse27DOFG1"
-KERNELS = ("k3", "k3tau", "k4", "k4tau")
-SOURCES = {"k3": "fused_substep_multi", "k3tau": "fused_substep_multi",
+K2_BUILDS = {"k2": (False, False), "k2dr": (True, False), "k2tau": (False, True),
+             "k2drtau": (True, True)}   # (with_dr, with_torque)
+KERNELS = ("k1",) + tuple(K2_BUILDS) + ("k3", "k3tau", "k4", "k4tau")
+SOURCES = {"k1": "arm_step", **{k: "fused_substep" for k in K2_BUILDS},
+           "k3": "fused_substep_multi", "k3tau": "fused_substep_multi",
            "k4": "fused_substep_floating", "k4tau": "fused_substep_floating"}
 
 
@@ -58,6 +73,42 @@ def _time_ms(fn, inner=20, repeats=5):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def _k2_cases(kernels, dev, b=4096):
+    """(kernel, set, wrapper, inputs) of K1 and K2's builds at ``b`` envs."""
+    import numpy as np
+    import torch
+    import isaacgym_tpu_torch
+    from isaacgym_tpu_torch.env.randomize import DomainRandomizer
+    from isaacgym_tpu_torch.ops import fused_substep as F
+    from isaacgym_tpu_torch.sim import scripted
+    from isaacgym_tpu_torch.tasks.pingpong_common import rough_terrain_cfg
+    from isaacgym_tpu_torch.utils.config import load_task_config
+
+    cfg = load_task_config(TASK)
+    env = isaacgym_tpu_torch.make(seed=0, task=TASK, num_envs=b, device=dev)
+    raised = isaacgym_tpu_torch.make(seed=0, task=TASK, num_envs=b, device=dev,
+                                     cfg=scripted.raised_table_cfg(cfg))
+    k1 = isaacgym_tpu_torch.make(seed=0, task=TASK, num_envs=2, device=dev,
+                                 cfg=rough_terrain_cfg(cfg, seed=0)).sim.arm_steps[0]
+    rz = DomainRandomizer(cfg["task"]["randomization_params"], 7)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    for i, kind in enumerate(("reset", "paddle_ball", "paddle_table", "ball_rest", "random")):
+        e = raised if kind in ("paddle_table", "ball_rest") else env
+        if kind == "random":
+            ins = scripted.k2_random_inputs(env, b)
+        else:
+            ins = tuple(torch.as_tensor(a, device=dev) for a in
+                        scripted.k2_inputs(e, kind, b, np.random.RandomState(601 + i)))
+        chan = e.sim.dr_channel(rz.sample(gen, 3000, b)).contiguous()
+        if "k1" in kernels:
+            yield "k1", kind, k1, scripted.k1_inputs(e, ins)
+        for kname, (dr, tau) in K2_BUILDS.items():
+            if kname in kernels:
+                k = F.FusedSubstep(e.sim.fused_substep.consts, with_dr=dr, with_torque=tau)
+                yield kname, kind, k, ins + ((chan,) if dr else ())
 
 
 def _k3_cases(kernels, dev, b=4096):
@@ -118,10 +169,17 @@ def _k4_cases(kernels, dev, b=2048):
 
 def _launcher(kname, k, dev, stream):
     """(pack, output rows, shape, launcher(lib, x, y) -> run()) of wrapper
-    ``k``: K3 through the wrapper's own launcher, K4 through its library
-    entry; run raises if the launch fails."""
+    ``k``: K1, K2 and K3 through the wrapper's own launcher, K4 through its
+    library entry; run raises if the launch fails."""
+    from isaacgym_tpu_torch.ops import arm_step as A
+    from isaacgym_tpu_torch.ops import fused_substep as F
     from isaacgym_tpu_torch.ops import fused_substep_floating as FF
     from isaacgym_tpu_torch.ops import fused_substep_multi as M
+    if kname == "k1":
+        return A.pack_inputs, A.n_out(k.nd), [k.nd], lambda lib, x, y: k.launcher(x, y, lib=lib)
+    if kname in K2_BUILDS:
+        return (F.pack_inputs, F.n_out(k.nd, k.ng, k.with_torque), [k.nd],
+                lambda lib, x, y: k.launcher(x, y, lib=lib))
     if kname in ("k3", "k3tau"):
         return (M.pack_inputs, M.n_out(k.nd_tot, k.nb, k.ng, k.with_torque), [k.nd, k.K, k.nb],
                 lambda lib, x, y: k.launcher(x, y, lib=lib))
@@ -174,6 +232,8 @@ def main(argv) -> int:
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     cases = []
+    if {"k1", *K2_BUILDS} & set(kernels):
+        cases += list(_k2_cases(kernels, dev))
     if {"k3", "k3tau"} & set(kernels):
         cases += list(_k3_cases(kernels, dev))
     if {"k4", "k4tau"} & set(kernels):

@@ -135,6 +135,13 @@ _SIGNATURES = {
     "igt_fused_substep_multi_reversed_host": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP, _IP], _IP),
     # the same for K3 or K3-tau at (nd, k, nb)
     "igt_multi_occupancy": ([_IP, _IP, _IP, _IP, _VP, _IP], _IP),
+    # K2's build (with_dr, with_torque) on the host, each phase's lanes in reverse order
+    "igt_fused_substep_reversed_host": ([_VP, _VP, _VP, _IP, _IP, _IP, _IP], _IP),
+    # K1 the same
+    "igt_arm_step_reversed_host": ([_VP, _VP, _VP, _IP, _IP], _IP),
+    # K2's build (with_dr, with_torque) and K1: envs and warps per block, blocks per SM
+    "igt_fused_occupancy": ([_IP, _IP, _VP, _IP], _IP),
+    "igt_arm_occupancy": ([_VP, _IP], _IP),
 }
 
 

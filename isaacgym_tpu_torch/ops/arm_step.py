@@ -14,10 +14,11 @@ The Pallas kernel folds the base pose in as a constant. Here the pack
 (``build_arm_constants``: K2's header, DOF table and ancestor mask, the
 slots of ``ops/fused_substep.py``) carries no pose: the base position and
 quaternion are per-env inputs, so one pack serves any base pose. The CUDA
-kernel (``csrc/arm_step.cu``) is K2's dynamics phase; ``arm_step_plain``
-is K2's plain dynamics phase (``fused_substep.art_dynamics``) on those
-inputs, the kernel's order. ``ArmStep`` takes the plain version only for
-tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
+kernel (``csrc/arm_step.cu``) runs K2's dynamics phases
+(``csrc/art_warp.cuh``), two envs to a warp; ``arm_step_plain`` is K2's
+plain dynamics phase (``fused_substep.art_dynamics``) on those inputs, the
+kernel's order. ``ArmStep`` takes the plain version only for tensors on the
+CPU; for a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -141,6 +142,7 @@ class ArmStep:
         self.launches = 0
         self._dev_consts = {}
         self._lib = None
+        self._checked = {}   # id -> the libraries whose layout matched
 
     def device_consts(self, device: torch.device) -> torch.Tensor:
         key = str(device)
@@ -165,24 +167,40 @@ class ArmStep:
 
     def launch(self, x: torch.Tensor) -> ArmStepOutputs:
         """Launch the kernel on a packed (n_in, B) CUDA buffer."""
+        y = torch.empty((n_out(self.nd), x.shape[1]), dtype=torch.float32, device=x.device)
+        self.launcher(x, y)()
+        return unpack_outputs(y, self.nd)
+
+    def launcher(self, x: torch.Tensor, y: torch.Tensor, lib=None):
+        """The kernel's launch on a packed (n_in, B) CUDA buffer ``x`` into
+        the (n_out, B) CUDA buffer ``y``, both checked here, once: each call
+        of the returned function launches on the stream current now and adds
+        one to ``launches``. ``lib``: another build of the library (a parent
+        tree's, a probe's copy), checked against this pack's layout; this
+        package's by default, built at first use."""
         from isaacgym_tpu_torch.ops import _build
         nd = self.nd
         check_nd(nd)
-        if (x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() != 2
-                or x.shape[0] != n_in(nd) or x.shape[1] < 1 or not x.is_contiguous()):
-            raise ValueError(f"arm step: expected a contiguous float32 CUDA "
-                             f"({n_in(nd)}, B) buffer, got {x.dtype} {tuple(x.shape)} "
-                             f"on {x.device}")
-        if self._lib is None:
-            lib = _build.cuda_library("arm_step")
+        for t, rows in ((x, n_in(nd)), (y, n_out(nd))):
+            if (t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != 2
+                    or t.shape[0] != rows or t.shape[1] != x.shape[1] or x.shape[1] < 1
+                    or not t.is_contiguous()):
+                raise ValueError(f"arm step: expected a contiguous float32 CUDA "
+                                 f"({rows}, B) buffer, got {t.dtype} {tuple(t.shape)} "
+                                 f"on {t.device}")
+        if lib is None:
+            if self._lib is None:
+                self._lib = _build.cuda_library("arm_step")
+            lib = self._lib
+        if id(lib) not in self._checked:
             check_library_layout(lib, nd)
-            self._lib = lib
-        B = x.shape[1]
-        y = torch.empty((n_out(nd), B), dtype=torch.float32, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = self._lib.igt_arm_step_launch(self.device_consts(x.device).data_ptr(),
-                                            x.data_ptr(), y.data_ptr(), B, nd, stream)
-        if err != 0:
-            raise RuntimeError(f"arm step launch failed: cudaError {err}")
-        self.launches += 1
-        return unpack_outputs(y, nd)
+            self._checked[id(lib)] = lib
+        args = (self.device_consts(x.device).data_ptr(), x.data_ptr(), y.data_ptr(), x.shape[1],
+                nd, torch.cuda.current_stream(x.device).cuda_stream)
+
+        def run():
+            err = lib.igt_arm_step_launch(*args)
+            if err != 0:
+                raise RuntimeError(f"arm step launch failed: cudaError {err}")
+            self.launches += 1
+        return run

@@ -1095,6 +1095,7 @@ class FusedSubstep:
         self.launches = 0
         self._dev_consts = {}
         self._lib = None
+        self._checked = {}   # id -> the libraries whose layout matched
 
     def device_consts(self, device: torch.device) -> torch.Tensor:
         key = str(device)
@@ -1129,34 +1130,49 @@ class FusedSubstep:
 
     def launch(self, x: torch.Tensor) -> FusedStepOutputs:
         """Launch the kernel on a packed (n_in [+ n_dr], B) CUDA buffer."""
+        y = torch.empty((n_out(self.nd, self.ng, self.with_torque), x.shape[1]),
+                        dtype=torch.float32, device=x.device)
+        self.launcher(x, y)()
+        return unpack_outputs(y, self.nd, self.ng)
+
+    def launcher(self, x: torch.Tensor, y: torch.Tensor, lib=None):
+        """The kernel's launch on a packed (n_in [+ n_dr], B) CUDA buffer
+        ``x`` into the (n_out, B) CUDA buffer ``y``, both checked here, once:
+        each call of the returned function launches on the stream current now
+        and adds one to ``launches``. ``lib``: another build of the library
+        (a parent tree's, a probe's copy), checked against this pack's layout;
+        this package's by default, built at first use."""
         from isaacgym_tpu_torch.ops import _build
         nd, ng = self.nd, self.ng
         if nd != KERNEL_ND:
             raise NotImplementedError(f"fused substep kernel is built for "
                                       f"{KERNEL_ND} DOFs, scene has {nd}")
-        rows = self.n_in()
-        if (x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() != 2
-                or x.shape[0] != rows or x.shape[1] < 1 or not x.is_contiguous()):
-            raise ValueError(f"fused substep: expected a contiguous float32 CUDA "
-                             f"({rows}, B) buffer, got {x.dtype} {tuple(x.shape)} "
-                             f"on {x.device}")
-        if self._lib is None:
-            lib = _build.cuda_library("fused_substep")
+        for t, rows in ((x, self.n_in()), (y, n_out(nd, ng, self.with_torque))):
+            if (t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != 2
+                    or t.shape[0] != rows or t.shape[1] != x.shape[1] or x.shape[1] < 1
+                    or not t.is_contiguous()):
+                raise ValueError(f"fused substep: expected a contiguous float32 CUDA "
+                                 f"({rows}, B) buffer, got {t.dtype} {tuple(t.shape)} "
+                                 f"on {t.device}")
+        if lib is None:
+            if self._lib is None:
+                self._lib = _build.cuda_library("fused_substep")
+            lib = self._lib
+        if id(lib) not in self._checked:
             check_library_layout(lib, nd)
-            self._lib = lib
-        B = x.shape[1]
-        c = self.device_consts(x.device)
-        y = torch.empty((n_out(nd, ng, self.with_torque), B), dtype=torch.float32,
-                        device=x.device)
+            self._checked[id(lib)] = lib
+        args = (self.device_consts(x.device).data_ptr(), x.data_ptr(), y.data_ptr(), x.shape[1],
+                nd, ng)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if self.with_torque:
-            err = self._lib.igt_fused_substep_tau_launch(
-                c.data_ptr(), x.data_ptr(), y.data_ptr(), B, nd, ng, int(self.with_dr), stream)
+            fn, args = lib.igt_fused_substep_tau_launch, args + (int(self.with_dr), stream)
         else:
-            fn = (self._lib.igt_fused_substep_dr_launch if self.with_dr
-                  else self._lib.igt_fused_substep_launch)
-            err = fn(c.data_ptr(), x.data_ptr(), y.data_ptr(), B, nd, ng, stream)
-        if err != 0:
-            raise RuntimeError(f"fused substep launch failed: cudaError {err}")
-        self.launches += 1
-        return unpack_outputs(y, nd, ng)
+            fn = lib.igt_fused_substep_dr_launch if self.with_dr else lib.igt_fused_substep_launch
+            args = args + (stream,)
+
+        def run():
+            err = fn(*args)
+            if err != 0:
+                raise RuntimeError(f"fused substep launch failed: cudaError {err}")
+            self.launches += 1
+        return run

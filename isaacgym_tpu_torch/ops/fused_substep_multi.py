@@ -21,7 +21,7 @@ Each phase is the K2 helper of ``ops/fused_substep.py`` (``art_dynamics``,
 ``ball_flight``, ``ball_plane``, ``ball_static``, ``ball_art``,
 ``art_static``, ``ball_finish``) applied to the articulation's or the ball's
 own constant block, so K2 and K3 share their arithmetic, in the plain
-version as in CUDA (``csrc/fused_substep.cuh``).
+version as in CUDA (``csrc/art_warp.cuh``, ``csrc/fused_substep.cuh``).
 
 The constant pack (``build_multi_constants``) is one float32 buffer: a
 header of the scene-wide slots, one block per articulation laid out as a

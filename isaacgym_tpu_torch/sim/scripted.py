@@ -38,6 +38,10 @@ base's pos, quat, linvel, angvel, the ball's pos, vel, omega), on C10:
                (art-vs-static); needs the scene of ``raised_table_cfg``,
                whose table top is high enough that only the feet reach it
 
+``k2_random_inputs``, ``k3_random_inputs`` and ``k4_random_inputs`` give
+each kernel's inputs after 60 env steps under random actions (the timings'
+states); ``k1_inputs`` turns K2's into K1's.
+
 ``k2_state`` and ``k4_state`` make a batched ``SimState`` of a scene from
 such inputs (the non-kernel path's and the baked-root guard's checks);
 ``terrain_ball_state`` puts the ball just above a heightfield terrain,
@@ -444,6 +448,36 @@ def k3_inputs(env, kind: str, B: int, rng: np.random.RandomState, effort_scale: 
     else:
         raise KeyError(f"unknown input kind {kind!r}; known: {C8_KINDS + TOY_KINDS}")
     return tuple(map(f, (q, qd, tgt, eff, bp, bv, bw)))
+
+
+def k2_random_inputs(env, B: int, seed: int = 1, steps: int = 60):
+    """K2's seven inputs, tensors on ``env``'s device, after ``steps`` env
+    steps of ``env`` (a flagship env of ``B`` envs) from reset under uniform
+    random actions, drawn by a generator on that device seeded ``seed``:
+    the random-action states."""
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(seed)
+    nd = env.scene.articulations[0].model.tree.n_dof
+    act = lambda: torch.rand((B, nd), generator=gen, device=env.device) * 2 - 1
+    state, _ = env.reset()
+    for _ in range(steps):
+        state, *_ = env.step(state, act())
+    tgt, eff = env.action_to_drive(act())
+    s, ba = state.sim, env.scene.free_bodies[0].actor_index
+    return tuple(t.contiguous() for t in (s.dof_pos, s.dof_vel, tgt, eff, s.root[:, ba, 0:3],
+                                          s.root[:, ba, 7:10], s.root[:, ba, 10:13]))
+
+
+def k1_inputs(env, ins):
+    """K1's six inputs from K2's seven ``ins`` on ``env``'s flagship scene:
+    q, qd, targets, efforts and, per env, the arm's base pose (its initial
+    root)."""
+    slot = env.scene.articulations[0]
+    root = torch.as_tensor(env.scene.initial_root[slot.actor_index], dtype=torch.float32,
+                           device=ins[0].device)
+    B = ins[0].shape[0]
+    return tuple(ins[:4]) + (root[0:3].expand(B, 3).contiguous(),
+                             root[3:7].expand(B, 4).contiguous())
 
 
 def k3_random_inputs(env, B: int, seed: int = 2, steps: int = 60):

@@ -22,7 +22,8 @@ lanes of every phase one after another, the card's own schedule
   the contacts' scratch overlaid in one union, as on the card) and the
   counting build (side by side) give the same bits too, signed zeros
   included.
-- The phase probe (``phase_probe``) finds every anchor it marks.
+- The phase probe (``phase_probe``) finds every anchor it marks, for K3,
+  K2 and K1.
 """
 
 import numpy as np
@@ -198,15 +199,26 @@ def test_lanes_in_reverse_give_the_same_bits(c8, toy, host, scene, drive, kind, 
 
 
 def test_phase_probe_finds_every_anchor(tmp_path):
-    """``phase_probe``'s copy of ``csrc`` holds its mark macro and each of
-    its marks once: a renamed phase comment fails here, not on the card."""
+    """``phase_probe``'s copy of ``csrc`` for each kernel it probes (K3, K2,
+    K1) holds its mark macro and each of that kernel's marks once: a renamed
+    phase comment fails here, not on the card."""
     import os
+    import re
     from isaacgym_tpu_torch import phase_probe
-    out = phase_probe.marked_copy(_build.CSRC, str(tmp_path))
-    with open(os.path.join(out, "warp.cuh")) as fh:
-        assert "g_probe" in fh.read()
-    marks = 0
-    for f in sorted({f for f, _, _ in phase_probe.MARKS}):
-        with open(os.path.join(out, f)) as fh:
-            marks += fh.read().count("  IGT_MARK(")
-    assert marks == len(phase_probe.MARKS)
+    assert sorted(phase_probe.MARKS) == ["k1", "k2", "k3"]
+    for kernel, header, name in (("k1", "arm_step.cuh", "K1_ENVS"),
+                                 ("k2", "fused_substep_warp.cuh", "K2_ENVS")):
+        with open(os.path.join(_build.CSRC, header)) as fh:
+            envs = int(re.search(rf"constexpr int {name} = (\d+);", fh.read()).group(1))
+        assert phase_probe.ENVS_PER_WARP[kernel] == envs, kernel
+    for kernel, marks_of in phase_probe.MARKS.items():
+        out = phase_probe.marked_copy(_build.CSRC, str(tmp_path / kernel), kernel)
+        with open(os.path.join(out, "warp.cuh")) as fh:
+            assert "g_probe" in fh.read()
+        with open(os.path.join(out, f"{phase_probe.SOURCES[kernel]}.cu")) as fh:
+            assert "igt_probe_read" in fh.read()
+        marks = 0
+        for f in sorted({f for f, _, _ in marks_of}):
+            with open(os.path.join(out, f)) as fh:
+                marks += fh.read().count("  IGT_MARK(")
+        assert marks == len(marks_of), kernel
