@@ -96,6 +96,17 @@ Each phase prints one JSON line with its seconds:
   k1_timing  K1 per launch (its launcher, as timing), its plain version,
           its bound (counted ops), ptxas's registers, stack, spills and
           shared memory, and its launch geometry;
+  k2/c5_*, k2/c9_*  K2 on C5's scene (its 0.0083 s substep) and C9's (table
+          and ball restitution 1.5) under the same comparison: random-action
+          states and paddle strikes, and on C9 table bounces (balls falling
+          at 2-4 m/s from within a substep's travel of the table);
+  parity/<scene>  the parity tool (isaacgym_tpu_torch.parity.env_step) on its
+          committed fixture (64 envs x 4 states of the JAX package's env
+          step, isaacgym_tpu_torch/parity/data/) for the flagship, C5, C6,
+          C8, C9, C10 and the terrain flagship: the port's step on the card
+          within each scene's parity gates, its kernel launched twice a
+          step; parity_gates  the port's dof velocities negated, and one
+          env's done flag flipped alone, must each fail the gates;
   main    make(seed=0, flagship, 4096 envs), reset, 5 warm-up steps, then
           3 windows of 100 steps under uniform actions in [-1, 1] from a
           seeded generator: launches must be exactly 2 per step, every
@@ -114,6 +125,9 @@ Each phase prints one JSON line with its seconds:
           K3's share;
   c6_main 100 steps of C6 (HumanoidPingpongTiltG1) at 4096 envs: K2
           exactly 2 per step, every state finite;
+  c5_main, c9_main  100 steps each of C5 (HumanoidPingpongG1) and C9
+          (HumanoidPingpongAlignmentG1) at 4096 envs: route k2, K2 exactly
+          2 per step, every state finite;
   sensors/flagship, sensors/c8, sensors/c10  the force-sensor path at
           4096 envs (C10 at 2048): the scene with a sensor on each paddle
           (create_asset_force_sensor), 100 Simulator.step calls from scripted
@@ -162,6 +176,9 @@ Each phase prints one JSON line with its seconds:
           the first 4096 rows after the update than before it;
   c10_train  the same for C10 on its own train config at 2048 envs, K4
           exactly 2 x 32 launches per epoch;
+  c5_train, c9_train  one full-width PPO epoch each on its own train
+          config at 4096 envs: K2 exactly 2 x 32 launches, every metric
+          finite;
   terrain_train  2 epochs of the terrain flagship without DR at 4096 envs,
           every env 29 steps from its episode's end: K1 exactly 2 x 32
           launches per epoch, episodes of 169, every metric finite, the loss
@@ -201,6 +218,10 @@ TASK = "HumanoidPingpongTiltNoEarlyStopG1"
 C6 = "HumanoidPingpongTiltG1"
 C8 = "Humanoid12PingpongTiltG1"
 C10 = "HumanoidPingpongTiltNESSparse27DOFG1"
+C5 = "HumanoidPingpongG1"
+C9 = "HumanoidPingpongAlignmentG1"
+# the parity tool's committed fixture, one file per scene
+PARITY_FILES = ("flagship", "c5", "c6", "c8", "c9", "c10", "terrain")
 B = 4096
 B10 = 2048                     # C10's numEnvs (its config, and the reference's)
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -568,6 +589,7 @@ def k2_checks(dev, host):
             if (any(not v <= TOL[f] for f, v in r["excess"].items())
                     or r["flip_rate"] > MAX_FLIP_RATE):
                 k2_wrong.setdefault(form, []).append(name)
+    k2_scene_checks(dev, k2acc)
     emit({"phase": "k2_gates", "rejected_on_sets": k2_wrong})
     if set(k2_wrong) != set(forms):
         raise SystemExit(f"k2_gates: the gates let a wrong K2 output pass on every set: "
@@ -639,6 +661,141 @@ def k2_checks(dev, host):
         acc, ms=t["kernel_ms"], wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"], **usage, geometry=geo)
     return sets, rz, line(k2acc, k2t, k2usage, k2geo), line(k2dracc, k2drt, k2drusage, k2drgeo)
+
+
+def k2_scene_checks(dev, acc):
+    """K2 on C5's and C9's scenes against its plain version (their own
+    constant packs: C5's substep of 0.0083 s, C9's table and ball
+    restitution of 1.5): C5's random-action states and paddle strikes, C9's
+    random-action states, paddle strikes and table bounces (balls falling
+    onto the table at 2-4 m/s from within a substep's travel, so that the
+    gated restitution acts); folded into ``acc``."""
+    import numpy as np
+    import torch
+    import isaacgym_tpu_torch
+    from isaacgym_tpu_torch.ops import fused_substep as F
+    from isaacgym_tpu_torch.sim import scripted
+    from isaacgym_tpu_torch.sim.simulator import fused_geom_lists
+    for label, task in (("c5", C5), ("c9", C9)):
+        env = isaacgym_tpu_torch.make(seed=0, task=task, num_envs=B)
+        k = env.sim.fused_substep
+        plain = lambda *a, k=k: F.fused_substep_reference(k.device_consts(dev), *a)
+        kinds = ("rollout", "paddle_ball") + (("table_bounce",) if label == "c9" else ())
+        for i, kind in enumerate(kinds):
+            rng = np.random.RandomState(200 + i)
+            if kind == "rollout":
+                ins = scripted.k2_random_inputs(env, B)
+            elif kind == "paddle_ball":
+                ins = tuple(torch.as_tensor(a, device=dev)
+                            for a in scripted.k2_inputs(env, kind, B, rng))
+            else:
+                ins = [torch.as_tensor(a, device=dev)
+                       for a in scripted.k2_inputs(env, "ball_rest", B, rng)]
+                table = fused_geom_lists(env.scene)[0][0]
+                top = float(table["pos"][2] + table["size"][2])
+                rb = env.scene.free_bodies[0].radius
+                ins[4][:, 2] = torch.as_tensor(top + rb + rng.uniform(0.0, 0.01, B),
+                                               dtype=torch.float32, device=dev)
+                ins[5][:, 2] = torch.as_tensor(-rng.uniform(2.0, 4.0, B),
+                                               dtype=torch.float32, device=dev)
+                ins = tuple(ins)
+            fold(acc, check_kernel(f"k2/{label}_{kind}", k, plain, ins, fields={
+                "task": task, "substep_dt": float(k.consts[F.C_DT]),
+                "table_restitution": env.cfg["env"]["scene"]["tableRestitution"]}))
+
+
+def parity_checks(dev):
+    """The parity tool (``isaacgym_tpu_torch.parity.env_step``) on the card
+    on its committed fixture, every scene: the port's env step against the
+    JAX package's outputs within the parity gates; then the wrong forms on
+    the flagship's file, each of which the gates must reject
+    (``parity_gates``). Returns the kernel launches of each scene's check."""
+    from isaacgym_tpu_torch.parity import env_step as E
+    data = os.path.join(os.path.dirname(E.__file__), "data")
+    launches = {}
+    for name in PARITY_FILES:
+        res = E.check(os.path.join(data, f"{name}.npz"), "cuda")
+        emit({"phase": f"parity/{name}", **res})
+        want = 2 * res["samples"]
+        if res["gate"] != "PASS" or res["kernel_launches"] != want:
+            raise SystemExit(f"parity/{name}: {res['gate_failures']}, "
+                             f"{res['kernel_launches']} launches for {want}")
+        launches[name] = res["kernel_launches"]
+    t0 = time.perf_counter()
+    rejected = {form: E.check(os.path.join(data, "flagship.npz"), "cuda",
+                              mutate=f)["gate_failures"] for form, f in E.WRONG_FORMS.items()}
+    emit({"phase": "parity_gates", "rejected": rejected, "seconds": time.perf_counter() - t0})
+    if not all(rejected.values()):
+        raise SystemExit(f"parity_gates: a wrong form passed the gates: {rejected}")
+    return launches
+
+
+def k2_task_main(dev, task, label, steps=100):
+    """One single-humanoid task's env step at 4096 envs through K2: 100
+    steps under uniform random actions, K2 exactly 2 launches per step,
+    every state finite. Returns K2's launches."""
+    import torch
+    import isaacgym_tpu_torch
+    t0 = time.perf_counter()
+    env = isaacgym_tpu_torch.make(seed=0, task=task, num_envs=B)
+    k = env.sim.fused_substep
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state, obs = env.reset()
+    torch.cuda.synchronize()
+    k.launches = 0
+    resets = 0
+    tw = time.perf_counter()
+    for _ in range(steps):
+        state, obs, rew, done, info = env.step(
+            state, torch.rand((B, 7), generator=gen, device=dev) * 2 - 1)
+        resets += done.sum()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tw
+    launches = k.launches
+    finite = all(bool(torch.isfinite(t).all()) for t in state.sim) and bool(
+        torch.isfinite(obs).all() and torch.isfinite(rew).all())
+    emit({"phase": f"{label}_main", "task": task, "num_envs": B, "steps": steps,
+          "route": env.sim.route, "k2_launches": launches, "env_steps_per_s": B * steps / wall,
+          "ms_per_step": wall * 1e3 / steps, "resets": int(resets), "finite": finite,
+          "seconds": time.perf_counter() - t0})
+    if env.sim.route != "k2" or launches != 2 * steps or not finite:
+        raise SystemExit(f"{label}_main: route {env.sim.route}, K2 launched {launches} times "
+                         f"in {steps} steps, finite={finite}")
+    return launches
+
+
+def k2_task_train(dev, task, label):
+    """One full-width PPO epoch of a single-humanoid task on its own train
+    config at 4096 envs: K2 exactly 2 x 32 launches, every metric finite.
+    Returns K2's launches."""
+    import torch
+    import isaacgym_tpu_torch
+    from isaacgym_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
+    from isaacgym_tpu_torch.utils.config import compose
+    t0 = time.perf_counter()
+    cfg = compose(task, [f"num_envs={B}"])
+    env = isaacgym_tpu_torch.make(seed=0, task=task, cfg=cfg["task"])
+    trainer = PPOTrainer(env, PPOConfig.from_train_cfg(cfg["train"]), seed=0)
+    ts = trainer.init_state()
+    state, obs = env.reset()
+    k = env.sim.fused_substep
+    torch.cuda.synchronize()
+    k.launches = 0
+    te = time.perf_counter()
+    ts, state, obs, metrics = trainer.train_epoch(ts, state, obs)
+    m = {k_: float(v) for k_, v in metrics.items()}
+    epoch_s = time.perf_counter() - te
+    launches = k.launches
+    finite = all(math.isfinite(v) for v in m.values())
+    emit({"phase": f"{label}_train", "task": task, "num_envs": B, "k2_launches": launches,
+          "epoch_s": epoch_s, "env_steps_per_s": B * trainer.cfg.horizon_length / epoch_s,
+          "finite": finite, **{k_: m[k_] for k_ in ("reward_mean", "episode_count", "a_loss",
+                                                    "c_loss", "kl", "last_lr")},
+          "seconds": time.perf_counter() - t0})
+    if launches != 2 * trainer.cfg.horizon_length or not finite:
+        raise SystemExit(f"{label}_train: K2 launched {launches} times, metrics {m}")
+    return launches
 
 
 def tau_checks(dev, host, k2_sets, rz, k4_sets):
@@ -1651,6 +1808,10 @@ def main():
     env_t = terrain_env(B)
     k1 = k1_checks(dev, host, env_t)
 
+    # ---- 2g: the parity tool on its committed fixture, every scene, and the
+    # gates' bite
+    parity_launches = parity_checks(dev)
+
     # ---- 3: the main path
     t0 = time.perf_counter()
     env = isaacgym_tpu_torch.make(seed=0, task=TASK, num_envs=B)
@@ -1798,6 +1959,10 @@ def main():
         raise SystemExit(f"c6_main: K2 launched {c6_launches} times in 100 steps, "
                          f"finite={finite}")
     del env6, state, obs
+
+    # ---- 4c2: C5 and C9 through K2
+    c5_launches = k2_task_main(dev, C5, "c5")
+    c9_launches = k2_task_main(dev, C9, "c9")
 
     # ---- 4d: the force-sensor path through K2-tau, K3-tau and K4-tau
     tau_launches, _ = sensor_path(dev)
@@ -2100,6 +2265,10 @@ def main():
           "seconds": time.perf_counter() - t0})
     del env_c10, trainer_c10, ts10, state10, obs10
 
+    # ---- 7c2: one full-width epoch each of C5 and C9 through K2
+    c5_train_launches = k2_task_train(dev, C5, "c5")
+    c9_train_launches = k2_task_train(dev, C9, "c9")
+
     # ---- 7d: terrain training through K1, without DR
     k1_train_launches = terrain_train(dev)
 
@@ -2136,7 +2305,8 @@ def main():
         "source": "isaacgym_tpu_torch/csrc/arm_step.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:447",
         "launches": k1_launches, "launches_by_path": {
-            "terrain_main": k1_launches, "terrain_train": k1_train_launches},
+            "terrain_main": k1_launches, "terrain_train": k1_train_launches,
+            "parity/terrain": parity_launches["terrain"]},
         **k1, "library_ms": None,
         "us": k1["ms"] * 1e3, "plain_us": k1["plain_ms"] * 1e3,
         "bound_us": k1["bound_ms"] * 1e3}, {
@@ -2144,7 +2314,10 @@ def main():
         "source": "isaacgym_tpu_torch/csrc/fused_substep.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:754",
         "launches": launches, "launches_by_path": {
-            "main": launches, "train": train_launches["k2"], "train_nodr": nodr_launches["k2"]},
+            "main": launches, "train": train_launches["k2"], "train_nodr": nodr_launches["k2"],
+            "c5_main": c5_launches, "c9_main": c9_launches, "c5_train": c5_train_launches,
+            "c9_train": c9_train_launches,
+            **{f"parity/{n}": parity_launches[n] for n in ("flagship", "c5", "c6", "c9")}},
         **k2_line, "library_ms": None, "us": k2_line["ms"] * 1e3,
         "plain_us": k2_line["plain_ms"] * 1e3, "bound_us": k2_line["bound_ms"] * 1e3}, {
         "name": "fused_substep_dr", "route": "cuda",
@@ -2159,7 +2332,8 @@ def main():
         "source": "isaacgym_tpu_torch/csrc/fused_substep_multi.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:1477",
         "launches": c8_launches, "launches_by_path": {
-            "c8_main": c8_launches, "c8_train": c8_train_launches},
+            "c8_main": c8_launches, "c8_train": c8_train_launches,
+            "parity/c8": parity_launches["c8"]},
         **k3, "library_ms": None, "us": k3["ms"] * 1e3, "plain_us": k3["plain_ms"] * 1e3,
         "bound_us": k3["bound_ms"] * 1e3}, {
         "name": "fused_substep_tau", "route": "cuda",
@@ -2186,7 +2360,8 @@ def main():
         "source": "isaacgym_tpu_torch/csrc/fused_substep_floating.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:2225",
         "launches": c10_launches, "launches_by_path": {
-            "c10_main": c10_launches, "c10_train": c10_train_launches},
+            "c10_main": c10_launches, "c10_train": c10_train_launches,
+            "parity/c10": parity_launches["c10"]},
         **k4, "library_ms": None, "us": k4["ms"] * 1e3, "plain_us": k4["plain_ms"] * 1e3,
         "bound_us": k4["bound_ms"] * 1e3}, {
         "name": "fused_substep_floating_tau", "route": "cuda",

@@ -1,0 +1,256 @@
+"""The port's env step against the JAX package's, single-step and flip-aware,
+at the widths of the parity gates.
+
+    python -m isaacgym_tpu_torch.parity.env_step DIR [--device cuda|cpu]
+        [--tasks flagship c5 ...] [--out FILE.jsonl]
+
+``DIR`` holds one ``<task>.npz`` per task, written on a machine with JAX by
+``tools/torch_parity_export.py`` (``build/parity/`` at the gates' widths;
+``isaacgym_tpu_torch/parity/data/`` is the committed 64-env fixture): the
+states of a JAX random-action rollout, each with its action, and the JAX
+env step's outputs from them. For each file the port's env is built at the
+file's task and width (the terrain flagship on ``rough_terrain_cfg``'s
+seeded field), each state is converted and stepped once with its action,
+the envs that reset being handed the JAX step's own new ball roots through
+``sample_ball_velocity`` (and ``sample_ball_start``), and the gate of
+``tools/parity_tpu.py:138-199`` is applied to the outputs:
+
+* reset flips (the done flag differs) and contact flips (a done flag that
+  agrees but a root more than 0.1 apart in some lane) are counted and
+  excluded; a reset flip must move the root more than 0.1 (the reset's
+  teleport), since a done flag that its state contradicts is no rounding
+  flip (``unmoved_resets``, gated at 0);
+* on the envs left, an env whose flags, progress or episode info differ is
+  an event flip (a one-shot latch or the episode end decided at an f32
+  margin), counted and excluded too;
+* the no-flip maxima of dof_pos, dof_vel, root, net contact force, obs and
+  reward are held to the task's row of ``GATES``, and the rate of contact
+  and event flips to its ``max_flip_rate``.
+
+It prints one JSON line per task and exits non-zero when a task fails.
+The port imports nothing of the JAX package: ``GATES`` is a copy.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from isaacgym_tpu_torch.parity import nvidia_smi
+
+# A copy of ``GATES`` in ``tools/parity_tpu.py:56-84``: per task, the most
+# each field of a no-flip env may deviate in one step, and the most envs per
+# step that may flip. Its own comment gives each row's origin.
+GATES = {
+    "HumanoidPingpongTiltNoEarlyStopG1": dict(
+        max_dof_pos=0.01, max_dof_vel=1.5, max_root=0.2, max_ncf=10.0,
+        max_obs=0.2, max_reward=40.0, max_flip_rate=0.002),
+    "HumanoidPingpongTiltG1": dict(
+        max_dof_pos=0.01, max_dof_vel=1.5, max_root=0.25, max_ncf=20.0,
+        max_obs=0.25, max_reward=10.0, max_flip_rate=0.005),
+    "Humanoid12PingpongTiltG1": dict(
+        max_dof_pos=0.01, max_dof_vel=1.5, max_root=0.2, max_ncf=20.0,
+        max_obs=0.2, max_reward=10.0, max_flip_rate=0.005),
+    "HumanoidPingpongTiltNESSparse27DOFG1": dict(
+        max_dof_pos=0.05, max_dof_vel=20.0, max_root=0.3, max_ncf=1.5e5,
+        max_obs=1500.0, max_reward=5.0, max_flip_rate=0.25),
+    "HumanoidPingpong5ActorG1": dict(
+        max_dof_pos=0.4, max_dof_vel=60.0, max_root=0.25, max_ncf=1.2e4,
+        max_obs=7.0, max_reward=0.1, max_flip_rate=0.02),
+}
+GATED_FIELDS = ("dof_pos", "dof_vel", "root", "ncf", "obs", "reward")
+C10 = "HumanoidPingpongTiltNESSparse27DOFG1"
+#: C10's obs lane of the unclamped y-intercept (humanoid block 114, ball
+#: position and velocity 6): it amplifies last-ulp velocity noise without
+#: bound, so it alone is left out (the comment at ``tools/parity_tpu.py:72-78``)
+C10_Y_INTERCEPT_LANE = 114 + 6
+#: C10's row gates obs at 1500 for that lane's sake; with the lane left out
+#: the other lanes are held to 150, the row's value before that relaxation
+C10_OBS_GATE = 150.0
+
+
+def gate_for(name: str, task: str) -> Dict[str, float]:
+    """The gate row of a file: its task's own row; C6's for C5 and C9 (the
+    same scene at another dt or restitution), the flagship's for the
+    terrain flagship; C10's with obs at ``C10_OBS_GATE``."""
+    if task in ("HumanoidPingpongG1", "HumanoidPingpongAlignmentG1"):
+        task = "HumanoidPingpongTiltG1"
+    row = dict(GATES[task])
+    if task == C10:
+        row["max_obs"] = C10_OBS_GATE
+    return row
+
+
+def load(path: str):
+    """(meta, arrays) of one exported file."""
+    with np.load(path) as f:
+        meta = json.loads(str(f["meta_json"]))
+        arrays = {k: f[k] for k in f.files if k != "meta_json"}
+    return meta, arrays
+
+
+def make_env(meta, device):
+    """The port's env of a file's task and width."""
+    from isaacgym_tpu_torch.make import make
+    from isaacgym_tpu_torch.tasks.pingpong_common import rough_terrain_cfg
+    from isaacgym_tpu_torch.utils.config import load_task_config
+    cfg = None
+    if meta.get("terrain_seed") is not None:
+        cfg = rough_terrain_cfg(load_task_config(meta["task"]), seed=int(meta["terrain_seed"]))
+    return make(seed=0, task=meta["task"], num_envs=int(meta["num_envs"]), device=device,
+                cfg=cfg)
+
+
+def env_state(arrays, prefix: str, i: int, device):
+    """The state ``i`` of the file's ``in`` or ``out`` side as an
+    :class:`EnvState`."""
+    from isaacgym_tpu_torch.interop import env_state_from_numpy
+    pick = lambda part: {k[len(prefix) + len(part) + 2:]: v[i] for k, v in arrays.items()
+                         if k.startswith(f"{prefix}.{part}.")}
+    return env_state_from_numpy(dict(sim=pick("sim"), flags=pick("flags"),
+                                     progress=arrays[f"{prefix}.progress"][i],
+                                     pre_ball_root=arrays[f"{prefix}.pre_ball_root"][i],
+                                     ep_return=arrays[f"{prefix}.ep_return"][i]), device)
+
+
+def route_launches(sim) -> int:
+    """Launches counted so far by the wrappers of the simulator's kernels."""
+    n = 0
+    for k in (sim.fused_substep, sim.fused_substep_dr, sim.fused_substep_multi,
+              sim.fused_substep_floating):
+        n += k.launches if k is not None else 0
+    return n + sum(a.launches for a in (sim.arm_steps or ()))
+
+
+def _per_env_max(a, b):
+    d = (a.float() - b.float()).abs()
+    return d.reshape(d.shape[0], -1).amax(dim=1)
+
+
+def check(path: str, device="cuda", mutate: Optional[Callable] = None) -> dict:
+    """One file's comparison. ``mutate``, if given, rewrites the port's
+    step outputs ``(state, obs, reward, done, info)`` before the comparison
+    (the wrong forms that a gate must reject)."""
+    t0 = time.time()
+    meta, arrays = load(path)
+    task, B = meta["task"], int(meta["num_envs"])
+    dev = torch.device(device)
+    env = make_env(meta, dev)
+    ba = env.ball_actor
+    gate = gate_for(meta["name"], task)
+    lanes = torch.ones(env.num_obs, dtype=torch.bool, device=dev)
+    if task == C10:
+        lanes[C10_Y_INTERCEPT_LANE] = False
+    T = lambda k, i: torch.as_tensor(arrays[k][i], device=dev)
+    dev_max = {k: 0.0 for k in GATED_FIELDS}
+    counts = dict(reset_flips=0, contact_flips=0, event_flips=0, unmoved_resets=0, resets=0)
+    launches0 = route_launches(env.sim)
+    S = int(meta["states"])
+    for i in range(S):
+        launch = T("out.sim.root", i)[:, ba]
+        env.sample_ball_velocity = lambda n, v=launch[:, 7:10]: v[:n].clone()
+        env.sample_ball_start = lambda n, v=launch[:, 1:3]: v[:n].clone()
+        sp2, op, rp, dp, ip = env.step(env_state(arrays, "in", i, dev), T("action", i))
+        if mutate is not None:
+            sp2, op, rp, dp, ip = mutate(sp2, op, rp, dp, ip)
+        sj = env_state(arrays, "out", i, dev)
+        dj = T("out.done", i).bool()
+        keep = dp.bool() == dj
+        moved = _per_env_max(sp2.sim.root, sj.sim.root) > 0.1
+        counts["resets"] += int(dj.sum())
+        counts["reset_flips"] += int((~keep).sum())
+        counts["unmoved_resets"] += int((~keep & ~moved).sum())
+        counts["contact_flips"] += int((keep & moved).sum())
+        clean = keep & ~moved
+        same = sp2.progress == sj.progress
+        for k in sj.flags:
+            same &= sp2.flags[k] == sj.flags[k]
+        for k in ("time_outs", "episode_done", "episode_length"):
+            same &= ip[k].to(torch.int32) == T(f"out.info.{k}", i).to(torch.int32)
+        counts["event_flips"] += int((clean & ~same).sum())
+        clean &= same
+        pairs = dict(dof_pos=(sp2.sim.dof_pos, sj.sim.dof_pos),
+                     dof_vel=(sp2.sim.dof_vel, sj.sim.dof_vel),
+                     root=(sp2.sim.root, sj.sim.root),
+                     ncf=(sp2.sim.net_contact_force, sj.sim.net_contact_force),
+                     obs=(op[:, lanes], T("out.obs", i)[:, lanes]),
+                     reward=(rp, T("out.reward", i)))
+        if bool(clean.any()):
+            for k, (x, y) in pairs.items():
+                dev_max[k] = max(dev_max[k], float(_per_env_max(x, y)[clean].max()))
+    compared = S * B
+    flip_rate = (counts["contact_flips"] + counts["event_flips"]) / compared
+    out = {"task": meta["name"], "registry_task": task, "num_envs": B, "samples": S,
+           "env_steps_compared": compared, "device": dev.type,
+           "card": nvidia_smi() if dev.type == "cuda" else None, "route": env.sim.route,
+           "kernel_launches": route_launches(env.sim) - launches0, **counts,
+           "flip_rate": flip_rate, **{f"max_{k}_no_flip": v for k, v in dev_max.items()},
+           "gate_row": gate}
+    failures = [f"{k}: {dev_max[k]:.3e} > {gate[f'max_{k}']:.3e}" for k in GATED_FIELDS
+                if not dev_max[k] <= gate[f"max_{k}"]]
+    if not flip_rate <= gate["max_flip_rate"]:
+        failures.append(f"flip_rate: {flip_rate:.5f} > {gate['max_flip_rate']}")
+    if counts["unmoved_resets"]:
+        failures.append(f"unmoved_resets: {counts['unmoved_resets']} done flags the state "
+                        "contradicts")
+    out["gate"] = "PASS" if not failures else "FAIL"
+    out["gate_failures"] = failures
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def negate_dof_vel(sp2, op, rp, dp, ip):
+    """A wrong form: the port's dof velocities negated."""
+    return sp2._replace(sim=sp2.sim._replace(dof_vel=-sp2.sim.dof_vel)), op, rp, dp, ip
+
+
+def flip_one_done(sp2, op, rp, dp, ip):
+    """A wrong form: the first env's done flag flipped, nothing else."""
+    dp = dp.clone()
+    dp[0] = ~dp[0].bool() if dp.dtype == torch.bool else 1 - dp[0]
+    return sp2, op, rp, dp, ip
+
+
+WRONG_FORMS = {"negated_dof_vel": negate_dof_vel, "flipped_done": flip_one_done}
+
+
+def files(directory: str, tasks=None):
+    names = sorted(f[:-4] for f in os.listdir(directory) if f.endswith(".npz"))
+    return [os.path.join(directory, f"{n}.npz") for n in names if not tasks or n in tasks]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("dir")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--tasks", nargs="*", default=None)
+    ap.add_argument("--out", default="")
+    a = ap.parse_args(argv)
+    paths = files(a.dir, a.tasks)
+    if not paths:
+        print(f"no .npz files in {a.dir}", file=sys.stderr)
+        return 2
+    failed = []
+    for path in paths:
+        res = check(path, a.device)
+        print(json.dumps(res), flush=True)
+        if a.out:
+            with open(a.out, "a") as f:
+                f.write(json.dumps(res) + "\n")
+        if res["gate"] != "PASS":
+            failed.append(res["task"])
+    if failed:
+        print(f"parity gate failed: {failed}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

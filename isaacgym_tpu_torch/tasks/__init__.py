@@ -1,5 +1,8 @@
-"""Task registry of the port: the flagship, C6, C8 and C10 so far (ROADMAP,
-module 1 queues the other single-humanoid tasks)."""
+"""Task registry of the port (``isaacgym_tpu/tasks/__init__.py``): every
+single-humanoid task (C5, C6, C9, the flagship and its
+``HumanoidPingpongTiltGaussFTG1`` alias, which the JAX package maps to the
+flagship's class with its own config), C8 and C10 (ROADMAP, module 7 queues
+C11)."""
 
 from __future__ import annotations
 
@@ -7,15 +10,20 @@ from typing import Dict
 
 
 def task_registry() -> Dict[str, type]:
+    from isaacgym_tpu_torch.tasks.humanoid_pingpong import HumanoidPingpong
     from isaacgym_tpu_torch.tasks.humanoid_pingpong_27dof import (
         HumanoidPingpongTiltNESSparse27DOF,
     )
     from isaacgym_tpu_torch.tasks.humanoid_pingpong_4actor_tilt import Humanoid12PingpongTilt
+    from isaacgym_tpu_torch.tasks.humanoid_pingpong_alignment import HumanoidPingpongAlignment
     from isaacgym_tpu_torch.tasks.humanoid_pingpong_tilt import HumanoidPingpongTilt
     from isaacgym_tpu_torch.tasks.humanoid_pingpong_tilt_no_earlystop import (
         HumanoidPingpongTiltNoEarlyStop,
     )
-    return {"HumanoidPingpongTiltG1": HumanoidPingpongTilt,
+    return {"HumanoidPingpongG1": HumanoidPingpong,
+            "HumanoidPingpongTiltG1": HumanoidPingpongTilt,
             "HumanoidPingpongTiltNoEarlyStopG1": HumanoidPingpongTiltNoEarlyStop,
+            "HumanoidPingpongTiltGaussFTG1": HumanoidPingpongTiltNoEarlyStop,
             "Humanoid12PingpongTiltG1": Humanoid12PingpongTilt,
+            "HumanoidPingpongAlignmentG1": HumanoidPingpongAlignment,
             "HumanoidPingpongTiltNESSparse27DOFG1": HumanoidPingpongTiltNESSparse27DOF}

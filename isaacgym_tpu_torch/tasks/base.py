@@ -1,6 +1,7 @@
 """Shared base of the pingpong task family (``isaacgym_tpu/tasks/base.py``):
-the 3- or 4-actor scene, the randomized 3-D ball launch at reset (and, for
-C10, a randomized ball start height and side, ``BALL_START_YZ``),
+the 3- or 4-actor scene, the randomized 3-D ball launch at reset (C5's
+planar one with ``BALL_3D_LAUNCH`` off; and, for C10, a randomized ball
+start height and side, ``BALL_START_YZ``),
 heading-local observations and PD position drive over the humanoid's
 DOFs. With ``heightmap.enabled`` the observation gains the heading-local
 terrain height grid (``:43-55``, ``:95-104``; 15 x 15 points over +-0.6 m by
@@ -25,6 +26,7 @@ class PingpongFamilyTask(TorchVecTask):
     PADDLE_BODY = 39             # paddle body index within a humanoid
     RESTORE_DOF_ON_RESET = True  # False: the flagship keeps the pose
     BALL_START_YZ = False        # True: the ball starts at a random y, z (C10)
+    BALL_3D_LAUNCH = True        # False: C5's planar launch (vz = 0)
 
     def __init__(self, cfg, seed: int = 42, device="cuda"):
         env = cfg["env"]
@@ -62,6 +64,10 @@ class PingpongFamilyTask(TorchVecTask):
         return self.body_states_id
 
     def sample_ball_velocity(self, n):
+        if not self.BALL_3D_LAUNCH:
+            return P.sample_ball_velocity_planar(n, self.initial_speed_range,
+                                                 self.tilt_angle_range, self.generator,
+                                                 self.device)
         return P.sample_ball_velocity(n, self.initial_speed_range, self.tilt_angle_range,
                                       self.tilt_z_angle_range, self.generator, self.device)
 

@@ -3,7 +3,8 @@ family, batched in torch.
 
 Counterpart of ``isaacgym_tpu/tasks/pingpong_common.py``: the 3- or 4-actor
 scene (``build_pingpong_scene``, ``:41``, with a fixed or a floating base),
-the launch-velocity sampler (``:129``) and the heading-local observation
+the launch-velocity samplers (``:129``, and C5's planar one of
+``tasks/base.py:65-76``) and the heading-local observation
 blocks (``:145``, ``:165``), written over a leading batch dimension instead
 of per env. ``plane.terrain`` (``:83-98``, the reference's npy path, or the
 npy's array itself) makes the scene's ground a heightfield;
@@ -140,6 +141,17 @@ def sample_ball_velocity(n, speed_range, tilt_range_deg, tilt_z_range_deg,
     b = torch.deg2rad(tilt_z_range_deg[0] + (tilt_z_range_deg[1] - tilt_z_range_deg[0]) * u[2])
     return torch.stack([-s * torch.cos(a) * torch.cos(b), s * torch.sin(a) * torch.cos(b),
                         s * torch.sin(b)], dim=-1)
+
+
+def sample_ball_velocity_planar(n, speed_range, tilt_range_deg,
+                                generator: torch.Generator, device):
+    """(n, 3) planar launch velocities (C5, ``isaacgym_tpu/tasks/base.py:65-76``,
+    the reference's ``only_3_actor.py:289-305``): s = -U(speed_range),
+    a = U(tilt) degrees, v = (s cos a, s sin a, 0)."""
+    u = torch.rand((2, n), generator=generator, device=device)
+    s = -(speed_range[0] + (speed_range[1] - speed_range[0]) * u[0])
+    a = torch.deg2rad(tilt_range_deg[0] + (tilt_range_deg[1] - tilt_range_deg[0]) * u[1])
+    return torch.stack([s * torch.cos(a), s * torch.sin(a), torch.zeros_like(s)], dim=-1)
 
 
 def compute_humanoid_observations(body_states, dof_pos, dof_vel):

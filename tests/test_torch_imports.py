@@ -55,7 +55,7 @@ def test_port_imports_and_steps_with_jax_yaml_and_reference_blocked():
 import importlib
 for name in {_module_names()!r}:
     importlib.import_module(name)
-import torch, isaacgym_tpu_torch
+import os, torch, isaacgym_tpu_torch
 env = isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpongTiltNoEarlyStopG1",
                               num_envs=2, device="cpu")
 state, obs = env.reset()
@@ -82,6 +82,14 @@ statet, obst = envt.reset()
 statet, obst, rewt, donet, infot = envt.step(statet, torch.zeros(2, 7))
 assert obst.shape == (2, 305) and bool(torch.isfinite(obst).all())
 assert envt.sim.route == "k1" and envt.sim.arm_steps is not None
+for task in ("HumanoidPingpongG1", "HumanoidPingpongAlignmentG1", "HumanoidPingpongTiltGaussFTG1"):
+    envc = isaacgym_tpu_torch.make(seed=0, task=task, num_envs=2, device="cpu")
+    sc, oc = envc.reset()
+    sc, oc, rc, dc, ic = envc.step(sc, torch.zeros(2, 7))
+    assert oc.shape == (2, 80) and envc.sim.route == "k2" and bool(torch.isfinite(rc).all())
+from isaacgym_tpu_torch.parity import env_step, kl_pair
+res = env_step.check(os.path.join(os.path.dirname(env_step.__file__), "data", "c9.npz"), "cpu")
+assert res["gate"] == "PASS", res
 from isaacgym_tpu_torch.sim import scripted, tensor_api
 from isaacgym_tpu_torch.sim.simulator import Simulator
 from isaacgym_tpu_torch.utils.config import load_task_config
@@ -152,6 +160,15 @@ def test_c10_make_on_cuda_without_a_gpu_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpongTiltNESSparse27DOFG1",
                                 num_envs=4)
+
+
+@pytest.mark.parametrize("task", ("HumanoidPingpongG1", "HumanoidPingpongAlignmentG1",
+                                  "HumanoidPingpongTiltGaussFTG1"))
+def test_single_humanoid_make_on_cuda_without_a_gpu_raises(monkeypatch, task):
+    import isaacgym_tpu_torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        isaacgym_tpu_torch.make(seed=0, task=task, num_envs=4)
 
 
 def test_launcher_defaults_to_the_card_and_raises_without_one(monkeypatch, tmp_path):
