@@ -103,7 +103,7 @@ Each phase prints one JSON line with its seconds:
   parity/<scene>  the parity tool (isaacgym_tpu_torch.parity.env_step) on its
           committed fixture (64 envs x 4 states of the JAX package's env
           step, isaacgym_tpu_torch/parity/data/) for the flagship, C5, C6,
-          C8, C9, C10 and the terrain flagship: the port's step on the card
+          C8, C9, C10, the terrain flagship and C11: the port's step on the card
           within each scene's parity gates, its kernel launched twice a
           step; parity_gates  the port's dof velocities negated, and one
           env's done flag flipped alone, must each fail the gates;
@@ -177,8 +177,9 @@ Each phase prints one JSON line with its seconds:
   c10_train  the same for C10 on its own train config at 2048 envs, K4
           exactly 2 x 32 launches per epoch;
   c5_train, c9_train  one full-width PPO epoch each on its own train
-          config at 4096 envs: K2 exactly 2 x 32 launches, every metric
-          finite;
+          config at 4096 envs: K2 exactly 2 x 32 launches, seconds split
+          into rollout and update, every metric finite, the first
+          minibatch's loss falls;
   terrain_train  2 epochs of the terrain flagship without DR at 4096 envs,
           every env 29 steps from its episode's end: K1 exactly 2 x 32
           launches per epoch, episodes of 169, every metric finite, the loss
@@ -198,7 +199,34 @@ Each phase prints one JSON line with its seconds:
           3-DOF single-ball arm, shapes no kernel library is built for:
           Simulator on the card takes "nonkernel" and holds no kernel, and
           one step from a seeded random state equals the CPU's non-kernel
-          step within NONKERNEL_GATE, flip-aware.
+          step within NONKERNEL_GATE, flip-aware;
+  k3/c11_*, k3tau/c11_*  K3 and K3-tau at <26, 2, 2> (C11: two 26-DOF
+          humanoids under effort drive, two balls; K3-tau with a sensor on
+          each paddle) against their plain versions under the same
+          comparison at 4096 envs: reset (both balls' launches), rollout (60
+          env steps under random actions), paddle_ball1, paddle_ball2 (both
+          balls at the paddles) and ball_rest, efforts uniform in
+          +-C11_EFFORT; k3_gates/c11  K3's two wrong forms (as k3_gates)
+          must each fail the gates on some C11 set, and K3-tau's zeroed or
+          negated moment rows too; k3c11_timing, k3tauc11_timing  their
+          time per launch on the rollout states, plain version, bound,
+          ptxas usage and launch geometry (one env a block);
+  c11_main  make(seed=0, C11, 4096 envs), 100 steps under random actions:
+          route k3, K3 exactly 2 launches per step, every state finite,
+          env-steps/s; torch.profiler over 10 more steps (device busy
+          share, device kernels per step, K3's share);
+  c11_train  one PPO epoch of C11's train config at 4096 envs: K3 exactly
+          2 x 32 launches, seconds split into rollout and update, every
+          metric finite, the first minibatch's loss falls;
+  sensors/c11  the sensor path (above) on C11 with a sensor on each paddle:
+          K3-tau at <26, 2, 2>;
+  link/pendulums, link/sibling_arms, link/flagship  the link-vs-link
+          narrowphase (link_collision) through the non-kernel step: the JAX
+          tests' two pendulums and sibling arms at 4096 envs with per-env
+          swing velocities (30 steps), and the flagship with linkCollision
+          on at 4096 envs (20 steps): route nonkernel and no kernel held,
+          the pair count, ms per step, and one step against the CPU's
+          non-kernel step within NONKERNEL_GATE, flip-aware.
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; with
 no CUDA device, or run outside the repository, it exits non-zero at once.
@@ -220,8 +248,10 @@ C8 = "Humanoid12PingpongTiltG1"
 C10 = "HumanoidPingpongTiltNESSparse27DOFG1"
 C5 = "HumanoidPingpongG1"
 C9 = "HumanoidPingpongAlignmentG1"
+C11 = "HumanoidPingpong5ActorG1"
+C11_EFFORT = 20.0   # N m: C11's scripted sets' efforts are uniform in +-20 (effort drive)
 # the parity tool's committed fixture, one file per scene
-PARITY_FILES = ("flagship", "c5", "c6", "c8", "c9", "c10", "terrain")
+PARITY_FILES = ("flagship", "c5", "c6", "c8", "c9", "c10", "terrain", "c11")
 B = 4096
 B10 = 2048                     # C10's numEnvs (its config, and the reference's)
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -252,6 +282,9 @@ NONKERNEL_GATE = dict(root=1e-2, dof_pos=1e-5, dof_vel=2e-3, dof_force=1e-3,
 NONKERNEL_GATE_C10 = dict(root=5e-3, dof_pos=1e-5, dof_vel=3e-3, dof_force=5e-3,
                           net_contact_force=0.1, net_contact_torque=5e-3)
 C_F32 = 1.0                    # see compare
+# a kernel's numbers per built shape in the kernels line (K3, K3-tau)
+SHAPE_FIELDS = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "registers",
+                "stack_bytes", "spill_bytes", "smem_bytes")
 
 
 def emit(obj):
@@ -456,58 +489,59 @@ def bounced_envs(zs, dev):
     return int(((zmin < 0.85) & (later > zmin + 0.01)).sum())
 
 
-def k3_checks(dev, host):
-    """K3 against its plain version (float32 and float64) on the C8 and
-    check-scene state sets; then that the gates reject two wrong K3 outputs
-    (k3_gates): arm 1's qd_new negated, and K3 on a copy of the scene's pack
-    whose articulations list no geoms for the balls (the ball-vs-art
-    reactions dropped, everything else the same); then its timing, bound,
-    ptxas usage and launch geometry (k3_timing). Returns the kernels-line
-    numbers; raises on any failed gate."""
+def k3_without_ball_art(k):
+    """A copy of K3 wrapper ``k``'s pack whose articulations list no geoms
+    for the balls (each C_GEOM_HI set to its C_GEOM_LO): the pairs and the
+    impulse rows keep the geoms."""
+    from isaacgym_tpu_torch.ops import fused_substep_multi as M
+    consts = k.consts.copy()
+    lay = M.multi_layout(k.nd, k.K)
+    for a in range(k.K):
+        blk = lay["art0"] + a * lay["art_stride"]
+        consts[blk + M.C_GEOM_HI] = consts[blk + M.C_GEOM_LO]
+    return consts
+
+
+def k3_checks(dev, host, cases, seed, tag="", tau=None, plain_repeats=5):
+    """K3 against its plain version (float32 and float64) on each of
+    ``cases``, (name, env, kind, effort scale): ``scripted.k3_inputs`` of
+    that kind on that env drawn from RandomState(``seed`` + the case's
+    index), or for kind None a random-action rollout of the env; with
+    ``tau``, the same scene's K3-tau wrapper (a sensor on each paddle) on
+    the same sets, its moment gates rejecting each wrong moment form on some
+    set. Then that the gates reject two wrong K3 outputs on some set
+    (``k3_gates``): arm 1's qd_new negated, and K3 on a copy of the scene's
+    pack whose articulations list no geoms for the balls (the ball-vs-art
+    reactions dropped, everything else the same). Then K3's (and K3-tau's)
+    timing on the first case's rollout set, bound, ptxas usage and launch
+    geometry (``k3_timing``). ``tag`` names a second shape's phases
+    (``k3/{tag}_{name}``, ``k3_gates/{tag}``, ``k3{tag}_timing``,
+    ``k3tau{tag}_timing``). Returns the kernels-line numbers of K3, and of
+    K3-tau with ``tau``; raises on any failed gate."""
     import numpy as np
     import torch
-    import isaacgym_tpu_torch
     from isaacgym_tpu_torch.ops import fused_substep_multi as M
     from isaacgym_tpu_torch.sim import scripted
-    from isaacgym_tpu_torch.sim.scene import DRIVE_EFFORT, DRIVE_POS
 
-    env = isaacgym_tpu_torch.make(seed=0, task=C8, num_envs=B)
-    toy_pd = scripted.ToyEnv(DRIVE_POS, device=dev)
-    toy_effort = scripted.ToyEnv(DRIVE_EFFORT, device=dev)
-    cases = (("reset", env, "reset", 0.0), ("rollout", env, None, 0.0),
-             ("paddle_ball1", env, "paddle_ball1", 0.0), ("paddle_ball2", env, "paddle_ball2", 0.0),
-             ("ball_rest", env, "ball_rest", 0.0), ("ball_ball", toy_pd, "ball_ball", 0.0),
-             ("effort", toy_effort, "paddle_ball1", 15.0))
-
-    def without_ball_art(k):
-        """A copy of K3 wrapper ``k``'s pack whose articulations list no
-        geoms for the balls (each C_GEOM_HI set to its C_GEOM_LO): the
-        pairs and the impulse rows keep the geoms."""
-        consts = k.consts.copy()
-        lay = M.multi_layout(k.nd, k.K)
-        for a in range(k.K):
-            blk = lay["art0"] + a * lay["art_stride"]
-            consts[blk + M.C_GEOM_HI] = consts[blk + M.C_GEOM_LO]
-        return consts
-
-    sets, acc = {}, {"max_err": {}, "excess": {}}
+    pre = f"{tag}_" if tag else ""
+    acc, acc_tau = {"max_err": {}, "excess": {}}, {"max_err": {}, "excess": {}}
     wrong = {"arm 1's qd_new negated": [], "ball-vs-art reactions dropped": []}
-    no_art = {}
+    sets, no_art = {}, {}
     for i, (name, e, kind, scale) in enumerate(cases):
         if kind is None:
-            ins = scripted.k3_random_inputs(env, B)
+            ins = scripted.k3_random_inputs(e, B)
         else:
             ins = tuple(torch.as_tensor(a, device=dev) for a in scripted.k3_inputs(
-                e, kind, B, np.random.RandomState(200 + i), scale))
+                e, kind, B, np.random.RandomState(seed + i), scale))
         k = e.sim.fused_substep_multi
+        shape = {"shape": [k.nd, k.K, k.nb]}
         plain = lambda *a, k=k: M.fused_substep_multi_reference(k.device_consts(dev), *a)
-        res = check_kernel(f"k3/{name}", k, plain, ins, fields={"shape": [k.nd, k.K, k.nb]},
-                           keep_outputs=True)
+        res = check_kernel(f"k3/{pre}{name}", k, plain, ins, fields=shape, keep_outputs=True)
         got, want, want64 = res.pop("outputs")
         fold(acc, res)
         sets[name] = (e, ins)
         if k not in no_art:
-            no_art[k] = M.FusedSubstepMulti(without_ball_art(k))
+            no_art[k] = M.FusedSubstepMulti(k3_without_ball_art(k))
         nd = k.nd
         arm1 = torch.cat([got.qd_new[:, :nd], -got.qd_new[:, nd:2 * nd]], 1)
         for form, out in (("arm 1's qd_new negated", got._replace(qd_new=arm1)),
@@ -516,27 +550,45 @@ def k3_checks(dev, host):
             if (any(not v <= TOL[f] for f, v in r["excess"].items())
                     or r["flip_rate"] > MAX_FLIP_RATE):
                 wrong[form].append(name)
-    emit({"phase": "k3_gates", "rejected_on_sets": wrong})
+        if tau is not None:
+            plain_t = lambda *a: M.fused_substep_multi_reference(tau.device_consts(dev), *a,
+                                                                 with_torque=True)
+            fold(acc_tau, check_kernel(f"k3tau/{pre}{name}", tau, plain_t, ins, fields=shape))
+    gates = "k3_gates" + (f"/{tag}" if tag else "")
+    emit({"phase": gates, "rejected_on_sets": wrong,
+          **({"tau_wrong_moments_rejected": acc_tau.get("wrong_moments_rejected")}
+             if tau is not None else {})})
     if not all(wrong.values()):
-        raise SystemExit(f"k3_gates: the gates let a wrong K3 output pass on every set: {wrong}")
+        raise SystemExit(f"{gates}: the gates let a wrong K3 output pass on every set: {wrong}")
+    if tau is not None and len(acc_tau.pop("wrong_moments_rejected", ())) != 4:
+        raise SystemExit(f"{gates}: a wrong K3-tau moment form passed on every set")
 
-    # timing at the main path's shape, on the C8 rollout states
-    e, ins = sets["rollout"]
-    k = e.sim.fused_substep_multi
+    # timing at the main path's shape, on the first case's rollout states
+    e, ins = sets[next(n for n, _, kind, _ in cases if kind is None)]
     x = M.pack_inputs(*ins)
-    consts = k.device_consts(dev)
-    xc, cc = x.cpu(), torch.as_tensor(k.consts)
-    yc = torch.empty((M.n_out(k.nd_tot, k.nb, k.ng), B))
-    usage = ptxas_usage("libigt_fused_substep_multi.so", k3_entry(k))
-    t = time_kernel(
-        "k3_timing", fixed_launch(k, x, yc.shape[0]), lambda: k(*ins),
-        lambda: M.fused_substep_multi_reference(consts, *ins),
-        host.igt_fused_substep_multi_count_ops(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(), B,
-                                               k.nd, k.K, k.nb),
-        4 * B * (M.n_in(k.nd_tot, k.nb) + M.n_out(k.nd_tot, k.nb, k.ng)) + 4 * k.consts.size,
-        plain_repeats=5, fields={"shape": [k.nd, k.K, k.nb], **usage, **k3_geometry(k, B)})
-    return dict(acc, ms=t["kernel_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                bound_by=t["bound_by"], **usage)
+    xc = x.cpu()
+    out = {}
+    timed = [("k3", e.sim.fused_substep_multi, acc)] + (
+        [("k3tau", tau, acc_tau)] if tau is not None else [])
+    for label, kk, a in timed:
+        cc = torch.as_tensor(kk.consts)
+        yc = torch.empty((M.n_out(kk.nd_tot, kk.nb, kk.ng, kk.with_torque), B))
+        count = (host.igt_fused_substep_multi_tau_count_ops if kk.with_torque
+                 else host.igt_fused_substep_multi_count_ops)
+        usage = ptxas_usage("libigt_fused_substep_multi.so", k3_entry(kk))
+        geo = k3_geometry(kk, B)
+        t = time_kernel(
+            f"{label}{tag}_timing", fixed_launch(kk, x, yc.shape[0]), lambda kk=kk: kk(*ins),
+            lambda kk=kk: M.fused_substep_multi_reference(kk.device_consts(dev), *ins,
+                                                          with_torque=kk.with_torque),
+            count(cc.data_ptr(), xc.data_ptr(), yc.data_ptr(), B, kk.nd, kk.K, kk.nb),
+            4 * B * (M.n_in(kk.nd_tot, kk.nb) + yc.shape[0]) + 4 * kk.consts.size,
+            plain_repeats=plain_repeats,
+            fields={"shape": [kk.nd, kk.K, kk.nb], **usage, **geo})
+        out[label] = dict(a, ms=t["kernel_ms"], wrapper_ms=t["wrapper_ms"],
+                          plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                          bound_by=t["bound_by"], **usage, geometry=geo)
+    return out
 
 
 def k2_checks(dev, host):
@@ -730,72 +782,179 @@ def parity_checks(dev):
     return launches
 
 
-def k2_task_main(dev, task, label, steps=100):
-    """One single-humanoid task's env step at 4096 envs through K2: 100
-    steps under uniform random actions, K2 exactly 2 launches per step,
-    every state finite. Returns K2's launches."""
+ROUTE_KERNELS = {"k2": "fused_substep", "k3": "fused_substep_multi",
+                 "k4": "fused_substep_floating"}
+
+
+def task_main(dev, task, label, route, steps=100, profile=False):
+    """One task's env step at 4096 envs through its route's kernel (K2, or
+    K3 for C11): ``steps`` steps under uniform random actions, the route as
+    asked, its kernel exactly 2 launches per step, every state finite; with
+    ``profile`` 5 warm-up steps first and torch.profiler over 10 more steps
+    after (device busy share, device kernels per step, the kernel's share).
+    Returns the kernel's launches in the ``steps`` steps."""
     import torch
     import isaacgym_tpu_torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
     t0 = time.perf_counter()
     env = isaacgym_tpu_torch.make(seed=0, task=task, num_envs=B)
-    k = env.sim.fused_substep
+    name = ROUTE_KERNELS[route]
+    k = getattr(env.sim, name)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    act = lambda: torch.rand((B, env.num_actions), generator=gen, device=dev) * 2 - 1
     state, obs = env.reset()
+    for _ in range(5 if profile else 0):
+        state, *_ = env.step(state, act())
     torch.cuda.synchronize()
     k.launches = 0
     resets = 0
     tw = time.perf_counter()
     for _ in range(steps):
-        state, obs, rew, done, info = env.step(
-            state, torch.rand((B, 7), generator=gen, device=dev) * 2 - 1)
+        state, obs, rew, done, info = env.step(state, act())
         resets += done.sum()
     torch.cuda.synchronize()
     wall = time.perf_counter() - tw
     launches = k.launches
     finite = all(bool(torch.isfinite(t).all()) for t in state.sim) and bool(
         torch.isfinite(obs).all() and torch.isfinite(rew).all())
-    emit({"phase": f"{label}_main", "task": task, "num_envs": B, "steps": steps,
-          "route": env.sim.route, "k2_launches": launches, "env_steps_per_s": B * steps / wall,
-          "ms_per_step": wall * 1e3 / steps, "resets": int(resets), "finite": finite,
-          "seconds": time.perf_counter() - t0})
-    if env.sim.route != "k2" or launches != 2 * steps or not finite:
-        raise SystemExit(f"{label}_main: route {env.sim.route}, K2 launched {launches} times "
-                         f"in {steps} steps, finite={finite}")
+    out = {"phase": f"{label}_main", "task": task, "num_envs": B, "steps": steps,
+           "route": env.sim.route, f"{route}_launches": launches,
+           "env_steps_per_s": B * steps / wall, "ms_per_step": wall * 1e3 / steps,
+           "resets": int(resets), "finite": finite}
+    if profile:
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tp = time.perf_counter()
+            for _ in range(10):
+                state, *_ = env.step(state, act())
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - tp) * 1e6
+        kernels = [(n, c, t) for n, (c, t) in device_kernels(prof).items()]
+        busy_us = sum(t for _, _, t in kernels)
+        k_us = sum(t for n, _, t in kernels if f"{name}_kernel" in n)
+        top = sorted(kernels, key=lambda r: -r[2])[:6]
+        out.update(profile_wall_ms_per_step=wall_us / 1e4,
+                   device_busy_ms_per_step=busy_us / 1e4, device_busy_share=busy_us / wall_us,
+                   device_kernels_per_step=sum(c for _, c, _ in kernels) / 10,
+                   **{f"{route}_ms_per_step": k_us / 1e4,
+                      f"{route}_share_of_busy": k_us / busy_us},
+                   top_kernels=[{"name": n[:70], "launches": c, "ms": t / 1e3}
+                                for n, c, t in top])
+    emit({**out, "seconds": time.perf_counter() - t0})
+    if env.sim.route != route or launches != 2 * steps or not finite:
+        raise SystemExit(f"{label}_main: route {env.sim.route}, {route} launched {launches} "
+                         f"times in {steps} steps, finite={finite}")
     return launches
 
 
-def k2_task_train(dev, task, label):
-    """One full-width PPO epoch of a single-humanoid task on its own train
-    config at 4096 envs: K2 exactly 2 x 32 launches, every metric finite.
-    Returns K2's launches."""
-    import torch
+def trainer_for(overrides=(), task=TASK, b=B):
+    """A task's env at ``b`` envs and a PPO trainer on its own train config,
+    with launcher-style ``overrides``."""
     import isaacgym_tpu_torch
     from isaacgym_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
     from isaacgym_tpu_torch.utils.config import compose
-    t0 = time.perf_counter()
-    cfg = compose(task, [f"num_envs={B}"])
+    cfg = compose(task, [f"num_envs={b}", *overrides])
     env = isaacgym_tpu_torch.make(seed=0, task=task, cfg=cfg["task"])
-    trainer = PPOTrainer(env, PPOConfig.from_train_cfg(cfg["train"]), seed=0)
-    ts = trainer.init_state()
-    state, obs = env.reset()
-    k = env.sim.fused_substep
-    torch.cuda.synchronize()
-    k.launches = 0
-    te = time.perf_counter()
-    ts, state, obs, metrics = trainer.train_epoch(ts, state, obs)
-    m = {k_: float(v) for k_, v in metrics.items()}
-    epoch_s = time.perf_counter() - te
-    launches = k.launches
-    finite = all(math.isfinite(v) for v in m.values())
-    emit({"phase": f"{label}_train", "task": task, "num_envs": B, "k2_launches": launches,
-          "epoch_s": epoch_s, "env_steps_per_s": B * trainer.cfg.horizon_length / epoch_s,
-          "finite": finite, **{k_: m[k_] for k_ in ("reward_mean", "episode_count", "a_loss",
-                                                    "c_loss", "kl", "last_lr")},
+    return env, PPOTrainer(env, PPOConfig.from_train_cfg(cfg["train"]), seed=0)
+
+
+def train_epochs(label, env, trainer, kernels, want, epochs, ts=None, state=None, obs=None,
+                 episode_length=None, extra=None):
+    """``epochs`` PPO epochs of ``trainer`` on ``env``, from ``ts``, ``state``
+    and ``obs`` (a fresh start where not given); one call per trainer, as it
+    wraps the trainer's rollout and update. Each epoch is emitted as
+    ``{label}/epoch``: its seconds split into rollout and update, and the
+    launches of each of ``kernels`` (name -> wrapper); then ``{label}``, the
+    totals, with medians over the epochs after the first where there are
+    more than one, and ``extra``. Checks each epoch: every kernel launched
+    ``want[name]`` times, every metric finite, a lower total loss on the
+    epoch's first minibatch rows after the update than before it, and with
+    ``episode_length`` every finished episode that long. Returns (ts, state,
+    obs, rows); raises on a failed check."""
+    import torch
+    t0 = time.perf_counter()
+    b, horizon = env.num_envs, trainer.cfg.horizon_length
+    rec = {"rollout_s": [], "update_s": [], "loss": []}
+    real_rollout, real_update = trainer._rollout_and_gae, trainer._update
+
+    def rollout(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_rollout(*a)
+        torch.cuda.synchronize()
+        rec["rollout_s"].append(time.perf_counter() - t)
+        return out
+
+    def update(ts_, batch, obs_stats):
+        mb0 = {k_: v[:trainer.cfg.minibatch_size] for k_, v in batch.items()}
+        with torch.no_grad():
+            before = float(trainer.loss(ts_.params, obs_stats, mb0)[0])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_update(ts_, batch, obs_stats)
+        torch.cuda.synchronize()
+        rec["update_s"].append(time.perf_counter() - t)
+        with torch.no_grad():
+            after = float(trainer.loss(out[0], obs_stats, mb0)[0])
+        rec["loss"].append((before, after))
+        return out
+
+    trainer._rollout_and_gae, trainer._update = rollout, update
+    if ts is None:
+        ts = trainer.init_state()
+    if state is None:
+        state, obs = env.reset()
+    rows = []
+    for it in range(epochs):
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        te = time.perf_counter()
+        ts, state, obs, metrics = trainer.train_epoch(ts, state, obs)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - te
+        m = {k_: float(v) for k_, v in metrics.items()}
+        n_ep = m["episode_count"]
+        row = {"epoch": it, "epoch_s": epoch_s, "rollout_s": rec["rollout_s"][-1],
+               "update_s": rec["update_s"][-1],
+               "rollout_env_steps_per_s": b * horizon / rec["rollout_s"][-1],
+               "env_steps_per_s": b * horizon / epoch_s,
+               "loss_first_mb_before_after": rec["loss"][-1],
+               **{f"{n}_launches": k.launches for n, k in kernels.items()},
+               "episode_count": n_ep,
+               "episode_length_mean": m["episode_length_sum"] / n_ep if n_ep else None,
+               "episode_return_mean": m["episode_return_sum"] / n_ep if n_ep else None,
+               **{k_: m[k_] for k_ in ("reward_mean", "a_loss", "c_loss", "kl", "last_lr")}}
+        emit({"phase": f"{label}/epoch", **row})
+        if ({n: k.launches for n, k in kernels.items()} != want
+                or not all(math.isfinite(v) for v in m.values())
+                or not rec["loss"][-1][1] < rec["loss"][-1][0]
+                or (episode_length and n_ep
+                    and m["episode_length_sum"] / n_ep != episode_length)):
+            raise SystemExit(f"{label}: epoch {it}: {row}, want launches {want}, {m}")
+        rows.append(row)
+    steady = rows[1:]
+    med = {f"{f}_median": statistics.median(r[f] for r in steady)
+           for f in ("epoch_s", "rollout_s", "update_s", "rollout_env_steps_per_s",
+                     "env_steps_per_s")} if steady else {}
+    emit({"phase": label, "epochs": epochs, "num_envs": b,
+          "launches": {n: sum(r[f"{n}_launches"] for r in rows) for n in kernels},
+          **{f: [r[f] for r in rows] for f in ("epoch_s", "rollout_s", "update_s",
+                                              "env_steps_per_s")},
+          **med, **(extra or {}), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "seconds": time.perf_counter() - t0})
-    if launches != 2 * trainer.cfg.horizon_length or not finite:
-        raise SystemExit(f"{label}_train: K2 launched {launches} times, metrics {m}")
-    return launches
+    return ts, state, obs, rows
+
+
+def task_train(dev, task, label, route, epochs=1, b=B):
+    """``epochs`` PPO epochs of a task on its own train config at ``b`` envs
+    (``train_epochs``) through its route's kernel (K2, K3 or K4): exactly
+    2 x horizon launches an epoch. Returns the launches."""
+    env, trainer = trainer_for(task=task, b=b)
+    route_k = getattr(env.sim, ROUTE_KERNELS[route])
+    rows = train_epochs(f"{label}_train", env, trainer, {route: route_k},
+                        {route: 2 * trainer.cfg.horizon_length}, epochs)[3]
+    return sum(r[f"{route}_launches"] for r in rows)
 
 
 def tau_checks(dev, host, k2_sets, rz, k4_sets):
@@ -1025,7 +1184,8 @@ def sensor_vs_plain(sim, state, tgt, eff):
 
 def sensor_path(dev, steps=100, relaunch_every=10):
     """The force-sensor path at full width: the flagship scene, then C8 (4096
-    envs), then C10 (2048), each with a sensor on every paddle
+    envs), then C10 (2048), then C11 (4096: K3-tau at <26, 2, 2>), each with
+    a sensor on every paddle
     (``create_asset_force_sensor``), ``steps`` calls of ``Simulator.step``
     from scripted off-centre strikes (re-launched every ``relaunch_every``
     steps), each read through ``acquire_force_sensor_tensor``. Checks that every strike (a sensor
@@ -1046,11 +1206,13 @@ def sensor_path(dev, steps=100, relaunch_every=10):
     for label, task, humanoids, kinds, b in (
             ("flagship", TASK, 1, ("paddle_ball",), B),
             ("c8", C8, 2, ("paddle_ball1", "paddle_ball2"), B),
-            ("c10", C10, 1, ("strike",), B10)):
+            ("c10", C10, 1, ("strike",), B10),
+            ("c11", C11, 2, ("paddle_ball1", "paddle_ball2"), B)):
         t0 = time.perf_counter()
         cfg = load_task_config(task)
         floating = label == "c10"
-        sim = Simulator(scripted.paddle_sensor_scene(cfg, humanoids, floating_base=floating),
+        sim = Simulator(c11_sensor_scene() if label == "c11" else
+                        scripted.paddle_sensor_scene(cfg, humanoids, floating_base=floating),
                         device=dev)
         k = (sim.fused_substep_floating if floating else
              sim.fused_substep if humanoids == 1 else sim.fused_substep_multi)
@@ -1678,64 +1840,124 @@ def baked_guard(dev):
 def terrain_train(dev):
     """2 PPO epochs of the terrain flagship at 4096 envs on its train config,
     without DR, every env 29 steps from its episode's end at the start (so
-    episodes finish in the first epoch): K1 exactly 2 x 32 launches per
-    epoch, every metric finite, a lower loss on the epoch's first minibatch
-    after the update than before it, and episodes of 169 steps. Returns
+    episodes finish in the first epoch), through ``train_epochs``: K1
+    exactly 2 x 32 launches per epoch and episodes of 169 steps. Returns
     K1's launches."""
     import torch
     import isaacgym_tpu_torch
     from isaacgym_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
     from isaacgym_tpu_torch.tasks.pingpong_common import rough_terrain_cfg
     from isaacgym_tpu_torch.utils.config import compose
-    t0 = time.perf_counter()
     cfg = compose(TASK, [f"num_envs={B}"])
     env = isaacgym_tpu_torch.make(seed=0, task=TASK, cfg=rough_terrain_cfg(cfg["task"], seed=0))
     trainer = PPOTrainer(env, PPOConfig.from_train_cfg(cfg["train"]), seed=0)
-    k1 = env.sim.arm_steps[0]
-    ts = trainer.init_state()
     state, obs = env.reset()
     state = state._replace(progress=torch.full_like(state.progress,
                                                     env.max_episode_length - 30))
-    real_update, losses = trainer._update, []
-
-    def update_checked(ts_, batch, obs_stats):
-        mb0 = {k_: v[:trainer.cfg.minibatch_size] for k_, v in batch.items()}
-        with torch.no_grad():
-            before = float(trainer.loss(ts_.params, obs_stats, mb0)[0])
-        out = real_update(ts_, batch, obs_stats)
-        with torch.no_grad():
-            after = float(trainer.loss(out[0], obs_stats, mb0)[0])
-        losses.append((before, after))
-        return out
-
-    trainer._update = update_checked
-    epochs = []
-    for it in range(2):
-        torch.cuda.synchronize()
-        k1.launches = 0
-        te = time.perf_counter()
-        ts, state, obs, metrics = trainer.train_epoch(ts, state, obs)
-        m = {k_: float(v) for k_, v in metrics.items()}
-        n_ep = m["episode_count"]
-        row = {"epoch": it, "epoch_s": time.perf_counter() - te, "k1_launches": k1.launches,
-               "loss_first_mb_before_after": losses[-1], "episode_count": n_ep,
-               "episode_length_mean": m["episode_length_sum"] / n_ep if n_ep else None,
-               **{k_: m[k_] for k_ in ("reward_mean", "a_loss", "c_loss", "kl", "last_lr")}}
-        emit({"phase": "terrain_train/epoch", **row})
-        if (k1.launches != 2 * trainer.cfg.horizon_length
-                or not all(math.isfinite(v) for v in m.values())
-                or not losses[-1][1] < losses[-1][0]
-                or (n_ep and m["episode_length_sum"] / n_ep != 169.0)):
-            raise SystemExit(f"terrain_train: epoch {it}: {row} {m}")
-        epochs.append(row)
-    if not epochs[0]["episode_count"]:
+    rows = train_epochs("terrain_train", env, trainer, {"k1": env.sim.arm_steps[0]},
+                        {"k1": 2 * trainer.cfg.horizon_length}, 2, state=state, obs=obs,
+                        episode_length=169.0)[3]
+    if not rows[0]["episode_count"]:
         raise SystemExit("terrain_train: no episode finished in the first epoch")
-    launches = sum(r["k1_launches"] for r in epochs)
-    emit({"phase": "terrain_train", "epochs": 2, "num_envs": B, "k1_launches": launches,
-          "epoch_s": [r["epoch_s"] for r in epochs],
-          "env_steps_per_s": [B * trainer.cfg.horizon_length / r["epoch_s"] for r in epochs],
-          "seconds": time.perf_counter() - t0})
-    return launches
+    return sum(r["k1_launches"] for r in rows)
+
+
+def c11_sensor_scene():
+    """C11's scene with a force sensor on each humanoid's paddle (K3-tau at
+    <26, 2, 2>)."""
+    from isaacgym_tpu_torch.sim import scripted
+    from isaacgym_tpu_torch.tasks.humanoid_pingpong_draft_5actor import build_5actor_scene
+    from isaacgym_tpu_torch.utils.config import load_task_config
+    return scripted.with_paddle_sensor(build_5actor_scene(load_task_config(C11)["sim"]))
+
+
+def link_checks(dev, b=B, steps=30, flagship_steps=20):
+    """The link-vs-link narrowphase (``link_collision``) on the card, through
+    the non-kernel step: the JAX tests' two pendulums and sibling arms
+    (``scripted.pendulum_scene``, ``sibling_arms_scene``) batched to ``b``
+    envs with per-env swing velocities, ``steps`` steps each; the flagship
+    with ``linkCollision`` on at ``b`` envs, ``flagship_steps`` steps under
+    random actions. Each: route nonkernel and no kernel held (0 launches),
+    its pair count, ms per step, and one step, from the state of the run's
+    busiest link-contact step (the scenes) or its last state (the flagship),
+    against the CPU's non-kernel step from the same state within
+    NONKERNEL_GATE, flip-aware. Raises on any failed check."""
+    import copy
+    import numpy as np
+    import torch
+    import isaacgym_tpu_torch
+    from isaacgym_tpu_torch.sim import scripted
+    from isaacgym_tpu_torch.sim.simulator import Simulator
+    from isaacgym_tpu_torch.utils.config import load_task_config
+
+    held = lambda sim: [n for n in ("arm_steps", "fused_substep", "fused_substep_dr",
+                                    "fused_substep_multi", "fused_substep_floating")
+                        if getattr(sim, n) is not None]
+    to = lambda s, d: type(s)(*[t.to(d) for t in s])
+    for label, scene_fn in (("pendulums", scripted.pendulum_scene),
+                            ("sibling_arms", scripted.sibling_arms_scene)):
+        t0 = time.perf_counter()
+        scene = scene_fn()
+        sim, cpu = Simulator(scene, device=dev), Simulator(scene, device="cpu")
+        state, tgt = scripted.link_strike_state(sim, b, np.random.RandomState(13))
+        zero = torch.zeros_like(tgt)
+        sim.step(state, tgt, zero)   # warm-up
+        torch.cuda.synchronize()
+        states, contacts = [state], []
+        tw = time.perf_counter()
+        for _ in range(steps):
+            state = sim.step(state, tgt, zero)
+            states.append(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tw
+        for s in states[1:]:
+            contacts.append(int((s.net_contact_force.abs().sum((1, 2)) > 0).sum()))
+        i = int(np.argmax(contacts))
+        want = cpu.step_nonkernel(to(states[i], "cpu"), tgt.cpu(), zero.cpu())
+        res = nonkernel_compare(states[i + 1], want, NONKERNEL_GATE)
+        row = {"num_envs": b, "steps": steps, "route": sim.route, "kernels_held": held(sim),
+               "link_pairs": len(sim._art_art_pairs), "ms_per_step": wall * 1e3 / steps,
+               "contact_envs_per_step": contacts, "compared_step": i, **res,
+               "seconds": time.perf_counter() - t0}
+        if label == "pendulums":   # the struck pendulum swings afterwards
+            row["struck_envs_swinging"] = int((states[-1].dof_vel[:, 1].abs() > 0.5).sum())
+        emit({"phase": f"link/{label}", **row})
+        if (sim.route != "nonkernel" or row["kernels_held"] or not row["link_pairs"]
+                or not res["within_gate"] or contacts[i] == 0
+                or row.get("struck_envs_swinging", 1) == 0):
+            raise SystemExit(f"link/{label}: {row}")
+
+    t0 = time.perf_counter()
+    cfg = copy.deepcopy(load_task_config(TASK))
+    cfg["env"]["scene"]["linkCollision"] = True
+    env = isaacgym_tpu_torch.make(seed=0, task=TASK, num_envs=b, cfg=cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    act = lambda: torch.rand((b, 7), generator=gen, device=dev) * 2 - 1
+    state, obs = env.reset()
+    state, *_ = env.step(state, act())   # warm-up
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    for _ in range(flagship_steps):
+        state, obs, rew, done, info = env.step(state, act())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tw
+    finite = all(bool(torch.isfinite(t).all()) for t in state.sim) and bool(
+        torch.isfinite(obs).all() and torch.isfinite(rew).all())
+    tgt, eff = env.action_to_drive(act())
+    got = env.sim.step(state.sim, tgt, eff)
+    cpu = Simulator(env.scene, device="cpu")
+    want = cpu.step_nonkernel(to(state.sim, "cpu"), tgt.cpu(), eff.cpu())
+    res = nonkernel_compare(got, want, NONKERNEL_GATE)
+    row = {"num_envs": b, "steps": flagship_steps, "route": env.sim.route,
+           "kernels_held": held(env.sim), "link_pairs": len(env.sim._art_art_pairs),
+           "ms_per_step": wall * 1e3 / flagship_steps,
+           "env_steps_per_s": b * flagship_steps / wall, "finite": finite, **res,
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "link/flagship", **row})
+    if (env.sim.route != "nonkernel" or row["kernels_held"] or row["link_pairs"] != 14
+            or not finite or not res["within_gate"]):
+        raise SystemExit(f"link/flagship: {row}")
 
 
 def main():
@@ -1779,7 +2001,7 @@ def main():
     for lib in (libs["fused_substep"], host):
         F.check_library_layout(lib, 7)
     for lib in (libs["fused_substep_multi"], host):
-        for nd in (7, 3):
+        for nd in (7, 3, 26):
             M.check_library_layout(lib, nd, 2)
     for lib in (libs["fused_substep_floating"], host):
         FL.check_library_layout(lib, 27)
@@ -1793,8 +2015,29 @@ def main():
     sets, rz, k2_line, k2dr_line = k2_checks(dev, host)
     gen = torch.Generator(device=dev)
 
-    # ---- 2c: K3 against its plain version, and its timing
-    k3 = k3_checks(dev, host)
+    # ---- 2c: K3 against its plain version, and its timing; K3 and K3-tau at
+    # <26, 2, 2> on C11's sets
+    from isaacgym_tpu_torch.sim.scene import DRIVE_EFFORT, DRIVE_POS
+    from isaacgym_tpu_torch.sim.simulator import Simulator
+    env8 = isaacgym_tpu_torch.make(seed=0, task=C8, num_envs=B)
+    toy_pd, toy_effort = (scripted.ToyEnv(d, device=dev) for d in (DRIVE_POS, DRIVE_EFFORT))
+    k3 = k3_checks(dev, host, [
+        ("reset", env8, "reset", 0.0), ("rollout", env8, None, 0.0),
+        ("paddle_ball1", env8, "paddle_ball1", 0.0), ("paddle_ball2", env8, "paddle_ball2", 0.0),
+        ("ball_rest", env8, "ball_rest", 0.0), ("ball_ball", toy_pd, "ball_ball", 0.0),
+        ("effort", toy_effort, "paddle_ball1", 15.0)], seed=200)["k3"]
+    # C11's sets under random efforts of up to C11_EFFORT; K3-tau on C11's
+    # scene with a sensor on each paddle
+    env11 = isaacgym_tpu_torch.make(seed=0, task=C11, num_envs=B)
+    k11 = env11.sim.fused_substep_multi
+    tau11 = Simulator(c11_sensor_scene(), device=dev).fused_substep_multi
+    if (k11.nd, k11.K, k11.nb) != (26, 2, 2) or not tau11.with_torque or tau11.nd != 26:
+        raise SystemExit(f"k3/c11: shapes {(k11.nd, k11.K, k11.nb)}, K3-tau {tau11.with_torque}")
+    lines = k3_checks(dev, host, [(n, env11, None if n == "rollout" else n, C11_EFFORT) for n in (
+        "reset", "rollout", "paddle_ball1", "paddle_ball2", "ball_rest")], seed=400, tag="c11",
+        tau=tau11, plain_repeats=3)
+    k3c11, k3tauc11 = lines["k3"], lines["k3tau"]
+    del env8, toy_pd, toy_effort, env11, k11, tau11, lines
 
     # ---- 2d: K4 against its plain version on C10, the gates' bite, its timing
     k4, k4_sets = k4_checks(dev, host)
@@ -1937,6 +2180,9 @@ def main():
           "seconds": time.perf_counter() - t0})
     del env8, state, obs
 
+    # ---- 4b2: the C11 env step through K3 at <26, 2, 2>
+    c11_launches = task_main(dev, C11, "c11", "k3", profile=True)
+
     # ---- 4c: the C6 env step through K2
     t0 = time.perf_counter()
     env6 = isaacgym_tpu_torch.make(seed=0, task=C6, num_envs=B)
@@ -1961,8 +2207,8 @@ def main():
     del env6, state, obs
 
     # ---- 4c2: C5 and C9 through K2
-    c5_launches = k2_task_main(dev, C5, "c5")
-    c9_launches = k2_task_main(dev, C9, "c9")
+    c5_launches = task_main(dev, C5, "c5", "k2")
+    c9_launches = task_main(dev, C9, "c9", "k2")
 
     # ---- 4d: the force-sensor path through K2-tau, K3-tau and K4-tau
     tau_launches, _ = sensor_path(dev)
@@ -2031,99 +2277,26 @@ def main():
     # ---- 5: training at full width with DR, through K2-dr
     from isaacgym_tpu_torch.rl import checkpoint
     from isaacgym_tpu_torch.rl.player import play
-    from isaacgym_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
-    from isaacgym_tpu_torch.utils.config import compose
-
-    def trainer_for(overrides, task=TASK, b=B):
-        cfg = compose(task, [f"num_envs={b}"] + overrides)
-        env = isaacgym_tpu_torch.make(seed=0, task=task, cfg=cfg["task"])
-        return env, PPOTrainer(env, PPOConfig.from_train_cfg(cfg["train"]), seed=0)
+    from isaacgym_tpu_torch.rl.ppo import PPOTrainer
 
     env, trainer = trainer_for(["task.randomize=true"])
     pcfg = trainer.cfg
-    halves = {"rollout": [], "update": []}
-    loss_checks = []
-
-    def timed(name, fn):
-        def run(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            halves[name].append(time.perf_counter() - t)
-            return out
-        return run
-
-    real_update = trainer._update
-    timed_update = timed("update", real_update)
-
-    def update_with_loss_check(ts_, batch, obs_stats):
-        # the total loss on the first minibatch's worth of rows, before and after
-        mb0 = {k_: v[:pcfg.minibatch_size] for k_, v in batch.items()}
-        with torch.no_grad():
-            before = float(trainer.loss(ts_.params, obs_stats, mb0)[0])
-        out = timed_update(ts_, batch, obs_stats)
-        with torch.no_grad():
-            after = float(trainer.loss(out[0], obs_stats, mb0)[0])
-        loss_checks.append((before, after))
-        return out
-
-    trainer._rollout_and_gae = timed("rollout", trainer._rollout_and_gae)
-    trainer._update = update_with_loss_check
     ts = trainer.init_state()
     state, obs = env.reset()
     # past the 3000-step ramp: every scheduled DR term at full strength
     state = state._replace(global_step=torch.full_like(state.global_step, 3000),
                            dr=env.randomizer.sample(env.generator, 3000, B))
-    k2, k2dr = env.sim.fused_substep, env.sim.fused_substep_dr
-    torch.cuda.synchronize()
-    k2.launches = k2dr.launches = 0
-    epochs = []
-    t0 = time.perf_counter()
-    for it in range(7):
-        te = time.perf_counter()
-        ts, state, obs, metrics = trainer.train_epoch(ts, state, obs)
-        m = {k_: float(v) for k_, v in metrics.items()}
-        epoch_s = time.perf_counter() - te
-        n_ep = m["episode_count"]
-        row = {"epoch": it, "epoch_s": epoch_s, "rollout_s": halves["rollout"][-1],
-               "update_s": halves["update"][-1],
-               "rollout_env_steps_per_s": B * pcfg.horizon_length / halves["rollout"][-1],
-               "env_steps_per_s": B * pcfg.horizon_length / epoch_s,
-               "loss_first_mb_before_after": loss_checks[-1],
-               "episode_count": n_ep,
-               "episode_length_mean": m["episode_length_sum"] / n_ep if n_ep else None,
-               "episode_return_mean": m["episode_return_sum"] / n_ep if n_ep else None,
-               **{k_: m[k_] for k_ in ("reward_mean", "a_loss", "c_loss", "kl", "last_lr")}}
-        emit({"phase": "train/epoch", **row})
-        if not all(math.isfinite(v) for v in m.values()):
-            raise SystemExit(f"train: non-finite metrics in epoch {it}: {m}")
-        if n_ep and m["episode_length_sum"] / n_ep != 169.0:
-            raise SystemExit(f"train: episode_length_mean {m['episode_length_sum'] / n_ep}")
-        if not loss_checks[-1][1] < loss_checks[-1][0]:
-            raise SystemExit(f"train: the update did not lower the loss: {loss_checks[-1]}")
-        epochs.append(row)
-    train_launches = {"k2": k2.launches, "k2dr": k2dr.launches}
-    want = 2 * pcfg.horizon_length * len(epochs)
-    if train_launches != {"k2": 0, "k2dr": want}:
-        raise SystemExit(f"train: launches {train_launches}, want K2-dr {want} and K2 0")
-    if not any(r["episode_count"] for r in epochs):
-        raise SystemExit("train: no episode finished in 7 epochs")
     n_weights = sum(mod.weight.numel() for mod in ts.params.modules()
                     if isinstance(mod, torch.nn.Linear))
     upd_flop = 3 * 2 * n_weights * B * pcfg.horizon_length * pcfg.mini_epochs
-    steady = epochs[1:]
-    emit({"phase": "train", "epochs": len(epochs), "launches": train_launches,
-          "epoch_s_median": statistics.median(r["epoch_s"] for r in steady),
-          "rollout_s_median": statistics.median(r["rollout_s"] for r in steady),
-          "update_s_median": statistics.median(r["update_s"] for r in steady),
-          "rollout_env_steps_per_s_median": statistics.median(
-              r["rollout_env_steps_per_s"] for r in steady),
-          "env_steps_per_s_median": statistics.median(r["env_steps_per_s"] for r in steady),
-          "net_weights": n_weights, "update_flop": upd_flop,
-          "update_bf16_floor_ms": upd_flop / PEAK_BF16_OPS_PER_S * 1e3,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "seconds": time.perf_counter() - t0})
+    ts, state, obs, epochs = train_epochs(
+        "train", env, trainer, {"k2": env.sim.fused_substep, "k2dr": env.sim.fused_substep_dr},
+        {"k2": 0, "k2dr": 2 * pcfg.horizon_length}, 7, ts, state, obs, episode_length=169.0,
+        extra={"net_weights": n_weights, "update_flop": upd_flop,
+               "update_bf16_floor_ms": upd_flop / PEAK_BF16_OPS_PER_S * 1e3})
+    train_launches = {n: sum(r[f"{n}_launches"] for r in epochs) for n in ("k2", "k2dr")}
+    if not any(r["episode_count"] for r in epochs):
+        raise SystemExit("train: no episode finished in 7 epochs")
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2143,22 +2316,12 @@ def main():
           "seconds": time.perf_counter() - t0})
 
     # ---- 6: the launcher's default route (randomize false) through K2
-    t0 = time.perf_counter()
-    env_n, trainer_n = trainer_for([])
-    ts_n = trainer_n.init_state()
-    state_n, obs_n = env_n.reset()
-    k2n, k2drn = env_n.sim.fused_substep, env_n.sim.fused_substep_dr
-    torch.cuda.synchronize()
-    k2n.launches = k2drn.launches = 0
-    for _ in range(2):
-        ts_n, state_n, obs_n, metrics_n = trainer_n.train_epoch(ts_n, state_n, obs_n)
-    nodr_finite = all(math.isfinite(float(v)) for v in metrics_n.values())
-    nodr_launches = {"k2": k2n.launches, "k2dr": k2drn.launches}
-    emit({"phase": "train_nodr", "epochs": 2, "launches": nodr_launches,
-          "finite": nodr_finite, "seconds": time.perf_counter() - t0})
-    if nodr_launches != {"k2": 2 * 2 * pcfg.horizon_length, "k2dr": 0} or not nodr_finite:
-        raise SystemExit(f"train_nodr: launches {nodr_launches} finite {nodr_finite}")
-    del env_n, trainer_n, ts_n, state_n, obs_n
+    env_n, trainer_n = trainer_for()
+    rows = train_epochs("train_nodr", env_n, trainer_n,
+                        {"k2": env_n.sim.fused_substep, "k2dr": env_n.sim.fused_substep_dr},
+                        {"k2": 2 * pcfg.horizon_length, "k2dr": 0}, 2)[3]
+    nodr_launches = {n: sum(r[f"{n}_launches"] for r in rows) for n in ("k2", "k2dr")}
+    del env_n, trainer_n
 
     # ---- 7: checkpoint round trip, then play one episode
     t0 = time.perf_counter()
@@ -2178,96 +2341,17 @@ def main():
         raise SystemExit(f"ckpt: mu identical {same}, play {stats}")
 
     # ---- 7b: C8 training through K3
-    t0 = time.perf_counter()
-    env_c8, trainer_c8 = trainer_for([], task=C8)
-    ts8 = trainer_c8.init_state()
-    state8, obs8 = env_c8.reset()
-    k3t = env_c8.sim.fused_substep_multi
-    real_update8 = trainer_c8._update
-    c8_losses = []
+    c8_train_launches = task_train(dev, C8, "c8", "k3", epochs=2)
 
-    def update_checked8(ts_, batch, obs_stats):
-        mb0 = {k_: v[:trainer_c8.cfg.minibatch_size] for k_, v in batch.items()}
-        with torch.no_grad():
-            before = float(trainer_c8.loss(ts_.params, obs_stats, mb0)[0])
-        out = real_update8(ts_, batch, obs_stats)
-        with torch.no_grad():
-            after = float(trainer_c8.loss(out[0], obs_stats, mb0)[0])
-        c8_losses.append((before, after))
-        return out
-
-    trainer_c8._update = update_checked8
-    c8_epochs = []
-    for it in range(2):
-        torch.cuda.synchronize()
-        k3t.launches = 0
-        te = time.perf_counter()
-        ts8, state8, obs8, metrics8 = trainer_c8.train_epoch(ts8, state8, obs8)
-        m = {k_: float(v) for k_, v in metrics8.items()}
-        row = {"epoch": it, "epoch_s": time.perf_counter() - te, "k3_launches": k3t.launches,
-               "loss_first_mb_before_after": c8_losses[-1],
-               **{k_: m[k_] for k_ in ("reward_mean", "a_loss", "c_loss", "kl", "last_lr")}}
-        emit({"phase": "c8_train/epoch", **row})
-        if (k3t.launches != 2 * trainer_c8.cfg.horizon_length
-                or not all(math.isfinite(v) for v in m.values())
-                or not c8_losses[-1][1] < c8_losses[-1][0]):
-            raise SystemExit(f"c8_train: epoch {it}: {row} {m}")
-        c8_epochs.append(row)
-    c8_train_launches = sum(r["k3_launches"] for r in c8_epochs)
-    emit({"phase": "c8_train", "epochs": 2, "k3_launches": c8_train_launches,
-          "epoch_s": [r["epoch_s"] for r in c8_epochs],
-          "env_steps_per_s": [B * trainer_c8.cfg.horizon_length / r["epoch_s"]
-                              for r in c8_epochs],
-          "seconds": time.perf_counter() - t0})
-    del env_c8, trainer_c8, ts8, state8, obs8
+    # ---- 7b2: one C11 epoch through K3 at <26, 2, 2>
+    c11_train_launches = task_train(dev, C11, "c11", "k3")
 
     # ---- 7c: C10 training through K4, at its 2048 envs
-    t0 = time.perf_counter()
-    env_c10, trainer_c10 = trainer_for([], task=C10, b=B10)
-    ts10 = trainer_c10.init_state()
-    state10, obs10 = env_c10.reset()
-    k4t = env_c10.sim.fused_substep_floating
-    real_update10 = trainer_c10._update
-    c10_losses = []
-
-    def update_checked10(ts_, batch, obs_stats):
-        mb0 = {k_: v[:trainer_c10.cfg.minibatch_size] for k_, v in batch.items()}
-        with torch.no_grad():
-            before = float(trainer_c10.loss(ts_.params, obs_stats, mb0)[0])
-        out = real_update10(ts_, batch, obs_stats)
-        with torch.no_grad():
-            after = float(trainer_c10.loss(out[0], obs_stats, mb0)[0])
-        c10_losses.append((before, after))
-        return out
-
-    trainer_c10._update = update_checked10
-    c10_epochs = []
-    for it in range(2):
-        torch.cuda.synchronize()
-        k4t.launches = 0
-        te = time.perf_counter()
-        ts10, state10, obs10, metrics10 = trainer_c10.train_epoch(ts10, state10, obs10)
-        m = {k_: float(v) for k_, v in metrics10.items()}
-        row = {"epoch": it, "epoch_s": time.perf_counter() - te, "k4_launches": k4t.launches,
-               "loss_first_mb_before_after": c10_losses[-1],
-               **{k_: m[k_] for k_ in ("reward_mean", "a_loss", "c_loss", "kl", "last_lr")}}
-        emit({"phase": "c10_train/epoch", **row})
-        if (k4t.launches != 2 * trainer_c10.cfg.horizon_length
-                or not all(math.isfinite(v) for v in m.values())
-                or not c10_losses[-1][1] < c10_losses[-1][0]):
-            raise SystemExit(f"c10_train: epoch {it}: {row} {m}")
-        c10_epochs.append(row)
-    c10_train_launches = sum(r["k4_launches"] for r in c10_epochs)
-    emit({"phase": "c10_train", "epochs": 2, "num_envs": B10, "k4_launches": c10_train_launches,
-          "epoch_s": [r["epoch_s"] for r in c10_epochs],
-          "env_steps_per_s": [B10 * trainer_c10.cfg.horizon_length / r["epoch_s"]
-                              for r in c10_epochs],
-          "seconds": time.perf_counter() - t0})
-    del env_c10, trainer_c10, ts10, state10, obs10
+    c10_train_launches = task_train(dev, C10, "c10", "k4", epochs=2, b=B10)
 
     # ---- 7c2: one full-width epoch each of C5 and C9 through K2
-    c5_train_launches = k2_task_train(dev, C5, "c5")
-    c9_train_launches = k2_task_train(dev, C9, "c9")
+    c5_train_launches = task_train(dev, C5, "c5", "k2")
+    c9_train_launches = task_train(dev, C9, "c9", "k2")
 
     # ---- 7d: terrain training through K1, without DR
     k1_train_launches = terrain_train(dev)
@@ -2298,6 +2382,9 @@ def main():
 
     # ---- 7f: shapes no kernel library is built for take the non-kernel step
     route_checks(dev)
+
+    # ---- 7g: link-vs-link contacts on the non-kernel step
+    link_checks(dev)
 
     # ---- 8: the kernels line, the card, the verdict
     emit({"kernels": [{
@@ -2333,9 +2420,12 @@ def main():
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:1477",
         "launches": c8_launches, "launches_by_path": {
             "c8_main": c8_launches, "c8_train": c8_train_launches,
-            "parity/c8": parity_launches["c8"]},
+            "parity/c8": parity_launches["c8"], "c11_main": c11_launches,
+            "c11_train": c11_train_launches, "parity/c11": parity_launches["c11"]},
         **k3, "library_ms": None, "us": k3["ms"] * 1e3, "plain_us": k3["plain_ms"] * 1e3,
-        "bound_us": k3["bound_ms"] * 1e3}, {
+        "bound_us": k3["bound_ms"] * 1e3,
+        "by_shape": {"7,2,1": {f: k3[f] for f in SHAPE_FIELDS},
+                     "26,2,2": {f: k3c11[f] for f in SHAPE_FIELDS}}}, {
         "name": "fused_substep_tau", "route": "cuda",
         "source": "isaacgym_tpu_torch/csrc/fused_substep.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:754 (with_torque=True)",
@@ -2353,9 +2443,12 @@ def main():
         "name": "fused_substep_multi_tau", "route": "cuda",
         "source": "isaacgym_tpu_torch/csrc/fused_substep_multi.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:1477 (with_torque=True)",
-        "launches": tau_launches["c8"], "launches_by_path": {"sensors": tau_launches["c8"]},
+        "launches": tau_launches["c8"], "launches_by_path": {
+            "sensors": tau_launches["c8"], "sensors/c11": tau_launches["c11"]},
         **k3tau, "library_ms": None, "us": k3tau["ms"] * 1e3,
-        "plain_us": k3tau["plain_ms"] * 1e3, "bound_us": k3tau["bound_ms"] * 1e3}, {
+        "plain_us": k3tau["plain_ms"] * 1e3, "bound_us": k3tau["bound_ms"] * 1e3,
+        "by_shape": {"7,2,1": {f: k3tau[f] for f in SHAPE_FIELDS},
+                     "26,2,2": {f: k3tauc11[f] for f in SHAPE_FIELDS}}}, {
         "name": "fused_substep_floating", "route": "cuda",
         "source": "isaacgym_tpu_torch/csrc/fused_substep_floating.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:2225",

@@ -200,10 +200,11 @@ IGT_HD void dof_half_angle(const float* c, ArmState<T, ND>& ar, int d) {
 // (bp, bq) (sin and cos from dof_half_angle), DOF by DOF in index order on
 // one lane; with ``vel`` also the velocity and bias propagation (qdd = 0). A
 // DOF's parent frame and rates come from registers when the parent is the
-// DOF just formed (every DOF of a chain), else from the block. C8's arms,
-// the flagship's and the check scene's are chains, where one phase per depth
-// of the tree (K4's fk_levels) has no parallelism to offer and costs a sync
-// and a reload per depth.
+// DOF just formed (every DOF of a chain), else from the block (C11's 26-DOF
+// tree: four chains off the base, each chain's root from the base pose).
+// C8's arms, the flagship's and the check scene's are chains, where one
+// phase per depth of the tree (K4's fk_levels) has no parallelism to offer
+// and costs a sync and a reload per depth.
 template <class T, int ND>
 IGT_HD void fk_walk(const float* c, V3<T> bp, Q4<T> bq, ArmState<T, ND>& ar, ArmDyn<T, ND>& dy,
                     bool vel) {

@@ -118,6 +118,8 @@ long long run_multi(const float* consts, const float* x, float* y, int B, int nd
     multi_envs<T, WITH_TORQUE, 7, 2, 1>(consts, x, y, B, reverse);
   } else if (nd == 3 && k == 2 && nb == 2) {
     multi_envs<T, WITH_TORQUE, 3, 2, 2>(consts, x, y, B, reverse);
+  } else if (nd == 26 && k == 2 && nb == 2) {
+    multi_envs<T, WITH_TORQUE, 26, 2, 2>(consts, x, y, B, reverse);
   } else {
     return -1;
   }

@@ -6,16 +6,24 @@
 // and art_warp.cuh.
 //
 // Instantiated for <ND, K, NB> = <7, 2, 1> (C8: two 7-DOF humanoids, one
-// ball) and <3, 2, 2> (the two-arm, two-ball check scene), each without and
-// with the torque lanes (WITH_TORQUE, launched only for scenes that register
-// a force sensor); any other shape is refused with cudaErrorInvalidValue. A
-// block holds kEnvs = 4 envs, one warp each, and their shared blocks (static
-// shared memory, 14-21 KB a block); __launch_bounds__ asks ptxas for
-// kBlocksPerSM = 8 resident blocks per SM, so at most 64 registers a thread:
-// at C8's 4096 envs that is 1,024 blocks, all resident at once on the card's
-// 132 SMs (32 warps on most). Inputs and outputs are channel-major (channel,
-// B) float32 buffers; a warp reads and writes its env's column, one channel
-// per lane. The constants are read with __ldg.
+// ball), <3, 2, 2> (the two-arm, two-ball check scene) and <26, 2, 2> (C11:
+// two 26-DOF humanoids, two balls), each without and with the torque lanes
+// (WITH_TORQUE, launched only for scenes that register a force sensor); any
+// other shape is refused with cudaErrorInvalidValue. A block holds
+// Geometry<ND, K, NB>::envs envs, one warp each, and their shared blocks
+// (static shared memory, at most 48 KB a block), and each instantiation asks
+// ptxas for its own blocks_per_sm resident blocks per SM (__launch_bounds__):
+//   - <7, 2, 1> and <3, 2, 2>: 4 envs (14-21 KB) a block, 8 blocks per SM,
+//     so at most 64 registers a thread; at C8's 4096 envs that is 1,024
+//     blocks, all resident at once on the card's 132 SMs (32 warps on most);
+//   - <26, 2, 2>: one env a block, 45,816 B of shared memory (the two 26 x 26
+//     J and I axw tables of the dynamics' scratch are most of it), so 4
+//     blocks fit an SM's 228 KB: 4 warps per SM, and no register cap below
+//     the 255 a thread may hold. Taking 4 envs a block in dynamic shared
+//     memory would give one block of the same 4 warps per SM.
+// Inputs and outputs are channel-major (channel, B) float32 buffers; a warp
+// reads and writes its env's column, one channel per lane. The constants are
+// read with __ldg.
 //
 // What bounds it on an H100: instruction issue. With one warp to each of an
 // SM's four schedulers (528 envs) a launch takes about half as long as at
@@ -42,18 +50,29 @@
 
 namespace {
 
-constexpr int kEnvs = 4;          // envs (warps) per block
-constexpr int kBlocksPerSM = 8;
-
-static_assert(sizeof(igt::MultiShared<float, 7, 2, 1, true>) * kEnvs <= 48 * 1024 &&
-                  sizeof(igt::MultiShared<float, 3, 2, 2, true>) * kEnvs <= 48 * 1024,
-              "the envs' shared blocks exceed the static shared memory of a block");
+// The launch geometry of one shape: envs (warps) per block, and the resident
+// blocks per SM that __launch_bounds__ asks for.
+template <int ND, int K, int NB>
+struct Geometry {
+  static constexpr int envs = 4;
+  static constexpr int blocks_per_sm = 8;
+};
+template <>
+struct Geometry<26, 2, 2> {
+  static constexpr int envs = 1;
+  static constexpr int blocks_per_sm = 4;
+};
 
 template <int ND, int K, int NB, bool WITH_TORQUE>
-__global__ void __launch_bounds__(kEnvs * igt::WARP, kBlocksPerSM)
+__global__ void __launch_bounds__(Geometry<ND, K, NB>::envs * igt::WARP,
+                                  Geometry<ND, K, NB>::blocks_per_sm)
 fused_substep_multi_kernel(const float* __restrict__ c, const float* __restrict__ x,
                            float* __restrict__ y, int B) {
-  __shared__ igt::MultiShared<float, ND, K, NB, WITH_TORQUE> sh[kEnvs];
+  constexpr int kEnvs = Geometry<ND, K, NB>::envs;
+  using Shared = igt::MultiShared<float, ND, K, NB, WITH_TORQUE>;
+  static_assert(sizeof(Shared) * kEnvs <= 48 * 1024,
+                "the envs' shared blocks exceed the static shared memory of a block");
+  __shared__ Shared sh[kEnvs];
   const int e = threadIdx.x / igt::WARP;
   const int b = blockIdx.x * kEnvs + e;
   if (b >= B) return;   // the whole warp: a warp is one env
@@ -63,6 +82,7 @@ fused_substep_multi_kernel(const float* __restrict__ c, const float* __restrict_
 
 template <int ND, int K, int NB, bool WITH_TORQUE>
 int launch(const float* c, const float* x, float* y, int B, void* stream) {
+  constexpr int kEnvs = Geometry<ND, K, NB>::envs;
   const int grid = (B + kEnvs - 1) / kEnvs;
   fused_substep_multi_kernel<ND, K, NB, WITH_TORQUE>
       <<<grid, kEnvs * igt::WARP, 0, (cudaStream_t)stream>>>(c, x, y, B);
@@ -75,17 +95,23 @@ int launch_shape(const float* c, const float* x, float* y, int B, int nd, int k,
   if (B < 1 || ng < 0 || ng > igt::MULTI_MAX_ART) return (int)cudaErrorInvalidValue;
   if (nd == 7 && k == 2 && nb == 1) return launch<7, 2, 1, WITH_TORQUE>(c, x, y, B, stream);
   if (nd == 3 && k == 2 && nb == 2) return launch<3, 2, 2, WITH_TORQUE>(c, x, y, B, stream);
+  if (nd == 26 && k == 2 && nb == 2) return launch<26, 2, 2, WITH_TORQUE>(c, x, y, B, stream);
   return (int)cudaErrorInvalidValue;
 }
 
+// The shape's geometry in out[0..1] and the blocks per SM that the runtime's
+// occupancy calculator finds in out[2].
 template <int ND, int K, int NB>
-cudaError_t fit(bool with_torque, int* blocks) {
+cudaError_t fit(bool with_torque, int* out) {
+  using G = Geometry<ND, K, NB>;
+  out[0] = G::envs;
+  out[1] = G::blocks_per_sm;
   return with_torque ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           blocks, fused_substep_multi_kernel<ND, K, NB, true>,
-                           kEnvs * igt::WARP, 0)
+                           out + 2, fused_substep_multi_kernel<ND, K, NB, true>,
+                           G::envs * igt::WARP, 0)
                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           blocks, fused_substep_multi_kernel<ND, K, NB, false>,
-                           kEnvs * igt::WARP, 0);
+                           out + 2, fused_substep_multi_kernel<ND, K, NB, false>,
+                           G::envs * igt::WARP, 0);
 }
 
 }  // namespace
@@ -112,19 +138,11 @@ extern "C" int igt_fused_substep_multi_tau_launch(const float* consts, const flo
 // built for.
 extern "C" int igt_multi_occupancy(int nd, int k, int nb, int with_torque, int* out, int n) {
   if (n < 3) return (int)cudaErrorInvalidValue;
-  int blocks = 0;
-  cudaError_t err;
-  if (nd == 7 && k == 2 && nb == 1) {
-    err = fit<7, 2, 1>(with_torque != 0, &blocks);
-  } else if (nd == 3 && k == 2 && nb == 2) {
-    err = fit<3, 2, 2>(with_torque != 0, &blocks);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  out[0] = kEnvs;
-  out[1] = kBlocksPerSM;
-  out[2] = blocks;
-  return (int)err;
+  out[2] = 0;
+  if (nd == 7 && k == 2 && nb == 1) return (int)fit<7, 2, 1>(with_torque != 0, out);
+  if (nd == 3 && k == 2 && nb == 2) return (int)fit<3, 2, 2>(with_torque != 0, out);
+  if (nd == 26 && k == 2 && nb == 2) return (int)fit<26, 2, 2>(with_torque != 0, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int igt_multi_layout(int nd, int k, int* out, int n) {

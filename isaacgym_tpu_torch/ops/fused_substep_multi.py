@@ -56,8 +56,8 @@ from isaacgym_tpu_torch.ops import fused_substep as F
 from isaacgym_tpu_torch.ops.fused_substep import FusedStepOutputs, stack
 
 #: (DOF count per articulation, articulations, balls) the kernel is built for:
-#: C8, and the two-arm, two-ball check scene
-KERNEL_SHAPES = ((7, 2, 1), (3, 2, 2))
+#: C8, the two-arm, two-ball check scene, and C11
+KERNEL_SHAPES = ((7, 2, 1), (3, 2, 2), (26, 2, 2))
 MAX_BALLS = 2
 MAX_STATIC = 24
 MAX_ART = 16

@@ -12,7 +12,8 @@ env step's outputs from them. For each file the port's env is built at the
 file's task and width (the terrain flagship on ``rough_terrain_cfg``'s
 seeded field), each state is converted and stepped once with its action,
 the envs that reset being handed the JAX step's own new ball roots through
-``sample_ball_velocity`` (and ``sample_ball_start``), and the gate of
+``sample_ball_velocity`` (and ``sample_ball_start``; C11's two balls through
+``sample_ball_velocities``), and the gate of
 ``tools/parity_tpu.py:138-199`` is applied to the outputs:
 
 * reset flips (the done flag differs) and contact flips (a done flag that
@@ -129,6 +130,21 @@ def route_launches(sim) -> int:
     return n + sum(a.launches for a in (sim.arm_steps or ()))
 
 
+def inject_launches(env, root_out):
+    """Hand the port's env the JAX step's own launches, from the roots the
+    JAX step wrote (``root_out`` (B, actors, 13)), for the envs that reset:
+    both balls' through ``sample_ball_velocities`` where the task launches
+    two (C11), else the ball's through ``sample_ball_velocity`` and
+    ``sample_ball_start``."""
+    if hasattr(env, "sample_ball_velocities"):
+        v1, v2 = root_out[:, env.BALL1, 7:10], root_out[:, env.BALL2, 7:10]
+        env.sample_ball_velocities = lambda n: (v1[:n].clone(), v2[:n].clone())
+        return
+    launch = root_out[:, env.ball_actor]
+    env.sample_ball_velocity = lambda n, v=launch[:, 7:10]: v[:n].clone()
+    env.sample_ball_start = lambda n, v=launch[:, 1:3]: v[:n].clone()
+
+
 def _per_env_max(a, b):
     d = (a.float() - b.float()).abs()
     return d.reshape(d.shape[0], -1).amax(dim=1)
@@ -143,7 +159,6 @@ def check(path: str, device="cuda", mutate: Optional[Callable] = None) -> dict:
     task, B = meta["task"], int(meta["num_envs"])
     dev = torch.device(device)
     env = make_env(meta, dev)
-    ba = env.ball_actor
     gate = gate_for(meta["name"], task)
     lanes = torch.ones(env.num_obs, dtype=torch.bool, device=dev)
     if task == C10:
@@ -154,9 +169,7 @@ def check(path: str, device="cuda", mutate: Optional[Callable] = None) -> dict:
     launches0 = route_launches(env.sim)
     S = int(meta["states"])
     for i in range(S):
-        launch = T("out.sim.root", i)[:, ba]
-        env.sample_ball_velocity = lambda n, v=launch[:, 7:10]: v[:n].clone()
-        env.sample_ball_start = lambda n, v=launch[:, 1:3]: v[:n].clone()
+        inject_launches(env, T("out.sim.root", i))
         sp2, op, rp, dp, ip = env.step(env_state(arrays, "in", i, dev), T("action", i))
         if mutate is not None:
             sp2, op, rp, dp, ip = mutate(sp2, op, rp, dp, ip)

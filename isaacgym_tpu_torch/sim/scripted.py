@@ -15,15 +15,17 @@ K2 (``k2_inputs``, (B, n) each):
                table, so this set needs the scene of ``raised_table_cfg``
   ball_rest    the ball resting on the table top
 
-K3 (``k3_inputs``, balls (B, NB, 3)), on C8 or on the two-arm, two-ball
-check scene of ``toy_multi_scene`` (the JAX package's own test scene):
-  reset        reset states (C8: config launch ranges; toy: the JAX test's
-               two launches)
-  paddle_ball1 ball 0 in front of articulation 0's paddle (toy: ball 1 at
-               articulation 1's)
+K3 (``k3_inputs``, balls (B, NB, 3)), on C8, on C11 or on the two-arm,
+two-ball check scene of ``toy_multi_scene`` (the JAX package's own test
+scene):
+  reset        reset states (C8: config launch ranges; C11: both balls'
+               planar launches from the task's ``sample_ball_velocities``;
+               toy: the JAX test's two launches)
+  paddle_ball1 ball 0 in front of articulation 0's paddle (C11 and toy:
+               ball 1 at articulation 1's)
   paddle_ball2 ball 0 in front of articulation 1's paddle, the one yawed
-               180 deg (toy: ball 1 at articulation 0's)
-  ball_rest    C8 only: the ball resting on the table top
+               180 deg (C11 and toy: ball 1 at articulation 0's)
+  ball_rest    C8 and C11: ball 0 resting on the table top
   ball_ball    toy only: the two balls about to collide, one spinning
 
 K4 (``k4_inputs``, eleven (B, n) arrays: q, qd, targets, efforts, the
@@ -49,7 +51,8 @@ falling onto it, over the whole field and past its edges (the ground
 contact's sampling and its clamp to the field).
 
 The force-sensor path (K2-tau, K3-tau): ``paddle_sensor_scene`` compiles a
-task's scene with a force sensor on each humanoid's paddle, and
+task's scene with a force sensor on each humanoid's paddle
+(``with_paddle_sensor`` does so for any scene spec, C11's too), and
 ``strike_state`` makes a ``SimState`` of it from a paddle_ball set: each
 ball in front of a paddle, off its centre, heading in.
 """
@@ -63,7 +66,8 @@ import torch
 
 from isaacgym_tpu_torch.models import urdf as U
 from isaacgym_tpu_torch.models.kinematics import compile_tree, fk_dof_frames
-from isaacgym_tpu_torch.sim.scene import ActorSpec, PlaneParams, SceneSpec, compile_scene
+from isaacgym_tpu_torch.sim.scene import (DRIVE_POS, ActorSpec, PlaneParams, SceneSpec,
+                                          compile_scene)
 from isaacgym_tpu_torch.sim.simulator import floating_geom_lists, fused_geom_lists, true_statics
 from isaacgym_tpu_torch.utils import rotations as rot
 
@@ -385,7 +389,7 @@ def _ball_at_paddle(env, q_art, art, rng, rb):
 
 def k3_inputs(env, kind: str, B: int, rng: np.random.RandomState, effort_scale: float = 0.0):
     """(q, qd, targets, efforts, ball_pos, ball_vel, ball_omega) of K3 for
-    ``kind`` on ``env`` (a C8 env or a :class:`ToyEnv`). With
+    ``kind`` on ``env`` (a C8 or C11 env or a :class:`ToyEnv`). With
     ``effort_scale`` (effort drive) the efforts are uniform in that range
     and the targets zero; else the targets are uniform within the limits."""
     scene = env.scene
@@ -409,7 +413,10 @@ def k3_inputs(env, kind: str, B: int, rng: np.random.RandomState, effort_scale: 
     if kind == "reset":
         q, qd = np.zeros((B, n)), np.zeros((B, n))
         bw = 0 * bw
-        if env.cfg is not None:   # C8: the config's launch ranges
+        if hasattr(env, "sample_ball_velocities"):   # C11: the task's own launches
+            for bi, v in enumerate(env.sample_ball_velocities(B)):
+                bv[:, bi] = v.cpu().numpy()
+        elif env.cfg is not None:   # C8: the config's launch ranges
             ball = env.cfg["env"]["ball"]
             s = rng.uniform(*ball["initialSpeedRange"], B)
             a = np.radians(rng.uniform(*ball["tiltAngleRange"], B))
@@ -499,19 +506,24 @@ def k3_random_inputs(env, B: int, seed: int = 2, steps: int = 60):
         s.root[:, ba, 10:13]))
 
 
-def paddle_sensor_scene(cfg, humanoids: int = 1, floating_base: bool = False):
-    """The pingpong scene of task config ``cfg`` with a force sensor on the
-    paddle: registered once on the humanoids' shared asset before the scene
-    is compiled, so every humanoid carries one (``floating_base``: C10's
-    floating 27-DOF humanoid)."""
+def with_paddle_sensor(spec):
+    """Scene spec ``spec`` compiled with a force sensor on the paddle:
+    registered once on its first actor's asset, the humanoids' shared one,
+    before the scene is compiled, so every humanoid carries one."""
     from isaacgym_tpu_torch.sim.asset_api import (create_asset_force_sensor,
                                                   find_asset_rigid_body_index)
-    from isaacgym_tpu_torch.tasks.pingpong_common import build_pingpong_scene
-    spec = build_pingpong_scene(cfg["env"], cfg["sim"], humanoids=humanoids,
-                                floating_base=floating_base)
     tree = spec.actors[0].tree
     create_asset_force_sensor(tree, find_asset_rigid_body_index(tree, "pingpong_paddle"))
     return compile_scene(spec)
+
+
+def paddle_sensor_scene(cfg, humanoids: int = 1, floating_base: bool = False):
+    """The pingpong scene of task config ``cfg`` with a force sensor on the
+    paddle (``with_paddle_sensor``; ``floating_base``: C10's floating
+    27-DOF humanoid)."""
+    from isaacgym_tpu_torch.tasks.pingpong_common import build_pingpong_scene
+    return with_paddle_sensor(build_pingpong_scene(cfg["env"], cfg["sim"], humanoids=humanoids,
+                                                   floating_base=floating_base))
 
 
 def strike_state(sim, kind: str, B: int, rng: np.random.RandomState, cfg=None):
@@ -758,3 +770,102 @@ def with_static_copies(consts, shifts):
             c[sl(lay["pair"], si * na + gi, FF.PAIR_STRIDE)] = row
     c[FF.C_NSTATIC], c[FF.C_NPAIR], c[F.C_NTRUE_STATIC] = n, na * n, n
     return c
+
+
+# The link-vs-link scenes of the JAX package's tests (``tests/test_link_collision.py``):
+# a pendulum (a 1 m arm swinging about y, a sphere tip welded to its end) and
+# a base with two such arms 0.8 m apart.
+PENDULUM_URDF = """
+<robot name="pend">
+  <link name="base"><inertial><mass value="1"/><inertia ixx="0.1" iyy="0.1" izz="0.1"/></inertial></link>
+  <link name="arm">
+    <inertial><origin xyz="0 0 -0.5"/><mass value="2"/>
+      <inertia ixx="0.02" iyy="0.02" izz="0.001"/></inertial>
+  </link>
+  <link name="tip">
+    <inertial><mass value="0.5"/><inertia ixx="0.001" iyy="0.001" izz="0.001"/></inertial>
+    <collision><geometry><sphere radius="0.06"/></geometry></collision>
+  </link>
+  <joint name="swing" type="revolute">
+    <origin xyz="0 0 0"/><parent link="base"/><child link="arm"/>
+    <axis xyz="0 1 0"/><limit lower="-6.28" upper="6.28" effort="100" velocity="100"/>
+  </joint>
+  <joint name="tip_weld" type="fixed">
+    <origin xyz="0 0 -1.0"/><parent link="arm"/><child link="tip"/>
+  </joint>
+</robot>
+"""
+
+TWO_ARMS_URDF = """
+<robot name="twoarms">
+  <link name="base"><inertial><mass value="5"/><inertia ixx="0.5" iyy="0.5" izz="0.5"/></inertial></link>
+  <link name="armL">
+    <inertial><origin xyz="0 0 -0.5"/><mass value="2"/>
+      <inertia ixx="0.02" iyy="0.02" izz="0.001"/></inertial>
+  </link>
+  <link name="tipL">
+    <inertial><mass value="0.5"/><inertia ixx="0.001" iyy="0.001" izz="0.001"/></inertial>
+    <collision><geometry><sphere radius="0.06"/></geometry></collision>
+  </link>
+  <link name="armR">
+    <inertial><origin xyz="0 0 -0.5"/><mass value="2"/>
+      <inertia ixx="0.02" iyy="0.02" izz="0.001"/></inertial>
+  </link>
+  <link name="tipR">
+    <inertial><mass value="0.5"/><inertia ixx="0.001" iyy="0.001" izz="0.001"/></inertial>
+    <collision><geometry><sphere radius="0.06"/></geometry></collision>
+  </link>
+  <joint name="swingL" type="revolute">
+    <origin xyz="-0.4 0 0"/><parent link="base"/><child link="armL"/>
+    <axis xyz="0 1 0"/><limit lower="-6.28" upper="6.28" effort="100" velocity="100"/>
+  </joint>
+  <joint name="weldL" type="fixed">
+    <origin xyz="0 0 -1.0"/><parent link="armL"/><child link="tipL"/>
+  </joint>
+  <joint name="swingR" type="revolute">
+    <origin xyz="0.4 0 0"/><parent link="base"/><child link="armR"/>
+    <axis xyz="0 1 0"/><limit lower="-6.28" upper="6.28" effort="100" velocity="100"/>
+  </joint>
+  <joint name="weldR" type="fixed">
+    <origin xyz="0 0 -1.0"/><parent link="armR"/><child link="tipR"/>
+  </joint>
+</robot>
+"""
+
+
+def pendulum_scene(link_collision: bool = True):
+    """Two fixed-base pendulums 0.35 m apart, unactuated, whose tips share a
+    swing arc (the JAX test's ``_two_pendulums``)."""
+    pend = compile_tree(U.parse_urdf(PENDULUM_URDF, from_string=True))
+    spec = lambda name, x: ActorSpec(name, pend, pos=(x, 0.0, 1.5), fixed_base=True,
+                                     restitution=0.3, friction=0.3, drive_mode=DRIVE_POS,
+                                     stiffness=np.zeros(1), damping=np.zeros(1))
+    return compile_scene(SceneSpec(actors=[spec("pendA", 0.0), spec("pendB", 0.35)],
+                                   plane=PlaneParams(), dt=1 / 120, substeps=2,
+                                   link_collision=link_collision))
+
+
+def sibling_arms_scene(link_collision: bool = True):
+    """One fixed-base robot with two unactuated arms that fold into each
+    other (the JAX test's sibling-arms scene)."""
+    robot = compile_tree(U.parse_urdf(TWO_ARMS_URDF, from_string=True))
+    return compile_scene(SceneSpec(
+        actors=[ActorSpec("bot", robot, pos=(0.0, 0.0, 1.5), fixed_base=True, restitution=0.2,
+                          friction=0.3, drive_mode=DRIVE_POS, stiffness=np.zeros(2),
+                          damping=np.zeros(2))],
+        plane=PlaneParams(), dt=1 / 120, substeps=2, link_collision=link_collision))
+
+
+def link_strike_state(sim, B: int, rng: np.random.RandomState):
+    """A batched ``SimState`` of ``pendulum_scene`` (pendulum A swinging at
+    3-5 rad/s toward B's resting tip) or ``sibling_arms_scene`` (both arms
+    folding inward at 2-4 rad/s), per-env velocities from ``rng``, on the
+    simulator's device; with zero targets."""
+    state = sim.initial_state(B)
+    qd = np.zeros((B, sim.scene.num_dofs), np.float32)
+    qd[:, 0] = -rng.uniform(3.0, 5.0, B)
+    if sim.scene.num_dofs == 2 and len(sim.scene.articulations) == 1:
+        qd[:, 0] = -rng.uniform(2.0, 4.0, B)
+        qd[:, 1] = rng.uniform(2.0, 4.0, B)
+    tgt = torch.zeros((B, sim.scene.num_dofs), device=sim.device)
+    return state._replace(dof_vel=torch.as_tensor(qd, device=sim.device)), tgt

@@ -42,8 +42,14 @@ articulated geoms group by group (joint-space two-body impulses through
 the factor); the ball-ball pair; the balls' clamp and integration; the
 articulated geoms against the static geoms and, for floating bases, the
 ground, pair by pair in scene order. It accumulates ``net_contact_force``
-and ``net_contact_torque`` on every route. Link-vs-link contacts
-(``link_collision``) are not ported and raise.
+and ``net_contact_torque`` on every route. With ``link_collision`` the
+opt-in link-vs-link narrowphase (``:1342-1527``) runs between the
+art-vs-static and the ground contacts: a build-time pair list
+(``_build_art_art_pairs``) of one geom's bounding sphere against another's
+exact primitive, each pair's impulse on both articulations' velocities
+(through the shared factor for a pair within one articulation). No kernel
+carries it, so such a scene takes the non-kernel step on every device, as
+the JAX package keeps it off its kernels (``:278-281``).
 
 The baked-root guard (``_baked_roots_moved``, ``:568-592``): K2 and K3 fold
 the fixed bases, and K2, K3 and K4 the static actors, at the scene's initial
@@ -97,10 +103,6 @@ from isaacgym_tpu_torch.ops.fused_substep_multi import FusedSubstepMulti, build_
 from isaacgym_tpu_torch.ops.linalg import chol_solve
 from isaacgym_tpu_torch.sim.scene import DRIVE_EFFORT, DRIVE_POS, CompiledScene
 from isaacgym_tpu_torch.utils import rotations as rot
-
-
-LINK_COLLISION_REFUSAL = ("link-vs-link contacts (link_collision) are not ported: the JAX "
-                          "package's narrowphase at simulator.py:1342-1527 (ROADMAP, module 11)")
 
 
 class SimState(NamedTuple):
@@ -319,7 +321,11 @@ def route_for(scene: CompiledScene, device_type: str) -> str:
     ("cpu" or "cuda"): the topology's route (:func:`topology_route`), or
     "nonkernel" where that route's kernel cannot take the scene
     (:func:`kernel_refusal`). The JAX package steps every such scene through
-    its own kernel; the non-kernel step computes what its XLA path computes."""
+    its own kernel; the non-kernel step computes what its XLA path computes.
+    A scene with ``link_collision`` takes "nonkernel" on every device: no
+    kernel carries the link-vs-link contacts."""
+    if scene.spec.link_collision:
+        return "nonkernel"
     route = topology_route(scene)
     return "nonkernel" if kernel_refusal(scene, route, device_type) else route
 
@@ -331,14 +337,15 @@ class Simulator:
         self.scene = scene
         self.device = torch.device(device)
         spec = scene.spec
-        if spec.link_collision:
-            raise NotImplementedError(LINK_COLLISION_REFUSAL)
         self.dt = float(spec.dt)
         self.substeps = int(spec.substeps)
         self.bounce_threshold = float(spec.bounce_threshold_velocity)
         self.max_depenetration = float(spec.max_depenetration_velocity)
         self.gravity = torch.tensor(spec.gravity, dtype=torch.float32, device=self.device)
         self._build_geom_groups()
+        #: the link-vs-link pairs (geom dicts, sphere side first) with
+        #: ``link_collision``, else none
+        self._art_art_pairs = self._build_art_art_pairs() if spec.link_collision else []
         arts = scene.articulations
         gravity = np.asarray(spec.gravity, np.float32)
         dt_s = self.dt / self.substeps
@@ -909,6 +916,15 @@ class Simulator:
                 add(ncf, grp.body, P_sum * inv_dt)
                 add(nct, grp.body, tq_sum * inv_dt)
 
+        # articulation links vs articulation links (``link_collision``),
+        # pair by pair in the build's order
+        for pa, pb in self._art_art_pairs:
+            P, tq_a, tq_b = self._art_vs_art_pair(pa, pb, art_runtime, dt_s)
+            add(ncf, pa["body"], P / self.dt)
+            add(ncf, pb["body"], -P / self.dt)
+            add(nct, pa["body"], tq_a / self.dt)
+            add(nct, pb["body"], tq_b / self.dt)
+
         # floating articulations vs the ground (feet), scene order
         if scene.spec.plane is not None:
             for art_idx, grp in self.art_ground_groups.items():
@@ -1144,6 +1160,148 @@ class Simulator:
         tq_all = _cross(points - borg.repeat_interleave(s, dim=1), P_all)
         return (u - rt["u"], P_all.reshape(B, k, s, 3).sum(dim=2),
                 tq_all.reshape(B, k, s, 3).sum(dim=2))
+
+    def _build_art_art_pairs(self):
+        """The build-time pair list of the link-vs-link narrowphase
+        (``:1342-1442``): each articulated geom's bounding sphere against
+        another's exact primitive, the side with the smaller bounding radius
+        as the sphere. Left out: pairs within one articulation on the same
+        or adjacent links (parent and child DOF, or a base-welded geom and a
+        chain root); pairs of two fixed bases whose geoms cannot reach each
+        other (the art-vs-static prune's chain-length bound); pairs where
+        neither side can move; pairs overlapping at the rest pose (zero
+        joint values), in either direction of the sphere-primitive test."""
+        scene = self.scene
+        geoms = []
+        for g in scene.art_geoms:
+            slot = scene.articulations[g.art_index]
+            tree = slot.model.tree
+            offp, offq = _compose(tree.body_ref_pos[g.body_index],
+                                  tree.body_ref_quat[g.body_index], g.local_pos, g.local_quat)
+            rb = float(g.size[0]) if g.kind == U.GEOM_SPHERE else float(np.max(g.size))
+            geoms.append(dict(art=g.art_index, link=int(tree.body_ref_dof[g.body_index]),
+                              off_pos=offp, off_quat=offq, kind=g.kind,
+                              size=np.asarray(g.size, np.float32), e=float(g.restitution),
+                              mu=float(g.friction), radius_bound=rb,
+                              body=slot.body_start + g.body_index,
+                              body_off=np.asarray(tree.body_ref_pos[g.body_index], np.float32)))
+        # rest-pose world transforms: FK at zero joint values, in numpy
+        world = []
+        for g in geoms:
+            slot = scene.articulations[g["art"]]
+            tree = slot.model.tree
+            init = scene.initial_root[slot.actor_index]
+            p, q = np.asarray(init[0:3]), np.asarray(init[3:7])
+            chain, d = [], g["link"]
+            while d >= 0:
+                chain.append(d)
+                d = int(tree.dof_parent[d])
+            for d in reversed(chain):
+                p, q = _compose(p, q, tree.dof_pre_pos[d], tree.dof_pre_quat[d])
+            world.append(_compose(p, q, g["off_pos"], g["off_quat"]))
+
+        def adjacent(tree, la, lb):
+            if la == lb:
+                return True
+            if la >= 0 and int(tree.dof_parent[la]) == lb:
+                return True
+            if lb >= 0 and int(tree.dof_parent[lb]) == la:
+                return True
+            if la < 0 and lb >= 0 and int(tree.dof_parent[lb]) < 0:
+                return True
+            return lb < 0 and la >= 0 and int(tree.dof_parent[la]) < 0
+
+        def rest_dist(i, j):
+            pj, qj = world[j]
+            sg = dict(kind=geoms[j]["kind"], pos=pj, quat=qj, size=geoms[j]["size"])
+            return F._point_geom_dist_np(world[i][0], sg) - geoms[i]["radius_bound"]
+
+        pairs = []
+        for i in range(len(geoms)):
+            for j in range(i + 1, len(geoms)):
+                a, b = geoms[i], geoms[j]
+                sa, sb = scene.articulations[a["art"]], scene.articulations[b["art"]]
+                if a["art"] == b["art"]:
+                    if adjacent(sa.model.tree, a["link"], b["link"]):
+                        continue
+                elif not sa.model.floating and not sb.model.floating:
+                    gap = float(np.linalg.norm(
+                        np.asarray(scene.initial_root[sa.actor_index][0:3])
+                        - np.asarray(scene.initial_root[sb.actor_index][0:3])))
+                    if gap > (F._art_geom_reach_np(sa.model, a)
+                              + F._art_geom_reach_np(sb.model, b) + 0.03):
+                        continue
+                a_mobile = a["link"] >= 0 or sa.model.floating
+                b_mobile = b["link"] >= 0 or sb.model.floating
+                if not (a_mobile or b_mobile):
+                    continue
+                if min(rest_dist(i, j), rest_dist(j, i)) < 0.005:
+                    continue
+                pairs.append((a, b) if a["radius_bound"] <= b["radius_bound"] else (b, a))
+        return pairs
+
+    def _link_point(self, rt, g, off):
+        """Geom ``g``'s link (or base) frame applied to the link-frame point
+        ``off`` (3,): ``(world point (B,3), the link's quat (B,4))``."""
+        fp, fq = rt["frames"]
+        if g["link"] < 0:
+            bp, bq = rt["base_pos"], rt["base_quat"]
+        else:
+            bp, bq = fp[:, g["link"]], fq[:, g["link"]]
+        return bp + rot.quat_rotate(bq, self._t(off, bp).expand_as(bp)), bq
+
+    def _art_vs_art_pair(self, a, b, art_runtime, dt_s):
+        """One link-vs-link contact (``:1443-1527``): geom ``a``'s bounding
+        sphere against geom ``b``'s primitive, Baumgarte-stabilized, the
+        impulse into both articulations' velocities (a pair within one
+        articulation through the relative Jacobian and the shared factor).
+        Updates ``rt["u"]`` and returns (P (B,3) on ``a``, the moments about
+        ``a``'s and ``b``'s body origins)."""
+        rta, rtb = art_runtime[a["art"]], art_runtime[b["art"]]
+        ca, _ = self._link_point(rta, a, a["off_pos"])
+        gp, bq = self._link_point(rtb, b, b["off_pos"])
+        gq = rot.quat_mul(bq, self._t(b["off_quat"], bq).expand_as(bq))
+        frame = self._frames_for_group(int(b["kind"]), ca[:, None], float(a["radius_bound"]),
+                                       gp[:, None], gq[:, None], b["size"][None])
+        dist, n, point = frame.dist[:, 0], frame.normal[:, 0], frame.point[:, 0]
+        Ja = D.point_jacobians(rta["slot"].model, rta["frames"], rta["base_pos"],
+                               np.asarray([a["link"]]), point[:, None])[:, 0]   # (B,3,nva)
+        Jb = D.point_jacobians(rtb["slot"].model, rtb["frames"], rtb["base_pos"],
+                               np.asarray([b["link"]]), point[:, None])[:, 0]
+        same = a["art"] == b["art"]
+        if same:
+            Jrel = Ja - Jb
+            Za = chol_solve(rta["chol"], Jrel.transpose(1, 2))                    # (B,nv,3)
+            K = Jrel @ Za
+            v_rel = torch.einsum("zav,zv->za", Jrel, rta["u"])
+        else:
+            Za = chol_solve(rta["chol"], Ja.transpose(1, 2))
+            Zb = chol_solve(rtb["chol"], Jb.transpose(1, 2))
+            K = Ja @ Za + Jb @ Zb
+            v_rel = (torch.einsum("zav,zv->za", Ja, rta["u"])
+                     - torch.einsum("zav,zv->za", Jb, rtb["u"]))
+        vn = torch.sum(v_rel * n, dim=-1)
+        active = (dist < 0.0) & (vn < 0.1)
+        bias = torch.clamp(0.2 / dt_s * torch.clamp(-dist - 0.005, min=0.0),
+                           max=self.max_depenetration)
+        e, mu = C.combine_material(a["e"], b["e"], a["mu"], b["mu"])
+        e_eff = torch.where(torch.abs(vn) > self.bounce_threshold, e, 0.0)
+        w_n = torch.einsum("za,zab,zb->z", n, K, n)
+        Pn = torch.where(active, (-(1.0 + e_eff) * torch.clamp(vn, max=0.0) + bias)
+                         / torch.clamp(w_n, min=1e-9), 0.0)
+        vt = v_rel - vn[:, None] * n
+        vt_norm = torch.linalg.norm(vt, dim=-1)
+        t_hat = vt / torch.clamp(vt_norm, min=1e-9)[:, None]
+        w_t = torch.einsum("za,zab,zb->z", t_hat, K, t_hat)
+        Pt = torch.where(active, torch.minimum(mu * Pn, vt_norm / torch.clamp(w_t, min=1e-9)),
+                         0.0)
+        P = Pn[:, None] * n - Pt[:, None] * t_hat
+        rta["u"] = rta["u"] + torch.einsum("zva,za->zv", Za, P)
+        if not same:
+            rtb["u"] = rtb["u"] - torch.einsum("zva,za->zv", Zb, P)
+        borg_a, _ = self._link_point(rta, a, a["body_off"])
+        borg_b, _ = self._link_point(rtb, b, b["body_off"])
+        return P, _cross(point - borg_a, P), _cross(point - borg_b, -P)
 
     def _art_vs_ground_group(self, rt, grp: _GeomGroup, dt_s):
         """An articulation's bounding spheres against the ground plane or the

@@ -3,7 +3,8 @@
 A subprocess with those modules made unimportable imports every module of
 ``isaacgym_tpu_torch`` and the top of ``chip_smoke.py`` and drives the env,
 the two-humanoid C8 env (K3), the floating-base 27-DOF C10 env (K4), the
-flagship and C8 scenes with paddle force sensors (K2-tau, K3-tau) read
+two 26-DOF humanoids of C11 (K3), a link-collision scene, the flagship and
+C8 scenes with paddle force sensors (K2-tau, K3-tau) read
 through the tensor API, the DR env and one PPO epoch with a checkpoint on
 the CPU; an AST scan of every file finds no such import. The entry points
 default to the card and raise without one.
@@ -90,8 +91,16 @@ for task in ("HumanoidPingpongG1", "HumanoidPingpongAlignmentG1", "HumanoidPingp
 from isaacgym_tpu_torch.parity import env_step, kl_pair
 res = env_step.check(os.path.join(os.path.dirname(env_step.__file__), "data", "c9.npz"), "cpu")
 assert res["gate"] == "PASS", res
+env11 = isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpong5ActorG1", num_envs=2,
+                                device="cpu")
+s11, o11 = env11.reset()
+s11, o11, r11, d11, i11 = env11.step(s11, torch.zeros(2, 52))
+assert o11.shape == (2, 24) and env11.sim.route == "k3" and bool(torch.isfinite(r11).all())
 from isaacgym_tpu_torch.sim import scripted, tensor_api
 from isaacgym_tpu_torch.sim.simulator import Simulator
+simL = Simulator(scripted.pendulum_scene(), device="cpu")
+sL = simL.step(simL.initial_state(2), torch.zeros(2, 2), torch.zeros(2, 2))
+assert simL.route == "nonkernel" and len(simL._art_art_pairs) == 1
 from isaacgym_tpu_torch.utils.config import load_task_config
 for task, humanoids in (("HumanoidPingpongTiltNoEarlyStopG1", 1), ("Humanoid12PingpongTiltG1", 2)):
     sim = Simulator(scripted.paddle_sensor_scene(load_task_config(task), humanoids), device="cpu")

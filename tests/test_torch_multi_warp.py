@@ -6,7 +6,10 @@ lanes of every phase one after another, the card's own schedule
 - The host build, lanes in order, against the plain version on the two-arm,
   two-ball check scene's sets (128 rows, PD and effort drive, ``ball_ball``
   included) and at 8 envs on C8's sets, at
-  ``tests/test_torch_fused_substep_multi.py``'s tolerances, flip-aware.
+  ``tests/test_torch_fused_substep_multi.py``'s tolerances, flip-aware; and
+  at <26, 2, 2> on C11's sets (8 envs, both balls at the paddles, random
+  efforts), K3 and K3-tau (a sensor on each paddle), every output but the
+  moment rows at the same tolerances and no flip.
 - K3-tau's moment rows on a paddle set (C8 with a sensor on each paddle)
   and on ``ball_ball`` (the check scene with paddle sensors) against the
   plain version, at ``tests/test_torch_floating_torque.py``'s moment
@@ -18,7 +21,7 @@ lanes of every phase one after another, the card's own schedule
   formed I_l axw_j again for every mass-matrix entry and ran every contact
   test that culls now skip.
 - Each phase's lanes run in reverse give the same bits as in order: no phase
-  reads what another lane of it writes. The float build (the dynamics' and
+  reads what another lane of it writes (C11's sets at <26, 2, 2> too). The float build (the dynamics' and
   the contacts' scratch overlaid in one union, as on the card) and the
   counting build (side by side) give the same bits too, signed zeros
   included.
@@ -35,10 +38,13 @@ from isaacgym_tpu_torch.ops import _build
 from isaacgym_tpu_torch.ops import fused_substep_multi as M
 from isaacgym_tpu_torch.sim import scripted
 from isaacgym_tpu_torch.sim.simulator import Simulator
+from isaacgym_tpu_torch.tasks.humanoid_pingpong_draft_5actor import build_5actor_scene
 from isaacgym_tpu_torch.utils.config import load_task_config
 from tests.test_torch_fused_substep_multi import C8, DRIVES, TOL, compare
 
 C8_B = 8
+C11 = "HumanoidPingpong5ActorG1"
+C11_EFFORT = 20.0   # N m: C11's sets' efforts are uniform in +-20 (effort drive)
 TOY_ROWS = 32   # per set: the check scene's four sets make 128 rows
 #: K3's and K3-tau's operations on C8's sets (8 envs,
 #: ``scripted.k3_inputs(env, kind, 8, RandomState(61))``; K3-tau with the
@@ -56,7 +62,7 @@ MOMENT_TOL = dict(geom_moments=1e-5, ball_moments=1e-7)
 @pytest.fixture(scope="module")
 def host():
     lib = _build.build_host_library()
-    for nd in (3, 7):
+    for nd in (3, 7, 26):
         M.check_library_layout(lib, nd, 2)
     return lib
 
@@ -123,6 +129,18 @@ def c8():
             for kind in scripted.C8_KINDS}
 
 
+@pytest.fixture(scope="module")
+def c11():
+    """kind -> (K3, K3-tau of C11 with a sensor on each paddle, inputs), 8
+    envs: <26, 2, 2>."""
+    env = isaacgym_tpu_torch.make(seed=0, task=C11, num_envs=C8_B, device="cpu")
+    tau = Simulator(scripted.with_paddle_sensor(
+        build_5actor_scene(load_task_config(C11)["sim"])), device="cpu")
+    return {kind: (env.sim.fused_substep_multi, tau.fused_substep_multi,
+                   scripted.k3_inputs(env, kind, C8_B, np.random.RandomState(71), C11_EFFORT))
+            for kind in scripted.C8_KINDS}
+
+
 TOY_CASES = [(d, kind) for d in sorted(DRIVES) for kind in scripted.TOY_KINDS]
 
 
@@ -138,6 +156,28 @@ def test_warp_body_matches_the_plain_version_on_c8(c8, host, kind):
     k, _, ins = c8[kind]
     got, _ = run_host(host, k, ins)
     _assert_close(_np(got), _np(plain(k, ins)), kind, max_flip_rate=0.002)
+
+
+@pytest.mark.parametrize("with_torque", [False, True])
+@pytest.mark.parametrize("kind", scripted.C8_KINDS)
+def test_warp_body_matches_the_plain_version_on_c11(c11, host, kind, with_torque):
+    k3, k3tau, ins = c11[kind]
+    k = k3tau if with_torque else k3
+    assert (k.nd, k.K, k.nb) == (26, 2, 2) and k.with_torque == with_torque
+    got, want = run_host(host, k, ins)[0], plain(k, ins)
+    if with_torque:
+        forces, mom = _moments(got, k.ng, k.nb)
+        forces_w, mom_w = _moments(want, k.ng, k.nb)
+        for f, tol in MOMENT_TOL.items():
+            d = float(np.abs(mom[f] - mom_w[f]).max())
+            assert d <= tol, f"{kind}: {f} deviates {d:.3e} > {tol}"
+        got, want = (_np(got), _np(want))
+        got["impulses"], want["impulses"] = forces, forces_w
+    else:
+        got, want = _np(got), _np(want)
+    _assert_close(got, want, f"c11/{kind}", max_flip_rate=0.0)
+    if kind != "reset":
+        assert (np.abs(got["impulses"]).sum(-1) > 0).any()
 
 
 def _moments(out, ng, nb):
@@ -178,14 +218,15 @@ def test_operation_count_is_the_work_the_data_needs(c8, host, kind, kernel):
     assert ops < PARENT_OPS[kind][kernel == "k3tau"]
 
 
-CASES = [("toy", d, kind) for d, kind in TOY_CASES] + [("c8", None, kind)
-                                                       for kind in scripted.C8_KINDS]
+CASES = ([("toy", d, kind) for d, kind in TOY_CASES]
+         + [(scene, None, kind) for scene in ("c8", "c11") for kind in scripted.C8_KINDS])
 
 
 @pytest.mark.parametrize("with_torque", [False, True])
 @pytest.mark.parametrize("scene,drive,kind", CASES)
-def test_lanes_in_reverse_give_the_same_bits(c8, toy, host, scene, drive, kind, with_torque):
-    k3, k3tau, ins = toy[(drive, kind)] if scene == "toy" else c8[kind]
+def test_lanes_in_reverse_give_the_same_bits(c8, c11, toy, host, scene, drive, kind,
+                                            with_torque):
+    k3, k3tau, ins = toy[(drive, kind)] if scene == "toy" else {"c8": c8, "c11": c11}[scene][kind]
     k = k3tau if with_torque else k3
     fwd, _ = run_host(host, k, ins)
     rev, _ = run_host(host, k, ins, reverse=True)

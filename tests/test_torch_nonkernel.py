@@ -172,10 +172,10 @@ def test_c10_nonkernel_step_matches_the_jax_xla_step(c10, kind):
 
 def test_routes():
     """The scenes' routes: the flagship K2, C8 K3, C10 K4, the flagship on
-    terrain or without its ball K1, a ball alone the non-kernel path, and
-    link-vs-link contacts refused."""
+    terrain or without its ball K1, a ball alone the non-kernel path, and a
+    scene with link-vs-link contacts the non-kernel path on both devices."""
     from isaacgym_tpu_torch.sim.scene import ActorSpec, SceneSpec, compile_scene
-    from isaacgym_tpu_torch.sim.simulator import Simulator
+    from isaacgym_tpu_torch.sim.simulator import Simulator, route_for
     from isaacgym_tpu_torch.tasks.pingpong_common import build_pingpong_scene, load_tree
     cfg = load_task_config(TASK)
     route = lambda spec: Simulator(compile_scene(spec), device="cpu").route
@@ -193,5 +193,5 @@ def test_routes():
     assert route(build_pingpong_scene(c10["env"], c10["sim"], floating_base=True)) == "k4"
     spec = build_pingpong_scene(cfg["env"], cfg["sim"])
     spec.link_collision = True
-    with pytest.raises(NotImplementedError, match="link_collision"):
-        route(spec)
+    assert route(spec) == "nonkernel"
+    assert route_for(compile_scene(spec), "cuda") == "nonkernel"

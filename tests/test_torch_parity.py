@@ -8,7 +8,8 @@ with half the envs at the episode boundary).
 * The flagship fixture's outputs are the JAX env step's on its inputs: the
   JAX package steps them again here, outside flips to 1e-5.
 * The port on the CPU passes the fixture for the flagship and C5 (its plain
-  K2; the card runs every task's fixture in ``chip_smoke.py``).
+  K2) and C11 (its plain K3, both balls' launches injected); the card runs
+  every task's fixture in ``chip_smoke.py``.
 * Wrong forms fail the tool: the port's dof velocities negated, or one
   env's done flag flipped with nothing else changed; and the command exits
   non-zero on a file whose rewards were moved.
@@ -28,7 +29,7 @@ from isaacgym_tpu_torch.parity import env_step as E
 from tools.parity_tpu import GATES as JAX_GATES
 
 DATA = os.path.join(os.path.dirname(E.__file__), "data")
-NAMES = ("flagship", "c5", "c6", "c8", "c9", "c10", "terrain")
+NAMES = ("flagship", "c5", "c6", "c8", "c9", "c10", "terrain", "c11")
 C6, C10, FLAGSHIP = ("HumanoidPingpongTiltG1", "HumanoidPingpongTiltNESSparse27DOFG1",
                      "HumanoidPingpongTiltNoEarlyStopG1")
 
@@ -82,11 +83,11 @@ def test_flagship_fixture_is_the_jax_env_step():
                                       a["out.sim.root"][i][:, ba][np.asarray(done)])
 
 
-@pytest.mark.parametrize("name", ("flagship", "c5"))
-def test_port_passes_the_fixture_on_the_cpu(name):
+@pytest.mark.parametrize("name,route", [("flagship", "k2"), ("c5", "k2"), ("c11", "k3")])
+def test_port_passes_the_fixture_on_the_cpu(name, route):
     res = E.check(_path(name), "cpu")
     assert res["gate"] == "PASS", res["gate_failures"]
-    assert res["env_steps_compared"] == 256 and res["resets"] >= 32 and res["route"] == "k2"
+    assert res["env_steps_compared"] == 256 and res["resets"] >= 32 and res["route"] == route
     assert res["unmoved_resets"] == 0
 
 

@@ -36,8 +36,8 @@ With ``--fixture-dir`` it also writes each task's first 64 envs of states
 are the port's committed fixture (``isaacgym_tpu_torch/parity/data/``).
 
 Tasks (name: registry task, width): the widths of ``DEFAULT_SIZES`` in
-``tools/parity_tpu.py`` for the flagship (1024), C6 (1024), C8 (512) and
-C10 (256); C5, C9 and the terrain flagship (``rough_terrain_cfg``, seed 0,
+``tools/parity_tpu.py`` for the flagship (1024), C6 (1024), C8 (512), C10
+(256) and C11 (256); C5, C9 and the terrain flagship (``rough_terrain_cfg``, seed 0,
 obs 305) at 1024. Cost on a CPU: about a minute per task for the small
 ones, several for C10 and the terrain flagship.
 """
@@ -68,6 +68,7 @@ TASKS = {  # name -> (registry task, width, terrain seed or None)
     "c10": ("HumanoidPingpongTiltNESSparse27DOFG1",
             DEFAULT_SIZES["HumanoidPingpongTiltNESSparse27DOFG1"], None),
     "terrain": (FLAGSHIP, 1024, 0),
+    "c11": ("HumanoidPingpong5ActorG1", DEFAULT_SIZES["HumanoidPingpong5ActorG1"], None),
 }
 STEPS, STRIDE, SEED = 160, 10, 0   # tools/parity_tpu.py's defaults
 FIXTURE_ENVS = 64
