@@ -226,7 +226,39 @@ Each phase prints one JSON line with its seconds:
           swing velocities (30 steps), and the flagship with linkCollision
           on at 4096 envs (20 steps): route nonkernel and no kernel held,
           the pair count, ms per step, and one step against the CPU's
-          non-kernel step within NONKERNEL_GATE, flip-aware.
+          non-kernel step within NONKERNEL_GATE, flip-aware;
+  flatten_train  three flagship epochs at 4096 envs with
+          flatten_optimizer: true on the launcher's config otherwise (the
+          flag selects the per-tensor step, which the CPU tests hold to
+          optax.flatten), through train_epochs (K2 2 x 32 launches an
+          epoch, finite metrics, the first minibatch's loss falls);
+          flatten_train/update  the first update under torch.profiler
+          (device kernels per minibatch);
+  camera/closed_form  a 0.02 m ball 0.25 m before the camera on the card
+          (65 x 65, about 80 pixels on the ball): every pixel on the ball
+          within 1e-4 m of the ray-sphere closed form (float64), the centre
+          at 0.23 m, seg 0 on it, sky -1 and ground -2;
+  camera/flagship  the flagship with enableCameraSensors at 4096 envs and
+          96 x 72, rendered after 8 K2 steps: 16 envs against the CPU render
+          of the same body states (CAMERA_* gates, camera_compare),
+          planted shading faults (planted_faults) that the gates must
+          reject, ms per render (CUDA
+          events, median of 7), device kernels and busy ms per render
+          (torch.profiler), peak memory of a render;
+  tensor_api/camera  acquire_camera_image_tensor for depth, color and
+          segmentation: each equal to the render, on the card;
+  amp_train  a fresh policy's 240-step flagship rollout at 4096 envs saved
+          with save_motion_clip and loaded by MotionLib on the card, then 3
+          AMPTrainer epochs at 4096 envs (amp_demo's config): K2 exactly
+          2 x (4 + 32) launches an epoch, finite discriminator metrics, the
+          demos' mean logit above the agents' on fresh batches after the
+          last update (a smoke check); seconds per
+          epoch split into the discriminator (its rollout and update) and
+          the PPO epoch;
+  viewer  record_env_rollout for 60 steps at 4096 envs (4 recorded): the
+          npz's keys, shapes and dtypes are the JAX recorder's, its body
+          states finite (drawing frames needs cv2: a host step, checked on
+          the CPU).
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; with
 no CUDA device, or run outside the repository, it exits non-zero at once.
@@ -1960,6 +1992,370 @@ def link_checks(dev, b=B, steps=30, flagship_steps=20):
         raise SystemExit(f"link/flagship: {row}")
 
 
+# the camera on the card against its CPU render of the same states: depth
+# within 1e-4 m (plus two float32 ulps of the depth: ground hits near the
+# horizon lie kilometres off) where both hit, seg equal on at least 99.9 % of
+# pixels and unequal only where the two nearest hits lie within 1e-4 m
+# (tests/test_torch_camera.py's gates against the JAX camera); rgb within
+# CAMERA_RGB_TOL where seg agrees, plus, on a body (not the ground, whose
+# normal is exact), what the two renders' own depth difference there allows:
+# the shading is the colour (at most 1) times 0.35 + 0.65 n.l, and a hit
+# moved by dt along the ray turns a sphere's or a cylinder's normal by at
+# most dt / r, so 0.65 |dt| / r with r the scene's smallest curved radius
+# (the 2 cm ball). The card's fused multiply-adds move the ball's grazing
+# hits by up to 6.7e-5 m, and their rgb by 4.7e-4, which that term covers;
+# on every other pixel the card equals the CPU render to 6e-8 (PERF.md
+# §6). CAMERA_RGB_TOL lies between that and the smallest of the planted
+# shading faults that camera/flagship renders and must see rejected: the
+# light turned by CAMERA_FAULT_RAD about x, y or z (the smallest, about z,
+# read 5.9e-5), a palette colour scaled by 1 + CAMERA_FAULT_REL.
+CAMERA_DEPTH_TOL, CAMERA_SEG_AGREE, CAMERA_RGB_TOL = 1e-4, 0.999, 1e-5
+CAMERA_FAULT_RAD, CAMERA_FAULT_REL = 3e-4, 1e-3
+
+
+def profiled_first_update(trainer, rec):
+    """Wrap ``trainer._update`` so that its first call runs under
+    torch.profiler (device activity only): ``rec`` gets the update's device
+    kernels, the minibatches it ran and its wall seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    real = trainer._update
+
+    def update(ts, batch, obs_stats):
+        if rec:
+            return real(ts, batch, obs_stats)
+        cfg = trainer.cfg
+        n_mb = cfg.mini_epochs * (batch["logp"].shape[0] // min(cfg.minibatch_size,
+                                                                 batch["logp"].shape[0]))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            out = real(ts, batch, obs_stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        kernels = sum(c for c, _ in device_kernels(prof).values())
+        rec.update(minibatches=n_mb, device_kernels=kernels,
+                   kernels_per_minibatch=kernels / n_mb, profiled_update_s=wall)
+        return out
+
+    trainer._update = update
+
+
+def flatten_train(dev):
+    """``flatten_optimizer: true`` at the flagship's full width, on the
+    launcher's config otherwise: three epochs through ``train_epochs`` (K2
+    2 x 32 an epoch, finite metrics, the loss falls), the first update under
+    torch.profiler (device kernels per minibatch). The flag selects the
+    per-tensor step, which tests/test_torch_flatten.py holds to
+    ``optax.flatten``. Returns K2's launches in the three epochs."""
+    t0 = time.perf_counter()
+    env, trainer = trainer_for(["train.params.config.flatten_optimizer=true"])
+    if not trainer.cfg.flatten_optimizer:
+        raise SystemExit("flatten_train: the launcher's flag did not reach the trainer")
+    rec = {}
+    profiled_first_update(trainer, rec)
+    k2 = env.sim.fused_substep
+    _, _, _, rows = train_epochs("flatten_train", env, trainer, {"k2": k2},
+                                 {"k2": 2 * trainer.cfg.horizon_length}, 3)
+    emit({"phase": "flatten_train/update", "update": rec,
+          "seconds": time.perf_counter() - t0})
+    return sum(r["k2_launches"] for r in rows)
+
+
+def camera_compare(got, want, r_min):
+    """The card's images against the CPU's render of the same states
+    (CAMERA_*'s gates; ``r_min`` the smallest curved geom's radius).
+    Returns the deviations and ``ok``."""
+    import torch
+    d, wd = got["depth"].double(), want["depth"].double()
+    hit, whit = torch.isfinite(d), torch.isfinite(wd)
+    same = got["seg"] == want["seg"]
+    both = hit & whit
+    spacing = torch.abs(torch.nextafter(want["depth"], torch.tensor(torch.inf)) - want["depth"])
+    excess = ((d - wd).abs() - CAMERA_DEPTH_TOL - 2 * spacing.double())[both]
+    body = same & (want["seg"] >= 0)
+    turn = torch.where(body, 0.65 * (d - wd).abs() / r_min, torch.zeros_like(d))
+    rgb_err = (got["rgb"].double() - want["rgb"].double()).abs().amax(-1)
+    res = {"hit_share": float(hit.float().mean()),
+           "misses_agree": bool(torch.equal(hit, whit)),
+           "sky_is_seg_minus_1": bool(torch.equal(got["seg"] == -1, ~hit)),
+           "depth_max_abs_err": float((d - wd).abs()[both].max()),
+           "depth_excess": float(excess.max()),
+           "seg_agree": float(same.float().mean()),
+           "seg_unequal_depth_max": float((d - wd).abs()[~same].max()) if bool((~same).any())
+           else 0.0,
+           "rgb_max_abs_err": float(rgb_err[same].max()),
+           "rgb_normal_turn_max": float(turn.max()),
+           "rgb_excess": float((rgb_err - turn)[same].max())}
+    res["ok"] = (res["misses_agree"] and res["sky_is_seg_minus_1"] and res["depth_excess"] <= 0
+                 and res["seg_agree"] >= CAMERA_SEG_AGREE
+                 and res["seg_unequal_depth_max"] <= CAMERA_DEPTH_TOL
+                 and res["rgb_excess"] <= CAMERA_RGB_TOL)
+    return res
+
+
+def planted_faults(cam, rad, rel):
+    """Copies of ``cam`` with small shading faults planted: the light turned
+    by ``rad`` about x, y and z; the first actor's colour and the ground's
+    scaled by 1 + ``rel``."""
+    import copy
+    import math
+    import torch
+    faults = {}
+    c, s = math.cos(rad), math.sin(rad)
+    for axis in range(3):
+        rot = torch.eye(3, dtype=torch.float64)
+        i, j = [k for k in range(3) if k != axis]
+        rot[i, i], rot[i, j], rot[j, i], rot[j, j] = c, -s, s, c
+        bad = copy.copy(cam)
+        bad._light = (rot.to(cam._light.device) @ cam._light.double()).float()
+        faults[f"light_turned_{'xyz'[axis]}"] = bad
+    for name, rows in (("actor0_colour", cam._seg_ids == 0), ("ground_colour", cam._seg_ids == -2)):
+        bad = copy.copy(cam)
+        bad._colors = cam._colors.clone()
+        bad._colors[rows] *= 1 + rel
+        faults[name] = bad
+    return faults
+
+
+def camera_checks(dev):
+    """The ray-cast camera on the card: a ball at a known distance against
+    the closed form; the flagship with enableCameraSensors at 4096 envs and
+    96 x 72 after 8 K2 steps (16 envs against the CPU render of the same
+    states; ms, device kernels and peak memory per render); the tensor API's
+    image types. Returns K2's launches in the 8 steps."""
+    import numpy as np
+    import torch
+    import isaacgym_tpu_torch
+    from torch.profiler import ProfilerActivity, profile
+    from isaacgym_tpu_torch.models.assets import ASSET_DIR
+    from isaacgym_tpu_torch.models import urdf as U
+    from isaacgym_tpu_torch.models.kinematics import load_asset
+    from isaacgym_tpu_torch.sensors import Camera
+    from isaacgym_tpu_torch.sim import scene as S
+    from isaacgym_tpu_torch.sim import tensor_api
+    from isaacgym_tpu_torch.sim.simulator import Simulator
+
+    # closed form: a 0.02 m ball 0.25 m in front of the camera
+    t0 = time.perf_counter()
+    ball = load_asset(os.path.join(ASSET_DIR, "small_ball.urdf"))
+    scene = S.compile_scene(S.SceneSpec(
+        actors=[S.ActorSpec("ball", ball, pos=(0.0, 0.0, 1.0), fixed_base=False)],
+        plane=S.PlaneParams(), dt=1 / 120, substeps=2))
+    sim = Simulator(scene, device=dev)
+    cam = Camera(scene, pos=(0.25, 0.0, 1.0), target=(0.0, 0.0, 1.0), width=65, height=65,
+                 fov_deg=60, device=dev)
+    out = cam.render(sim, sim.initial_state(4))
+    rays = cam.rays.double().cpu().numpy()
+    oc = np.array([0.25, 0.0, 0.0])                    # origin minus the ball's centre
+    b = rays @ oc
+    disc = b * b - (oc @ oc - 0.02 ** 2)
+    t_ball = np.where(disc >= 0, -b - np.sqrt(np.maximum(disc, 0.0)), np.inf).reshape(65, 65)
+    d = out["depth"].cpu().double().numpy()
+    seg = out["seg"].cpu().numpy()
+    on_ball = np.isfinite(t_ball)
+    res = {"center_depth": float(d[0, 32, 32]), "closed_form": 0.25 - 0.02,
+           "ball_pixels": int(on_ball.sum()),
+           "ball_depth_max_abs_err": float(np.abs(d[:, on_ball] - t_ball[on_ball]).max()),
+           "ball_seg_ok": bool((seg[:, on_ball] == 0).all()),
+           "sky_ok": bool(seg[0, 0, 0] == -1 and not np.isfinite(d[0, 0, 0])),
+           "ground_ok": bool(seg[0, -1, 32] == -2 and d[0, -1, 32] > 1.0),
+           "envs_equal": bool((out["depth"] == out["depth"][:1]).all())}
+    res["ok"] = (res["ball_depth_max_abs_err"] <= 1e-4 and res["ball_seg_ok"] and res["sky_ok"]
+                 and res["ground_ok"] and res["envs_equal"] and res["ball_pixels"] >= 50
+                 and abs(res["center_depth"] - res["closed_form"]) <= 1e-4)
+    emit({"phase": "camera/closed_form", **res, "seconds": time.perf_counter() - t0})
+    if not res["ok"]:
+        raise SystemExit(f"camera/closed_form: {res}")
+
+    # the flagship with its camera at 4096 envs
+    t0 = time.perf_counter()
+    env = isaacgym_tpu_torch.make(seed=0, task=TASK, num_envs=B, enableCameraSensors=True)
+    cam = env.cameras[0]
+    k2 = env.sim.fused_substep
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state, obs = env.reset()
+    torch.cuda.synchronize()
+    k2.launches = 0
+    for _ in range(8):
+        state, obs, *_ = env.step(state, torch.rand((B, 7), generator=gen, device=dev) * 2 - 1)
+    torch.cuda.synchronize()
+    launches = k2.launches
+    rb = env.sim.rigid_body_states(state.sim)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    out = env.render_camera(state)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    ms = cuda_ms(lambda: env.render_camera(state), 1, 7)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        env.render_camera(state)
+        torch.cuda.synchronize()
+    per_name = device_kernels(prof)
+    n_kernels = sum(c for c, _ in per_name.values())
+    busy_ms = sum(t for _, t in per_name.values()) / 1e3
+    envs = torch.linspace(0, B - 1, 16).long()
+    rb16 = rb[envs]
+    want = Camera(env.scene, device="cpu").render_bodies(rb16.cpu())
+    curved = cam.table.kind != U.GEOM_BOX
+    r_min = float(cam.table.size[curved, 0].min())
+    res = camera_compare({k: v[envs].cpu() for k, v in out.items()}, want, r_min)
+    faults = {name: camera_compare({k: v.cpu() for k, v in bad.render_bodies(rb16).items()},
+                                   want, r_min)
+              for name, bad in planted_faults(cam, CAMERA_FAULT_RAD, CAMERA_FAULT_REL).items()}
+    res["planted_faults"] = {"light_turned_rad": CAMERA_FAULT_RAD,
+                             "colour_scaled_by": 1 + CAMERA_FAULT_REL,
+                             **{n: {"rgb_excess": f["rgb_excess"], "rejected": not f["ok"]}
+                                for n, f in faults.items()}}
+    seen = sorted(set(out["seg"][envs].unique().tolist()))
+    shapes = {k: list(v.shape) for k, v in out.items()}
+    ok = (res["ok"] and not any(f["ok"] for f in faults.values()) and launches == 16
+          and shapes == {
+        "depth": [B, 72, 96], "rgb": [B, 72, 96, 3], "seg": [B, 72, 96]}
+        and out["seg"].dtype == torch.int32 and {-2, 0, 1} <= set(seen))
+    emit({"phase": "camera/flagship", "num_envs": B, "width": cam.width, "height": cam.height,
+          "geoms": len(cam.table.kind), "k2_launches": launches, "ms_per_render": ms,
+          "device_kernels_per_render": n_kernels, "device_busy_ms_per_render": busy_ms,
+          "peak_mem_gb_per_render": peak_gb, "rays_per_s": B * cam.width * cam.height / ms * 1e3,
+          "vs_cpu_16_envs": res, "seg_ids_seen": seen, "shapes": shapes, "ok": ok,
+          "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise SystemExit(f"camera/flagship: {res} launches {launches} shapes {shapes}")
+
+    t0 = time.perf_counter()
+    res = {}
+    for kind, key in (("depth", "depth"), ("color", "rgb"), ("segmentation", "seg")):
+        img = tensor_api.acquire_camera_image_tensor(cam, env.sim, state.sim, kind)
+        res[kind] = {"shape": list(img.shape), "dtype": str(img.dtype),
+                     "device": img.device.type, "equal_render": bool(torch.equal(img, out[key]))}
+    ok = all(r["equal_render"] and r["device"] == dev.type for r in res.values())
+    emit({"phase": "tensor_api/camera", **res, "ok": ok, "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise SystemExit(f"tensor_api/camera: {res}")
+    return launches
+
+
+def amp_train(dev, epochs=3, clip_steps=240):
+    """AMP on the flagship at 4096 envs: a fresh policy's 240-step rollout
+    saved with save_motion_clip and loaded by MotionLib on the card, then
+    three AMPTrainer epochs (amp_demo's config): K2 launches per epoch (the
+    discriminator's 4-step rollout and the PPO epoch's 32, 2 a step), finite
+    discriminator metrics, the demos' mean logit above the agents' on fresh
+    batches after the last update (a smoke check: the CPU tests hold the
+    update to optax's); seconds per epoch split into the discriminator and
+    PPO.
+    Returns K2's launches in the epochs."""
+    import torch
+    import isaacgym_tpu_torch
+    from isaacgym_tpu_torch.amp_demo import amp_features, dof_obs_offset, record_clip
+    from isaacgym_tpu_torch.rl import amp as A
+    from isaacgym_tpu_torch.rl.motion_lib import MotionLib
+    from isaacgym_tpu_torch.rl.ppo import PPOConfig
+    t0 = time.perf_counter()
+    env, expert = trainer_for()
+    ets = expert.init_state()
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip.npz")
+        fps = record_clip(env, lambda o: expert._policy(ets.params, ets.obs_stats, o)[0],
+                          clip_steps, clip)
+        lib = MotionLib(clip, num_dofs=env.num_actions, device=dev)
+    del expert, ets
+    nd = env.num_actions
+    amp_obs_fn, demo_sampler = amp_features(lib, dof_obs_offset(env), nd, fps)
+    cfg = PPOConfig(units=(512, 256), horizon_length=32, minibatch_size=4096, mini_epochs=5,
+                    learning_rate=1e-4)
+    trainer = A.AMPTrainer(env, cfg, amp_obs_dim=4 * nd, demo_sampler=demo_sampler,
+                           amp_obs_fn=amp_obs_fn, seed=1)
+    ppo_state, amp_state = trainer.init_state()
+    env_state, obs = trainer.reset(amp_state)
+    k2 = env.sim.fused_substep
+    ppo_s = []
+    real_ppo = trainer.ppo.train_epoch
+
+    def timed_ppo(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_ppo(*a)
+        torch.cuda.synchronize()
+        ppo_s.append(time.perf_counter() - t)
+        return out
+
+    trainer.ppo.train_epoch = timed_ppo
+    rows = []
+    want = 2 * (trainer.disc_rollout_steps + cfg.horizon_length)
+    for it in range(epochs):
+        torch.cuda.synchronize()
+        k2.launches = 0
+        te = time.perf_counter()
+        ppo_state, amp_state, env_state, obs, metrics = trainer.train_epoch(
+            ppo_state, amp_state, env_state, obs)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - te
+        m = {k_: float(v) for k_, v in metrics.items()}
+        row = {"epoch": it, "epoch_s": epoch_s, "disc_s": epoch_s - ppo_s[-1],
+               "ppo_s": ppo_s[-1], "k2_launches": k2.launches,
+               **{k_: m[k_] for k_ in ("disc_loss", "disc_agent_logit", "disc_demo_logit",
+                                       "disc_grad_penalty", "reward_mean", "a_loss", "kl")}}
+        emit({"phase": "amp_train/epoch", **row})
+        if k2.launches != want or not all(math.isfinite(v) for v in m.values()):
+            raise SystemExit(f"amp_train: epoch {it}: {row}, want {want} K2 launches")
+        rows.append(row)
+    # the discriminator after its last update, on a fresh agent batch (the
+    # policy's next disc_rollout_steps) and a fresh demo batch
+    _, _, agent_obs = trainer._collect_amp_obs(ppo_state, env_state[0], obs)
+    demo_obs = demo_sampler(torch.Generator(device=dev).manual_seed(7), agent_obs.shape[0])
+    with torch.no_grad():
+        agent_logit = float(amp_state.disc(agent_obs).mean())
+        demo_logit = float(amp_state.disc(demo_obs).mean())
+    ok = demo_logit > agent_logit
+    emit({"phase": "amp_train", "num_envs": B, "epochs": epochs, "clip_frames": clip_steps,
+          "clip_fps": fps, "amp_obs_dim": 4 * nd,
+          "launches": {"k2": sum(r["k2_launches"] for r in rows)},
+          "k2_launches_per_epoch": want,
+          **{f: [r[f] for r in rows] for f in ("epoch_s", "disc_s", "ppo_s")},
+          "fresh_batch": {"rows": agent_obs.shape[0], "disc_agent_logit": agent_logit,
+                          "disc_demo_logit": demo_logit},
+          "demo_above_agent": ok, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise SystemExit(f"amp_train: on fresh batches the demo logit {demo_logit} is not "
+                         f"above the agents' {agent_logit}")
+    return sum(r["k2_launches"] for r in rows)
+
+
+def viewer_check(dev, steps=60, envs=4):
+    """record_env_rollout on the card (4096 envs, the first ``envs``
+    recorded): the npz's keys, shapes and dtypes are the JAX recorder's
+    format, its body states finite. Rendering frames is a host step (cv2),
+    checked on the CPU."""
+    import numpy as np
+    import isaacgym_tpu_torch
+    from isaacgym_tpu_torch.viewer.trajectory import record_env_rollout
+    t0 = time.perf_counter()
+    env = isaacgym_tpu_torch.make(seed=0, task=TASK, num_envs=B)
+    nb, ng = env.scene.num_bodies, (len(env.scene.static_geoms) + len(env.scene.art_geoms)
+                                     + len(env.scene.free_bodies))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "traj.npz")
+        tw = time.perf_counter()
+        record_env_rollout(env, steps=steps, envs=envs, out_path=path)
+        record_s = time.perf_counter() - tw
+        data = dict(np.load(path))
+    fmt = {k: (list(v.shape), v.dtype.kind + str(v.dtype.itemsize)) for k, v in data.items()}
+    want = {"body_states": ([steps, envs, nb, 13], "f4"), "body_names": ([nb], None),
+            "geoms": ([ng, 12], "f4"), "extra_ball": ([steps, envs, 13], "f4")}
+    ok = (set(fmt) == set(want) and data["body_names"].dtype.kind == "U"
+          and all(fmt[k][0] == s and (d is None or fmt[k][1] == d) for k, (s, d) in want.items())
+          and bool(np.isfinite(data["body_states"]).all())
+          and list(data["body_names"]) == list(env.scene.body_names))
+    emit({"phase": "viewer", "num_envs": B, "steps": steps, "recorded_envs": envs,
+          "format": fmt, "record_s": record_s, "ok": ok, "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise SystemExit(f"viewer: {fmt}")
+
+
 def main():
     t_all = time.perf_counter()
     import torch
@@ -2386,6 +2782,13 @@ def main():
     # ---- 7g: link-vs-link contacts on the non-kernel step
     link_checks(dev)
 
+    # ---- 7h: flatten_optimizer, the camera, AMP with the motion library, the
+    # trajectory recorder
+    flat_launches = flatten_train(dev)
+    camera_launches = camera_checks(dev)
+    amp_launches = amp_train(dev)
+    viewer_check(dev)
+
     # ---- 8: the kernels line, the card, the verdict
     emit({"kernels": [{
         "name": "arm_step", "route": "cuda",
@@ -2403,7 +2806,8 @@ def main():
         "launches": launches, "launches_by_path": {
             "main": launches, "train": train_launches["k2"], "train_nodr": nodr_launches["k2"],
             "c5_main": c5_launches, "c9_main": c9_launches, "c5_train": c5_train_launches,
-            "c9_train": c9_train_launches,
+            "c9_train": c9_train_launches, "flatten_train": flat_launches,
+            "camera/flagship": camera_launches, "amp_train": amp_launches,
             **{f"parity/{n}": parity_launches[n] for n in ("flagship", "c5", "c6", "c9")}},
         **k2_line, "library_ms": None, "us": k2_line["ms"] * 1e3,
         "plain_us": k2_line["plain_ms"] * 1e3, "bound_us": k2_line["bound_ms"] * 1e3}, {

@@ -6,6 +6,11 @@
 // another (warp.cuh), in order or reversed. Never on the main path.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -I csrc -o libigt_host.so csrc/fused_substep_host.cpp
+//
+// or, as ops/_build.py builds it, one object for each kernel family compiled
+// side by side (-c -DIGT_HOST_PART=1 for K1, 2 for K2's builds, 3 for K3's,
+// 4 for K4's, 5 for K3-tau's, 6 for K3's reversed lanes; 0, the default, is
+// all of them) and linked into the one library.
 #include <cmath>
 #include <cstring>
 
@@ -13,7 +18,9 @@ namespace igt {
 
 // A float that counts every arithmetic operation, comparison and math call
 // applied to it (unary minus and copies are free). Single-threaded use only.
-static long long g_ops = 0;
+// One counter for the whole library (an inline variable): the operators are
+// inline functions that every part's object shares.
+inline long long g_ops = 0;
 
 struct CountF {
   float v;
@@ -179,6 +186,12 @@ long long run_arm(const float* consts, const float* x, float* y, int B, int nd,
 
 }  // namespace
 
+#ifndef IGT_HOST_PART
+#define IGT_HOST_PART 0
+#endif
+#define IGT_PART(n) (IGT_HOST_PART == 0 || IGT_HOST_PART == (n))
+
+#if IGT_PART(1)
 // K1: x is (arm_n_in(7), B), y is (arm_n_out(7), B)
 extern "C" int igt_arm_step_host(const float* consts, const float* x, float* y, int B, int nd) {
   return run_arm<float>(consts, x, y, B, nd) == 0 ? 0 : 1;
@@ -195,6 +208,9 @@ extern "C" int igt_arm_step_reversed_host(const float* consts, const float* x, f
   return run_arm<float>(consts, x, y, B, nd, true) == 0 ? 0 : 1;
 }
 
+#endif  // K1
+
+#if IGT_PART(2)
 // K2: x is (n_in(7), B)
 extern "C" int igt_fused_substep_host(const float* consts, const float* x, float* y,
                                       int B, int nd) {
@@ -239,6 +255,9 @@ extern "C" int igt_fused_layout(int nd, int* out, int n) {
   return igt::fill_layout(nd, out, n);
 }
 
+#endif  // K2
+
+#if IGT_PART(3)
 // K3: x is (4 k nd + 9 nb, B)
 extern "C" int igt_fused_substep_multi_host(const float* consts, const float* x, float* y,
                                             int B, int nd, int k, int nb) {
@@ -250,6 +269,13 @@ extern "C" long long igt_fused_substep_multi_count_ops(const float* consts, cons
   return run_multi<igt::CountF>(consts, x, y, B, nd, k, nb);
 }
 
+extern "C" int igt_multi_layout(int nd, int k, int* out, int n) {
+  return igt::fill_multi_layout(nd, k, out, n);
+}
+
+#endif  // K3
+
+#if IGT_PART(5)
 // K3-tau: the same inputs; y gains the 3 (ng + nb) moment rows
 extern "C" int igt_fused_substep_multi_tau_host(const float* consts, const float* x, float* y,
                                                 int B, int nd, int k, int nb) {
@@ -261,7 +287,9 @@ extern "C" long long igt_fused_substep_multi_tau_count_ops(const float* consts, 
                                                            int nb) {
   return run_multi<igt::CountF, true>(consts, x, y, B, nd, k, nb);
 }
+#endif  // K3-tau
 
+#if IGT_PART(6)
 // K3 (with_torque 0) or K3-tau (1) in float with the lanes of every phase
 // run in reverse order, 31 .. 0
 extern "C" int igt_fused_substep_multi_reversed_host(const float* consts, const float* x,
@@ -270,11 +298,9 @@ extern "C" int igt_fused_substep_multi_reversed_host(const float* consts, const 
   return (with_torque ? run_multi<float, true>(consts, x, y, B, nd, k, nb, true)
                       : run_multi<float>(consts, x, y, B, nd, k, nb, true)) == 0 ? 0 : 1;
 }
+#endif  // K3, reversed lanes
 
-extern "C" int igt_multi_layout(int nd, int k, int* out, int n) {
-  return igt::fill_multi_layout(nd, k, out, n);
-}
-
+#if IGT_PART(4)
 // K4: x is (fl_n_in(nd), B), y is (fl_n_out(nd, ng), B)
 extern "C" int igt_fused_substep_floating_host(const float* consts, const float* x, float* y,
                                                int B, int nd) {
@@ -310,3 +336,4 @@ extern "C" int igt_fused_substep_floating_reversed_host(const float* consts, con
 extern "C" int igt_floating_layout(int nd, int* out, int n) {
   return igt::fill_floating_layout(nd, out, n);
 }
+#endif  // K4

@@ -10,7 +10,10 @@ route, the non-kernel step on every other, as the JAX package), re-samples
 them for resetting envs whose counter passed ``frequency``, adds observation
 noise and advances ``global_step`` (the DR schedules' clock) once per step.
 The JAX package's per-env PRNG keys become one ``torch.Generator`` on the
-env's device.
+env's device. With ``enableCameraSensors`` ("1" or "true", as the JAX env
+reads it) the env builds one ray-cast :class:`Camera` per entry of
+``env.cameras`` (one default camera when the list is absent) on its device;
+``render_camera`` renders one of them over every env.
 """
 
 from __future__ import annotations
@@ -82,6 +85,14 @@ class TorchVecTask:
                                                 device=self.device)
         self._rb_fn = self.sim.make_body_state_fn(self.rb_body_ids())
 
+        # camera sensors (the reference's enableCameraSensors key): opt-in
+        # ray-cast cameras over the analytic geoms
+        self.cameras = []
+        if str(env_cfg.get("enableCameraSensors", "false")).lower() in ("1", "true"):
+            from isaacgym_tpu_torch.sensors import Camera
+            for cam_cfg in (env_cfg.get("cameras") or [{}]):
+                self.cameras.append(Camera(self.scene, device=self.device, **cam_cfg))
+
     # -- subclass hooks (batched) -------------------------------------------
 
     def create_scene(self) -> SceneSpec:
@@ -128,6 +139,10 @@ class TorchVecTask:
                          ep_return=torch.zeros(B, dtype=torch.float32, device=self.device),
                          dr=dr, randomize_buf=randomize_buf, global_step=global_step)
         return state, self.observe(sim, self._rb_fn(sim), flags)
+
+    def render_camera(self, state: EnvState, index: int = 0):
+        """Render camera ``index`` over every env: dict(depth, rgb, seg)."""
+        return self.cameras[index].render(self.sim, state.sim)
 
     def action_to_drive(self, actions):
         targets = self._pd_action_offset + self._pd_action_scale * actions

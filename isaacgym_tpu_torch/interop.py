@@ -1,8 +1,8 @@
 """Carry state and weights across between the JAX package and the port.
 
 The arrays of the JAX package's ``SimState``, ``EnvState`` (with its
-domain-randomization fields), ``DRParams``, ``RunningStats`` and flax
-actor-critic parameters, handed over as numpy, become the port's tensors and
+domain-randomization fields), ``DRParams``, ``RunningStats``, flax
+actor-critic parameters and flax AMP discriminator parameters, handed over as numpy, become the port's tensors and
 modules, so a check can start both packages from one state and one set of
 weights, for every task of the port (C10's floating base rides in its root
 row; its policy is obs 313, act 27). ``SimState`` carries the contact
@@ -121,3 +121,18 @@ def to_numpy(state) -> Dict[str, Any]:
     if isinstance(state, dict):
         return {k: to_numpy(v) for k, v in state.items()}
     return {f: to_numpy(getattr(state, f)) for f in state._fields}
+
+
+def amp_discriminator_from_jax(params_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``AMPDiscriminator`` parameters as numpy -> the port's
+    ``AMPDiscriminator`` ``state_dict``: ``Dense_i`` (kernel ``(in, out)``,
+    transposed) becomes ``layers.i`` (the outer ``params`` level may be
+    omitted)."""
+    p = params_np.get("params", params_np)
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32))
+    out = {}
+    for name, dense in p.items():
+        i = int(name.split("_")[-1])
+        out[f"layers.{i}.weight"] = f32(dense["kernel"]).t().contiguous()
+        out[f"layers.{i}.bias"] = f32(dense["bias"])
+    return out

@@ -18,7 +18,11 @@ adam(eps=1e-8))`` computes it: gradients are scaled by ``max_norm / norm``
 only when ``norm > max_norm``, then Adam's bias-corrected step. The
 learning rate is a 0-d tensor on the device, so the adaptive schedule needs
 no host sync either; it takes effect from the next minibatch. The JAX
-package's ``flatten_optimizer`` option is not ported.
+package's ``flatten_optimizer`` (``optax.flatten`` of that chain) selects
+the same step: optax's flattened chain differs from its per-tensor chain
+only in the rounding of the global norm's sum, and the per-tensor step,
+already a few multi-tensor ``_foreach`` launches, equals ``optax.flatten``
+within the optax gate (``tests/test_torch_flatten.py``).
 """
 
 from __future__ import annotations
@@ -62,6 +66,8 @@ class PPOConfig:
     activation: str = "elu"
     sigma_init: float = -2.0
     separate: bool = True
+    #: ``optax.flatten`` in the JAX package; the same per-tensor step here
+    flatten_optimizer: bool = False
 
     @staticmethod
     def from_train_cfg(train_cfg: Dict[str, Any]) -> "PPOConfig":
@@ -70,8 +76,6 @@ class PPOConfig:
         c = p.get("config", {})
         net = p.get("network", {})
         mlp = net.get("mlp", {})
-        if bool(c.get("flatten_optimizer", False)):
-            raise NotImplementedError("flatten_optimizer is not ported (ROADMAP)")
         sigma = (net.get("space", {}).get("continuous", {})
                  .get("sigma_init", {}).get("val", -2.0))
         return PPOConfig(
@@ -100,6 +104,7 @@ class PPOConfig:
             activation=str(mlp.get("activation", "elu")),
             sigma_init=float(sigma),
             separate=bool(net.get("separate", True)),
+            flatten_optimizer=bool(c.get("flatten_optimizer", False)),
         )
 
 

@@ -84,9 +84,13 @@ def acquire_force_sensor_tensor(sim: Simulator, state: SimState,
 
 
 def acquire_camera_image_tensor(camera, sim: Simulator, state: SimState,
-                                image_type: str = "depth"):
-    """Camera sensors are not ported yet (ROADMAP, module 12)."""
-    raise NotImplementedError("camera sensors are not ported yet (ROADMAP, module 12)")
+                                image_type: str = "depth") -> torch.Tensor:
+    """A :class:`~isaacgym_tpu_torch.sensors.Camera`'s image of every env:
+    ``image_type`` is "depth" (B, H, W), "rgb" (B, H, W, 3) or "seg"
+    (B, H, W) int32; the reference's names "color" and "segmentation" are
+    accepted too."""
+    key = {"color": "rgb", "segmentation": "seg"}.get(image_type, image_type)
+    return camera.render(sim, state)[key]
 
 
 def refresh_all(state: SimState) -> SimState:

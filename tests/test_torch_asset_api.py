@@ -15,6 +15,7 @@ import os
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 import jax.numpy as jnp
 
 from isaacgym_tpu.models import kinematics as JK

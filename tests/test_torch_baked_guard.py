@@ -26,6 +26,7 @@ base moved its step stays on K1 and matches the JAX package's guarded step
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 import jax
 import jax.numpy as jnp
 

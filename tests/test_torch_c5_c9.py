@@ -32,6 +32,7 @@ import math
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 
 import jax
 import jax.numpy as jnp
@@ -213,7 +214,8 @@ def test_launcher_trains_on_the_cpu(task, tmp_path):
     from isaacgym_tpu_torch.train import main
     ts = main([f"task={task}", "num_envs=8", "max_iterations=2", "device=cpu",
                "experiment=tiny", "train.params.network.mlp.units=[32,32]",
-               "train.params.config.minibatch_size=64"], run_root=str(tmp_path))
+               "train.params.config.horizon_length=4",
+               "train.params.config.minibatch_size=16"], run_root=str(tmp_path))
     assert ts.epoch == 2
     assert (tmp_path / "tiny" / "ckpt_final.pt").exists()
     last = json.loads((tmp_path / "tiny" / "metrics.jsonl").read_text().splitlines()[-1])

@@ -4,6 +4,8 @@ package's, within the C6 gates of ``tools/parity_tpu.py:60-62``; see
 """
 
 import pytest
+import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 
 from tests.test_torch_c8 import C6, check_step_parity, make_pair
 

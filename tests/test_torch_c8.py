@@ -20,6 +20,7 @@ run side by side under ``--dist loadfile``.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 import jax
 import jax.numpy as jnp
 
@@ -159,7 +160,8 @@ def test_c8_launcher_trains_on_the_cpu(tmp_path):
     from isaacgym_tpu_torch.train import main
     ts = main([f"task={C8}", "num_envs=8", "max_iterations=1", "device=cpu",
                "experiment=c8", "train.params.network.mlp.units=[32,32]",
-               "train.params.config.minibatch_size=64"], run_root=str(tmp_path))
+               "train.params.config.horizon_length=4",
+               "train.params.config.minibatch_size=16"], run_root=str(tmp_path))
     assert ts.epoch == 1
     assert (tmp_path / "c8" / "ckpt_final.pt").exists()
     assert ts.params.mu.out_features == 14 and ts.params.actor_mlp.layers[0].in_features == 94

@@ -4,6 +4,8 @@ gates of ``tools/parity_tpu.py:63-65``; see ``tests/test_torch_c8.py``.
 """
 
 import pytest
+import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 
 from tests.test_torch_c8 import C8, check_step_parity, make_pair
 

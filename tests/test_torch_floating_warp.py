@@ -27,6 +27,7 @@ one after another, the card's own schedule (``csrc/fused_substep_host.cpp``).
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 
 import isaacgym_tpu_torch
 from isaacgym_tpu_torch.models import kinematics as K

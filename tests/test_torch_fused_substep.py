@@ -34,6 +34,7 @@ randomized geoms in float32 at run time.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 import jax.numpy as jnp
 
 import isaacgym_tpu

@@ -39,6 +39,7 @@ forces (~300 N at the table), flip rate at most the C10 parity row's 25 %.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 import jax
 import jax.numpy as jnp
 

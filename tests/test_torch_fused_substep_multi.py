@@ -23,6 +23,7 @@ ball pos and ball vel; 1e-3 on qd, tau, impulses and omega, as for K2
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 import jax.numpy as jnp
 
 import isaacgym_tpu

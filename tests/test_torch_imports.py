@@ -5,9 +5,12 @@ A subprocess with those modules made unimportable imports every module of
 the two-humanoid C8 env (K3), the floating-base 27-DOF C10 env (K4), the
 two 26-DOF humanoids of C11 (K3), a link-collision scene, the flagship and
 C8 scenes with paddle force sensors (K2-tau, K3-tau) read
-through the tensor API, the DR env and one PPO epoch with a checkpoint on
-the CPU; an AST scan of every file finds no such import. The entry points
-default to the card and raise without one.
+through the tensor API, the DR env and one PPO epoch with a checkpoint, a
+camera through ``enableCameraSensors`` and the tensor API, a motion clip and
+the AMP loss, a ``flatten_optimizer`` epoch, a recorded rollout and the joint
+monkey on the CPU; an AST scan of every file finds no such import. The entry
+points (the env, the launcher, the camera, the motion library, the joint
+monkey and the two tools) default to the card and raise without one.
 """
 
 import ast
@@ -17,6 +20,7 @@ import sys
 
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "isaacgym_tpu_torch")
@@ -124,6 +128,30 @@ assert all(bool(torch.isfinite(v)) for v in metrics.values())
 with tempfile.TemporaryDirectory() as d:
     checkpoint.save(os.path.join(d, "c.pt"), ts)
     checkpoint.restore(os.path.join(d, "c.pt"), trainer.init_state())
+envc = isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpongTiltNoEarlyStopG1", num_envs=2,
+                               device="cpu", enableCameraSensors=True,
+                               cameras=[dict(width=16, height=12)])
+sc, oc = envc.reset()
+img = tensor_api.acquire_camera_image_tensor(envc.cameras[0], envc.sim, sc.sim, "seg")
+assert img.shape == (2, 12, 16) and envc.render_camera(sc)["rgb"].shape == (2, 12, 16, 3)
+from isaacgym_tpu_torch.rl import amp, motion_lib
+from isaacgym_tpu_torch.viewer import joint_monkey, trajectory
+with tempfile.TemporaryDirectory() as d:
+    motion_lib.save_motion_clip(os.path.join(d, "c.npz"), 30.0, torch.zeros(5, 3),
+                                torch.tensor([[0.0, 0, 0, 1]]).repeat(5, 1), torch.zeros(5, 7),
+                                torch.zeros(5, 7))
+    lib = motion_lib.MotionLib(os.path.join(d, "c.npz"), 7, device="cpu")
+    assert lib.get_motion_state(torch.tensor([0]), torch.tensor([0.05]))["dof_pos"].shape == (1, 7)
+disc = amp.AMPDiscriminator(28, (16,))
+assert amp.disc_loss(disc, torch.zeros(4, 28), torch.ones(4, 28))[0].ndim == 0
+import dataclasses
+ft = PPOTrainer(env, dataclasses.replace(PPOConfig.from_train_cfg(cfg["train"]),
+                                         flatten_optimizer=True), seed=0)
+fts = ft.init_state()
+fts, state, obs, metrics = ft.train_epoch(fts, state, obs)
+assert fts.opt_state.count > 0 and all(bool(torch.isfinite(v)) for v in metrics.values())
+assert trajectory.record_env_rollout(envc, steps=2).stacked().shape[0] == 2
+assert joint_monkey.run(steps=2, device="cpu").stacked().shape == (2, 1, 83, 13)
 for bad in {FORBIDDEN!r}:
     assert bad not in sys.modules, bad
 print("ok")
@@ -216,3 +244,47 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match=r"\(71, B\)"):
         kdr.launch(torch.zeros(37, 4))
     assert kdr.launches == 0
+
+
+def _camera_on_the_card():
+    import isaacgym_tpu_torch
+    from isaacgym_tpu_torch.sensors import Camera
+    env = isaacgym_tpu_torch.make(seed=0, task="HumanoidPingpongTiltNoEarlyStopG1",
+                                  num_envs=2, device="cpu")
+    Camera(env.scene)
+
+
+def _motion_lib_on_the_card(tmp_path):
+    from isaacgym_tpu_torch.rl.motion_lib import MotionLib, save_motion_clip
+    path = str(tmp_path / "c.npz")
+    save_motion_clip(path, 30.0, torch.zeros(3, 3), torch.zeros(3, 4), torch.zeros(3, 7),
+                     torch.zeros(3, 7))
+    MotionLib(path, 7)
+
+
+def _amp_demo_on_the_card(tmp_path):
+    from isaacgym_tpu_torch.amp_demo import main
+    main(["--expert", str(tmp_path / "none.pt"), "--out", str(tmp_path / "amp")])
+
+
+def _record_policy_on_the_card(tmp_path):
+    from isaacgym_tpu_torch.record_policy import main
+    main(["--checkpoint", str(tmp_path / "none.pt"), "--out", str(tmp_path / "p")])
+
+
+def _joint_monkey_on_the_card(tmp_path):
+    from isaacgym_tpu_torch.viewer.joint_monkey import run
+    run(steps=1)
+
+
+@pytest.mark.parametrize("entry", ("camera", "motion_lib", "amp_demo", "record_policy",
+                                   "joint_monkey"))
+def test_camera_amp_and_viewer_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = {"camera": lambda: _camera_on_the_card(),
+          "motion_lib": lambda: _motion_lib_on_the_card(tmp_path),
+          "amp_demo": lambda: _amp_demo_on_the_card(tmp_path),
+          "record_policy": lambda: _record_policy_on_the_card(tmp_path),
+          "joint_monkey": lambda: _joint_monkey_on_the_card(tmp_path)}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()

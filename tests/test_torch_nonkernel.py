@@ -32,6 +32,7 @@ flip: counted, at most one per set, its fields left out (0 measured).
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 import jax
 import jax.numpy as jnp
 

@@ -33,6 +33,7 @@ Tolerances, and why:
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 import jax
 import jax.numpy as jnp
 import optax
@@ -97,8 +98,9 @@ def test_ppo_config_and_overrides():
     got = PPOConfig.from_train_cfg(load_train_config(TASK))
     assert {k: getattr(got, k) for k in got.__dataclass_fields__} == {
         k: getattr(want, k) for k in got.__dataclass_fields__}
-    with pytest.raises(NotImplementedError, match="flatten_optimizer"):
-        PPOConfig.from_train_cfg({"params": {"config": {"flatten_optimizer": True}}})
+    # flatten_optimizer is ported (tests/test_torch_flatten.py holds it to optax.flatten)
+    flat = PPOConfig.from_train_cfg({"params": {"config": {"flatten_optimizer": True}}})
+    assert flat.flatten_optimizer and not ppo.flatten_optimizer
 
 
 # --------------------------------------------------------------- networks --

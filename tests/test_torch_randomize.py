@@ -20,6 +20,7 @@ The gates are the flagship gates of ``tests/test_torch_env.py``
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 import jax
 import jax.numpy as jnp
 

@@ -10,6 +10,7 @@ repeated computation may differ in the last place.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 import jax
 import jax.numpy as jnp
 

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 import jax.numpy as jnp
 
 from isaacgym_tpu.env.randomize import DRParams as JDRParams
@@ -92,8 +93,17 @@ def test_refresh_is_the_identity_and_cameras_are_not_ported(sims):
                T.refresh_rigid_body_state_tensor, T.refresh_dof_force_tensor,
                T.refresh_net_contact_force_tensor, T.refresh_force_sensor_tensor):
         assert fn(ps) is ps
-    with pytest.raises(NotImplementedError, match="module 12"):
-        T.acquire_camera_image_tensor(None, None, ps)
+    # the camera is ported (``sensors/camera.py``, held to the JAX camera in
+    # tests/test_torch_camera.py): the image tensor is the camera's render
+    from isaacgym_tpu_torch.sensors import Camera
+    psim = sims[0]
+    cam = Camera(psim.scene, width=12, height=9, device="cpu")
+    out = cam.render(psim, ps)
+    for image_type, key in (("depth", "depth"), ("rgb", "rgb"), ("seg", "seg"),
+                            ("color", "rgb"), ("segmentation", "seg")):
+        got = T.acquire_camera_image_tensor(cam, psim, ps, image_type)
+        assert torch.equal(got, out[key]), image_type
+    assert out["seg"].shape == (B, 9, 12) and out["seg"].dtype == torch.int32
 
 
 def test_setters_match(sims):

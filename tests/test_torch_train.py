@@ -12,6 +12,7 @@ import os
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thread each
 
 import isaacgym_tpu_torch
 from isaacgym_tpu_torch.rl import checkpoint as ckpt
