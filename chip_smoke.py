@@ -258,7 +258,24 @@ Each phase prints one JSON line with its seconds:
   viewer  record_env_rollout for 60 steps at 4096 envs (4 recorded): the
           npz's keys, shapes and dtypes are the JAX recorder's, its body
           states finite (drawing frames needs cv2: a host step, checked on
-          the CPU).
+          the CPU);
+  assets/native  (after build) the g++ build of the native asset parsers,
+          and every URDF of models/assets and the MJCF arm fixture parsed
+          natively equal, field for field, to the Python parsers' models;
+          every scene of the run compiles from the native parse;
+  pbt/flagship  python -m isaacgym_tpu_torch.pbt's population of 2, two
+          rounds of two epochs at 4096 envs with the launcher's nets: K2
+          2 x 32 launches an epoch a member, one member exploited a round,
+          a clone keeping its bits while its donor trains on, ckpt_best.pt
+          restoring the best member;
+  ddp/flagship  the data-parallel epoch (parallel/data_parallel.py) in two
+          processes on the one card over gloo, 2 x 2048 envs, two epochs
+          with DR: K2-dr 2 x 32 launches an epoch on each rank, bit-equal
+          parameters on both ranks, only rank 0's files; each rank's seconds
+          an epoch beside the one-process 4096-env epoch of train;
+  profile_ppo/flagship, probe_ball/flagship  each tool at 4096 envs, its
+          JSON line (the epoch's halves, FLOPs and MFU; the ball's arrival
+          statistics over 170 zero-action steps), K2's launches counted.
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; with
 no CUDA device, or run outside the repository, it exits non-zero at once.
@@ -2356,6 +2373,196 @@ def viewer_check(dev, steps=60, envs=4):
         raise SystemExit(f"viewer: {fmt}")
 
 
+def model_differences(a, b, atol=1e-12):
+    """The fields where two ``UrdfModel``s differ (names exactly, numbers to
+    ``atol``): empty when equal."""
+    import numpy as np
+    bad = []
+    if (a.name, a.root, a.link_names) != (b.name, b.root, b.link_names):
+        bad.append("names")
+    if [j.name for j in a.joints] != [j.name for j in b.joints]:
+        return bad + ["joints"]
+    for ja, jb in zip(a.joints, b.joints):
+        if (ja.kind, ja.parent, ja.child) != (jb.kind, jb.parent, jb.child):
+            bad.append(f"joint {ja.name}")
+        for f in ("xyz", "rpy", "axis", "lower", "upper", "effort", "velocity", "damping",
+                  "friction", "armature"):
+            if not np.allclose(getattr(ja, f), getattr(jb, f), rtol=0, atol=atol):
+                bad.append(f"joint {ja.name}.{f}")
+    for name in a.link_names:
+        la, lb = a.links[name], b.links[name]
+        for f in ("mass", "com", "inertia"):
+            if not np.allclose(getattr(la, f), getattr(lb, f), rtol=0, atol=atol):
+                bad.append(f"link {name}.{f}")
+        if len(la.geoms) != len(lb.geoms):
+            bad.append(f"link {name}.geoms")
+            continue
+        for ga, gb in zip(la.geoms, lb.geoms):
+            if ga.kind != gb.kind or not all(
+                    np.allclose(getattr(ga, f), getattr(gb, f), rtol=0, atol=atol)
+                    for f in ("size", "xyz", "rpy")):
+                bad.append(f"link {name}.geom")
+    return bad
+
+
+def native_assets():
+    """assets/native: build the native parsers (g++), then parse every URDF
+    of ``models/assets`` and the MJCF arm fixture natively and with the
+    Python parsers; the two models must be equal field for field (1e-12).
+    Every scene after this phase compiles from the native parse."""
+    from isaacgym_tpu_torch import native
+    from isaacgym_tpu_torch.models import mjcf, urdf as U
+    from isaacgym_tpu_torch.models.assets import ASSET_DIR
+    from isaacgym_tpu_torch.ops import _build
+    from isaacgym_tpu_torch.sim import scripted
+    t0 = time.perf_counter()
+    native.library_path()
+    build_s = time.perf_counter() - t0
+    rows = {}
+    for f in sorted(os.listdir(ASSET_DIR)):
+        if f.endswith(".urdf"):
+            path = os.path.join(ASSET_DIR, f)
+            rows[f] = model_differences(native.parse_urdf_native(path), U.parse_urdf(path))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "arm.xml")
+        with open(path, "w") as fh:
+            fh.write(scripted.ARM_MJCF)
+        rows["arm.xml"] = model_differences(native.parse_mjcf_native(path),
+                                            mjcf.parse_mjcf(path))
+    emit({"phase": "assets/native", "build_s": build_s,
+          "compile_seconds": _build.build_seconds.get("libig_assets.so"),
+          "files": sorted(rows), "differences": {k: v for k, v in rows.items() if v},
+          "seconds": time.perf_counter() - t0})
+    if len(rows) < 7 or any(rows.values()):
+        raise SystemExit(f"assets/native: {rows}")
+
+
+def _state_tensors(ts):
+    return ([p.detach() for p in ts.params.parameters()] + list(ts.opt_state.mu)
+            + list(ts.opt_state.nu) + list(ts.obs_stats) + list(ts.value_stats))
+
+
+def pbt_flagship(dev, root):
+    """pbt/flagship: population 2, two rounds of two epochs at B envs with
+    the launcher's nets, through K2 (2 x 32 launches an epoch a member).
+    Checks: one member exploited each round; a clone of the best member
+    keeps its bits while the donor trains another epoch; ``ckpt_best.pt``
+    restores the best member's parameters. Returns K2's launches."""
+    import torch
+    from isaacgym_tpu_torch import pbt
+    from isaacgym_tpu_torch.rl import checkpoint
+    t0 = time.perf_counter()
+    members, history, trainer = pbt.main(
+        [f"task={TASK}", "population=2", "rounds=2", "epochs_per_round=2", f"num_envs={B}",
+         "experiment=pbt_flagship", "seed=0"], run_root=root)
+    torch.cuda.synchronize()
+    pbt_s = time.perf_counter() - t0
+    env = trainer.env
+    launches = env.sim.kernel_launches()
+    want = {"fused_substep": 2 * 2 * 2 * 2 * trainer.cfg.horizon_length, "fused_substep_dr": 0}
+    best = max(members, key=lambda m: m["objective"])
+    back = checkpoint.restore(os.path.join(root, "pbt_flagship", "ckpt_best.pt"),
+                              trainer.init_state())
+    restored = all(torch.equal(a, b) for a, b in zip(back.params.parameters(),
+                                                      best["ts"].params.parameters()))
+    clone = pbt.clone_train_state(best["ts"], torch.Generator(device=dev), best["lr"])
+    shared = ({t.data_ptr() for t in _state_tensors(clone)}
+              & {t.data_ptr() for t in _state_tensors(best["ts"])})
+    kept = [t.clone() for t in _state_tensors(clone)]
+    donor, *_ = trainer.train_epoch(best["ts"], best["env_state"], best["obs"])
+    torch.cuda.synchronize()
+    clone_kept = all(torch.equal(a, b) for a, b in zip(_state_tensors(clone), kept))
+    donor_moved = not all(torch.equal(a, b) for a, b in zip(_state_tensors(donor), kept))
+    row = {"population": 2, "rounds": 2, "epochs_per_round": 2, "num_envs": B,
+           "history": history, "k2_launches": launches["fused_substep"],
+           "k2dr_launches": launches["fused_substep_dr"], "want": want,
+           "s_per_member_epoch": pbt_s / 8, "best_restored": restored,
+           "clone_shares_tensors": len(shared), "clone_kept_bits": clone_kept,
+           "donor_moved": donor_moved}
+    emit({"phase": "pbt/flagship", **row, "seconds": time.perf_counter() - t0})
+    if (launches != want or [len(r["exploited"]) for r in history] != [1, 1] or not restored
+            or shared or not clone_kept or not donor_moved):
+        raise SystemExit(f"pbt/flagship: {row}")
+    return launches["fused_substep"]
+
+
+def ddp_flagship(repo, root, one_process_epoch_s, extra=()):
+    """ddp/flagship: the data-parallel epoch in two processes on the one
+    card over gloo, 2 x B/2 envs, two epochs with DR through K2-dr. Checks:
+    both ranks end with bit-equal parameters; only rank 0 writes the
+    metrics, config and checkpoint; each rank launches K2-dr 2 x 32 times
+    an epoch and K2 none. Prints each rank's seconds per epoch beside the
+    one-process B-env epoch with DR (``train``). Returns both ranks' K2-dr
+    launches."""
+    import socket
+    import numpy as np
+    t0 = time.perf_counter()
+    out = os.path.join(root, "ddp")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), PYTHONPATH=repo)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "isaacgym_tpu_torch.parallel.data_parallel", f"task={TASK}",
+             f"num_envs={B}", "task.randomize=true", "epochs=2", "backend=gloo",
+             "seed=0", f"out={out}", *extra], cwd=repo, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode for p in procs):
+        raise SystemExit("ddp/flagship: a rank failed:\n" + "\n".join(l[-3000:] for l in logs))
+    results = [json.load(open(os.path.join(out, f"result_rank{r}.json"))) for r in range(2)]
+    p0, p1 = (np.load(os.path.join(out, f"params_rank{r}.npy")) for r in range(2))
+    files = sorted(os.listdir(out))
+    want_files = ["ckpt_final.pt", "config.json", "metrics.jsonl", "params_rank0.npy",
+                  "params_rank1.npy", "result_rank0.json", "result_rank1.json"]
+    per_epoch = [r["kernel_launches_per_epoch"] for r in results]
+    want = {"fused_substep": 0, "fused_substep_dr": 64}
+    row = {"ranks": 2, "envs_per_rank": B // 2, "backend": "gloo",
+           "params_bit_equal": bool(np.array_equal(p0, p1)), "files": files,
+           "launches_per_epoch": per_epoch,
+           "rank_s_per_epoch": [r["seconds_per_epoch"] for r in results],
+           "one_process_s_per_epoch": one_process_epoch_s,
+           "finite": all(math.isfinite(r["a_loss"]) for r in results)}
+    emit({"phase": "ddp/flagship", **row, "seconds": time.perf_counter() - t0})
+    if (not row["params_bit_equal"] or files != want_files or not row["finite"]
+            or any(e != want for r in per_epoch for e in r)):
+        raise SystemExit(f"ddp/flagship: {row}")
+    return sum(e["fused_substep_dr"] for r in per_epoch for e in r)
+
+
+def tool_checks():
+    """profile_ppo/flagship and probe_ball/flagship: each tool at B envs,
+    its JSON line printed under the phase, with K2's launches counted by
+    the tool's own env. Returns K2's launches of each."""
+    from isaacgym_tpu_torch import probe_ball, profile_ppo
+    import isaacgym_tpu_torch
+    t0 = time.perf_counter()
+    rep = profile_ppo.profile(TASK, B, device="cuda", repeats=2)
+    emit({"phase": "profile_ppo/flagship", **rep, "seconds": time.perf_counter() - t0})
+    # warm-up and two each of rollouts, updates and epochs: 5 rollouts of 32 steps
+    if (rep["kernel_launches"]["fused_substep"] != 5 * 2 * rep["horizon"]
+            or not rep["mfu_update_analytic"] > 0
+            or rep["flops_counter_fwd_per_sample"] != rep["net_fwd_flops_per_sample"]):
+        raise SystemExit(f"profile_ppo/flagship: {rep}")
+    t0 = time.perf_counter()
+    env = isaacgym_tpu_torch.make(seed=1, task=TASK, num_envs=B)
+    state, _ = env.reset()
+    out = probe_ball.probe(env, state, 170, TASK)
+    emit({"phase": "probe_ball/flagship", **out, "seconds": time.perf_counter() - t0})
+    if out["kernel_launches"]["fused_substep"] != 2 * 170 or not out["cross_rate"] > 0.5:
+        raise SystemExit(f"probe_ball/flagship: {out}")
+    return rep["kernel_launches"]["fused_substep"], out["kernel_launches"]["fused_substep"]
+
+
 def main():
     t_all = time.perf_counter()
     import torch
@@ -2406,6 +2613,9 @@ def main():
              if "registers" in ln or "bytes stack frame" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compile_seconds": _build.build_seconds, "ptxas": ptxas})
+
+    # ---- 1b: the native asset parsers (every scene below compiles from them)
+    native_assets()
 
     # ---- 2: K2 and K2-dr against their plain versions, the gates' bite, timings
     sets, rz, k2_line, k2dr_line = k2_checks(dev, host)
@@ -2789,6 +2999,15 @@ def main():
     amp_launches = amp_train(dev)
     viewer_check(dev)
 
+    # ---- 7i: PBT, the data-parallel epoch in two processes, profile_ppo and
+    # probe_ball, at full width through K2 and K2-dr
+    with tempfile.TemporaryDirectory() as tmp:
+        pbt_launches = pbt_flagship(dev, tmp)
+        torch.cuda.empty_cache()
+        ddp_launches = ddp_flagship(repo, tmp, statistics.median(r["epoch_s"]
+                                                                 for r in epochs[1:]))
+    profile_launches, probe_launches = tool_checks()
+
     # ---- 8: the kernels line, the card, the verdict
     emit({"kernels": [{
         "name": "arm_step", "route": "cuda",
@@ -2808,6 +3027,8 @@ def main():
             "c5_main": c5_launches, "c9_main": c9_launches, "c5_train": c5_train_launches,
             "c9_train": c9_train_launches, "flatten_train": flat_launches,
             "camera/flagship": camera_launches, "amp_train": amp_launches,
+            "pbt/flagship": pbt_launches, "profile_ppo/flagship": profile_launches,
+            "probe_ball/flagship": probe_launches,
             **{f"parity/{n}": parity_launches[n] for n in ("flagship", "c5", "c6", "c9")}},
         **k2_line, "library_ms": None, "us": k2_line["ms"] * 1e3,
         "plain_us": k2_line["plain_ms"] * 1e3, "bound_us": k2_line["bound_ms"] * 1e3}, {
@@ -2816,7 +3037,8 @@ def main():
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:754 (with_dr=True, "
                     "isaacgym_tpu/sim/simulator.py:521)",
         "launches": train_launches["k2dr"], "launches_by_path": {
-            "main": 0, "train": train_launches["k2dr"], "train_nodr": nodr_launches["k2dr"]},
+            "main": 0, "train": train_launches["k2dr"], "train_nodr": nodr_launches["k2dr"],
+            "ddp/flagship": ddp_launches},
         **k2dr_line, "library_ms": None, "us": k2dr_line["ms"] * 1e3,
         "plain_us": k2dr_line["plain_ms"] * 1e3, "bound_us": k2dr_line["bound_ms"] * 1e3}, {
         "name": "fused_substep_multi", "route": "cuda",

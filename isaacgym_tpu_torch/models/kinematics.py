@@ -324,8 +324,22 @@ def compile_tree(model: U.UrdfModel, floating_base: bool = False) -> KinematicTr
 
 
 def load_asset(path: str, floating_base: bool = False) -> KinematicTree:
-    """Parse + compile a URDF file in one call (the Python parser)."""
-    return compile_tree(U.parse_urdf(path), floating_base=floating_base)
+    """Parse + compile a URDF or (``.xml``) MJCF file in one call.
+
+    The native C++ parser (``isaacgym_tpu_torch.native``) reads the file; a
+    file it cannot parse goes to the Python parser, which raises its own
+    error on a malformed file. A failed build of the native library raises."""
+    from isaacgym_tpu_torch import native
+    if path.endswith(".xml"):   # MJCF
+        from isaacgym_tpu_torch.models.mjcf import parse_mjcf
+        native_parse, python_parse = native.parse_mjcf_native, parse_mjcf
+    else:
+        native_parse, python_parse = native.parse_urdf_native, U.parse_urdf
+    try:
+        model = native_parse(path)
+    except ValueError:
+        model = python_parse(path)
+    return compile_tree(model, floating_base=floating_base)
 
 
 # ---------------------------------------------------------------------------

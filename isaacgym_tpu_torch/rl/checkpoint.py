@@ -4,8 +4,9 @@ One ``torch.save`` file holds the parameters, the Adam moments and step
 count, both normalizers, the generator state, the epoch and the learning
 rate. ``restore`` loads it onto the device of the template state
 (``map_location``), so a checkpoint saved on the card restores on the CPU
-and back. The JAX package's orbax checkpoints are not read here: weights
-cross over through ``isaacgym_tpu_torch.interop``.
+and back. The JAX package's orbax checkpoints are not read here:
+``tools/torch_ckpt_from_orbax.py`` converts one (with JAX) into this
+format, without a generator state; ``restore`` then keeps the template's.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ def restore(path: str, template: PPOTrainState) -> PPOTrainState:
     dev = template.last_lr.device
     d = torch.load(path, map_location=dev, weights_only=True)
     template.params.load_state_dict(d["params"])
-    template.rng.set_state(d["rng"].cpu())
+    if d["rng"] is not None:   # a checkpoint converted from orbax holds none
+        template.rng.set_state(d["rng"].cpu())
     opt = d["opt_state"]
     return PPOTrainState(
         params=template.params,

@@ -33,7 +33,13 @@ def update_stats(stats: RunningStats, batch: torch.Tensor, axis=(0,)) -> Running
     n = 1
     for a in axis:
         n *= batch.shape[a]
-    b_count = torch.tensor(float(n), dtype=torch.float32, device=batch.device)
+    return merge_moments(stats, b_mean, b_var, n)
+
+
+def merge_moments(stats: RunningStats, b_mean: torch.Tensor, b_var: torch.Tensor,
+                  n: int) -> RunningStats:
+    """Merge a batch of ``n`` rows, given its mean and population variance."""
+    b_count = torch.tensor(float(n), dtype=torch.float32, device=b_mean.device)
     delta = b_mean - stats.mean
     tot = stats.count + b_count
     new_mean = stats.mean + delta * (b_count / tot)

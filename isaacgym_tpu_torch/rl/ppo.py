@@ -124,13 +124,13 @@ class PPOTrainState(NamedTuple):
     last_lr: torch.Tensor        # () float32 on the device
 
 
-def gaussian_kl(mu0, log_sig0, mu1, log_sig1):
-    """Analytic KL(N0 || N1) summed over action dims, mean over the batch
-    (rl_games ``policy_kl``, called with (new, old))."""
+def gaussian_kl_rows(mu0, log_sig0, mu1, log_sig1):
+    """Analytic KL(N0 || N1) of each row, summed over action dims (rl_games
+    ``policy_kl`` before its mean over the batch, called with (new, old))."""
     kl = (log_sig1 - log_sig0
           + (torch.exp(2.0 * log_sig0) + (mu0 - mu1) ** 2)
           / (2.0 * torch.exp(2.0 * log_sig1) + 1e-10) - 0.5)
-    return torch.sum(kl, dim=-1).mean()
+    return torch.sum(kl, dim=-1)
 
 
 def action_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -180,7 +180,10 @@ class PPOTrainer:
     """Owns the network, the optimizer and the epoch over a port env.
 
     Runs on the env's device (the card unless the env was made with
-    ``device="cpu"``)."""
+    ``device="cpu"``). Every draw and every reduction over the batch goes
+    through the methods under "the batch" below; the data-parallel trainer
+    (``parallel/data_parallel.py``) overrides them to draw and reduce over
+    the global batch of all ranks."""
 
     def __init__(self, env, cfg: PPOConfig, seed: int = 42,
                  compute_dtype: torch.dtype = torch.bfloat16):
@@ -213,6 +216,44 @@ class PPOTrainer:
     def _policy(self, net, obs_stats, obs):
         obs_n = N.normalize(obs_stats, obs) if self.cfg.normalize_input else obs
         return net(obs_n)
+
+    # -- the batch: draws and reductions (one process: the local batch) -----
+
+    def _action_noise(self, shape, rng):
+        return action_noise(shape, rng, self.device)
+
+    def _sum(self, x):
+        """A sum already taken over this process's envs, over the batch."""
+        return x
+
+    def _mean(self, x):
+        return x.mean()
+
+    def _min(self, x):
+        return x.min()
+
+    def _max(self, x):
+        return x.max()
+
+    def _mean_std(self, x):
+        return x.mean(), x.std(correction=0)
+
+    def _update_stats(self, stats, rows):
+        return N.update_stats(stats, rows)
+
+    def _minibatch_rows(self, T: int, rng):
+        """One mini-epoch's minibatches: a list of row indices each."""
+        mb = min(self.cfg.minibatch_size, T)
+        num_mb = T // mb
+        perm = minibatch_permutation(T, rng, self.device)
+        return list(perm[:num_mb * mb].view(num_mb, mb))
+
+    def _loss_mean(self, x):
+        """The mean of a per-row loss term over the minibatch."""
+        return x.mean()
+
+    def _reduce_grads(self, grads, aux):
+        return grads, aux
 
     # ------------------------------------------------------------------
 
@@ -247,7 +288,7 @@ class PPOTrainer:
             mu, log_sig, value_n = self._policy(ts.params, ts.obs_stats, obs)
             value = (N.denormalize(ts.value_stats, value_n)
                      if cfg.normalize_value else value_n)
-            noise = action_noise(mu.shape, ts.rng, dev)
+            noise = self._action_noise(mu.shape, ts.rng)
             action = mu + torch.exp(log_sig) * noise
             traj["obs"][t] = obs
             traj["action"][t] = action
@@ -288,16 +329,17 @@ class PPOTrainer:
         returns = adv + traj["value"]
 
         # normalizers update on this rollout's observations and returns
-        obs_stats = (N.update_stats(ts.obs_stats, traj["obs"].reshape(-1, env.num_obs))
+        obs_stats = (self._update_stats(ts.obs_stats, traj["obs"].reshape(-1, env.num_obs))
                      if cfg.normalize_input else ts.obs_stats)
-        value_stats = (N.update_stats(ts.value_stats, returns.reshape(-1))
+        value_stats = (self._update_stats(ts.value_stats, returns.reshape(-1))
                        if cfg.normalize_value else ts.value_stats)
         inf = float("inf")
         returns_n = N.normalize(value_stats, returns, clip=inf) if cfg.normalize_value else returns
         values_n = (N.normalize(value_stats, traj["value"], clip=inf)
                     if cfg.normalize_value else traj["value"])
         if cfg.normalize_advantage:
-            adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+            adv_mean, adv_std = self._mean_std(adv)
+            adv = (adv - adv_mean) / (adv_std + 1e-8)
 
         T = H * B
         batch = dict(obs=traj["obs"].reshape(T, -1), action=traj["action"].reshape(T, -1),
@@ -305,18 +347,18 @@ class PPOTrainer:
                      sigma=traj["sigma"].reshape(T, -1), value_n=values_n.reshape(T),
                      adv=adv.reshape(T), returns_n=returns_n.reshape(T))
         roll_metrics = {
-            "episode_return_sum": ep_return_sum,
-            "episode_length_sum": ep_length_sum,
-            "episode_count": ep_count,
-            "reward_mean": traj["reward"].mean(),
-            "reward_min": traj["reward"].min(),
-            "reward_max": traj["reward"].max(),
-            "episode_reward_scale": rewards.mean(),
-            "value_mean": traj["value"].mean(),
-            "adv_std": adv.std(correction=0),
+            "episode_return_sum": self._sum(ep_return_sum),
+            "episode_length_sum": self._sum(ep_length_sum),
+            "episode_count": self._sum(ep_count),
+            "reward_mean": self._mean(traj["reward"]),
+            "reward_min": self._min(traj["reward"]),
+            "reward_max": self._max(traj["reward"]),
+            "episode_reward_scale": self._mean(rewards),
+            "value_mean": self._mean(traj["value"]),
+            "adv_std": self._mean_std(adv)[1],
         }
         for k, v in event_sums.items():
-            roll_metrics[f"event_{k}_sum"] = v
+            roll_metrics[f"event_{k}_sum"] = self._sum(v)
         return env_state, obs, batch, obs_stats, value_stats, roll_metrics
 
     def loss(self, net, obs_stats, mbatch):
@@ -329,20 +371,21 @@ class PPOTrainer:
         ratio = torch.exp(logp - mbatch["logp"])
         surr1 = mbatch["adv"] * ratio
         surr2 = mbatch["adv"] * torch.clamp(ratio, 1.0 - cfg.e_clip, 1.0 + cfg.e_clip)
-        a_loss = -torch.minimum(surr1, surr2).mean()
+        a_loss = -self._loss_mean(torch.minimum(surr1, surr2))
         if cfg.clip_value:
             v_clipped = mbatch["value_n"] + torch.clamp(value - mbatch["value_n"],
                                                         -cfg.e_clip, cfg.e_clip)
-            c_loss = torch.maximum((value - mbatch["returns_n"]) ** 2,
-                                   (v_clipped - mbatch["returns_n"]) ** 2).mean()
+            c_loss = self._loss_mean(torch.maximum((value - mbatch["returns_n"]) ** 2,
+                                                   (v_clipped - mbatch["returns_n"]) ** 2))
         else:
-            c_loss = ((value - mbatch["returns_n"]) ** 2).mean()
-        entropy = gaussian_entropy(log_sig).mean()
-        b_loss = torch.sum(torch.clamp(mu - 1.1, min=0.0) ** 2
-                           + torch.clamp(-1.1 - mu, min=0.0) ** 2, dim=-1).mean()
+            c_loss = self._loss_mean((value - mbatch["returns_n"]) ** 2)
+        entropy = self._loss_mean(gaussian_entropy(log_sig))
+        b_loss = self._loss_mean(torch.sum(torch.clamp(mu - 1.1, min=0.0) ** 2
+                                           + torch.clamp(-1.1 - mu, min=0.0) ** 2, dim=-1))
         total = (a_loss + 0.5 * cfg.critic_coef * c_loss
                  - cfg.entropy_coef * entropy + cfg.bounds_loss_coef * b_loss)
-        kl = gaussian_kl(mu.detach(), log_sig.detach(), mbatch["mu"], mbatch["sigma"])
+        kl = self._loss_mean(gaussian_kl_rows(mu.detach(), log_sig.detach(),
+                                              mbatch["mu"], mbatch["sigma"]))
         return total, dict(a_loss=a_loss.detach(), c_loss=c_loss.detach(),
                            entropy=entropy.detach(), b_loss=b_loss.detach(), kl=kl)
 
@@ -352,8 +395,6 @@ class PPOTrainer:
         mini-epoch's means."""
         cfg = self.cfg
         T = batch["logp"].shape[0]
-        mb = min(cfg.minibatch_size, T)
-        num_mb = T // mb
         if cfg.lr_schedule == "linear":
             # rl_games LinearScheduler: linear decay to 0 over max_epochs, floor 1e-6
             frac = min(max(1.0 - ts.epoch / float(cfg.max_epochs), 0.0), 1.0)
@@ -366,14 +407,13 @@ class PPOTrainer:
         max_norm = cfg.grad_norm if cfg.truncate_grads else None
         aux_means = {}
         for _ in range(cfg.mini_epochs):
-            perm = minibatch_permutation(T, ts.rng, self.device)
-            perm = perm[:num_mb * mb].view(num_mb, mb)
+            minibatches = self._minibatch_rows(T, ts.rng)
+            num_mb = len(minibatches)
             sums: Dict[str, torch.Tensor] = {}
-            for i in range(num_mb):
-                idx = perm[i]
+            for idx in minibatches:
                 mbatch = {k: v[idx] for k, v in batch.items()}
                 total, aux = self.loss(net, obs_stats, mbatch)
-                grads = torch.autograd.grad(total, params)
+                grads, aux = self._reduce_grads(torch.autograd.grad(total, params), aux)
                 opt_state = clip_and_adam(params, grads, opt_state, lr, max_norm)
                 if cfg.lr_schedule == "adaptive":
                     # rl_games AdaptiveScheduler: x / 1.5 on the minibatch KL,

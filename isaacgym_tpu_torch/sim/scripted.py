@@ -177,6 +177,33 @@ def k2_inputs(env, kind: str, B: int, rng: np.random.RandomState):
     raise KeyError(f"unknown input kind {kind!r}; known: {KINDS}")
 
 
+#: ``tests/test_mjcf.py``'s two-hinge MJCF arm (default classes, chained
+#: hinges): the MJCF fixture of the asset checks
+ARM_MJCF = """
+<mujoco model="arm2">
+  <default>
+    <joint damping="0.1" armature="0.01"/>
+    <default class="small"><geom type="sphere" size="0.03"/></default>
+  </default>
+  <worldbody>
+    <body name="base" pos="0 0 1">
+      <inertial mass="2.0" pos="0 0 0" diaginertia="0.01 0.01 0.01"/>
+      <geom type="box" size="0.05 0.05 0.05"/>
+      <body name="upper" pos="0 0 0">
+        <joint name="shoulder" type="hinge" axis="0 1 0" range="-1.5 1.5"/>
+        <inertial mass="1.0" pos="0 0 -0.15" diaginertia="0.005 0.005 0.001"/>
+        <body name="lower" pos="0 0 -0.3">
+          <joint name="elbow" type="hinge" axis="0 1 0" range="-2 2"/>
+          <inertial mass="0.5" pos="0 0 -0.1" diaginertia="0.002 0.002 0.001"/>
+          <geom class="small" pos="0 0 -0.2"/>
+        </body>
+      </body>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+
+
 TOY_ARM_URDF = """
 <robot name="toy_arm">
   <link name="base">

@@ -391,6 +391,16 @@ class Simulator:
         self._baked_root = torch.as_tensor(scene.initial_root[self._baked_actors, 0:7],
                                            device=self.device)
 
+    def kernel_launches(self) -> Dict[str, int]:
+        """Each kernel wrapper's launch count by its attribute (K1's summed
+        over the articulations)."""
+        out = {n: getattr(self, n).launches for n in (
+            "fused_substep", "fused_substep_dr", "fused_substep_multi", "fused_substep_floating")
+            if getattr(self, n) is not None}
+        if self.arm_steps:
+            out["arm_steps"] = sum(k.launches for k in self.arm_steps)
+        return out
+
     def _build_fused(self, gravity, dt_s) -> None:
         """The K2 (and K2-dr) or K3 wrapper and its constant pack."""
         scene, spec, arts = self.scene, self.scene.spec, self.scene.articulations

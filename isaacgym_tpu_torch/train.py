@@ -5,11 +5,23 @@
     python -m isaacgym_tpu_torch.train task=... test=true checkpoint=runs/X/ckpt_final.pt
 
 It composes the task and train configs with the overrides
-(``utils/config.py``), builds the env and the PPO trainer on the card (or on
-the CPU with ``device=cpu``), restores a checkpoint when asked, then plays
-(``test=true``) or trains, saving ``ckpt_<epoch>.pt`` every
-``save_frequency`` epochs and ``ckpt_final.pt`` at the end under
-``runs/<experiment>/`` with ``config.json`` and ``metrics.jsonl``.
+(``utils/config.py``, then ``preprocess_train_config``: the PBT
+``model_size_multiplier`` and the launcher fields), builds the env and the
+PPO trainer on the card (or on the CPU with ``device=cpu``), restores a
+checkpoint when asked, then plays (``test=true``) or trains, saving
+``ckpt_<epoch>.pt`` every ``save_frequency`` epochs and ``ckpt_final.pt``
+at the end under ``runs/<experiment>/`` with ``config.json`` and
+``metrics.jsonl``. ``wandb_activate=true`` adds the W&B observer (it does
+nothing without ``wandb``), ``pbt.enabled=true`` the PBT observer
+(``pbt_objective.json``).
+
+Under ``torchrun`` (``WORLD_SIZE > 1``) every rank joins the process group
+(``parallel.mesh.init_distributed``, ``backend=nccl`` by default on the
+card, ``gloo`` on the CPU or for several ranks on one card) and trains its
+own replica seeded ``seed + rank``, as the JAX launcher does: it shards no
+epoch (``parallel/data_parallel.py`` is the data-parallel epoch). Rank 0
+alone writes ``config.json``, the observers' files, the checkpoints and the
+console log.
 """
 
 from __future__ import annotations
@@ -32,21 +44,26 @@ def main(argv, run_root: str = "runs"):
     from isaacgym_tpu_torch.make import make
     from isaacgym_tpu_torch.rl import checkpoint as ckpt
     from isaacgym_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
-    from isaacgym_tpu_torch.utils.config import compose
-    from isaacgym_tpu_torch.utils.logging import JsonlObserver
+    from isaacgym_tpu_torch.parallel.mesh import init_distributed
+    from isaacgym_tpu_torch.utils.config import compose, preprocess_train_config
+    from isaacgym_tpu_torch.utils import logging as L
 
-    cfg = compose(task_name, overrides)
-    seed = int(cfg["seed"])
+    cfg = compose(task_name, [o for o in overrides if not o.startswith("backend=")])
+    preprocess_train_config(cfg)
     device = str(cfg["device"])
+    rank, _, _ = init_distributed(kv.get("backend", "nccl" if device == "cuda" else "gloo"),
+                                  device)
+    seed = int(cfg["seed"]) + rank   # rank-offset seeding, as the JAX launcher
     env = make(seed=seed, task=task_name, device=device, cfg=cfg["task"])
     ppo_cfg = PPOConfig.from_train_cfg(cfg["train"])
     max_iters = int(cfg["max_iterations"] or ppo_cfg.max_epochs)
 
     experiment = cfg["experiment"] or f"{task_name}_{time.strftime('%y%m%d-%H%M%S')}"
     run_dir = os.path.join(run_root, experiment)
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "config.json"), "w") as f:
-        json.dump(cfg, f, indent=2, default=str)
+    if rank == 0:
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=2, default=str)
 
     trainer = PPOTrainer(env, ppo_cfg, seed=seed)
     ts = trainer.init_state()
@@ -57,16 +74,28 @@ def main(argv, run_root: str = "runs"):
     if cfg["test"]:
         from isaacgym_tpu_torch.rl.player import play
         stats = play(env, trainer, ts, episodes=int(cfg.get("episodes", 4)),
-                     sigma=float(cfg["sigma"]) if cfg["sigma"] != "" else None)
-        print(json.dumps(stats), flush=True)
+                     sigma=float(cfg["sigma"]) if cfg["sigma"] not in ("", None) else None)
+        if rank == 0:
+            print(json.dumps(stats), flush=True)
         return stats
 
-    observer = JsonlObserver()
-    observer.after_init(run_dir, cfg)
+    observers = [L.JsonlObserver()]
+    if str(cfg.get("wandb_activate", False)).lower() in ("1", "true"):
+        observers.append(L.WandbObserver(
+            project=str(cfg.get("wandb_project", "isaacgym_tpu")),
+            name=str(cfg.get("wandb_name") or experiment),
+            entity=str(cfg.get("wandb_entity", "")),
+            group=str(cfg.get("wandb_group", "")), rank=rank))
+    if (cfg.get("pbt") or {}).get("enabled"):
+        observers.append(L.PbtObserver())
+    observer = L.MultiObserver(observers)
+    if rank == 0:
+        observer.after_init(run_dir, cfg)
     save_freq = int(cfg["train"]["params"]["config"].get("save_frequency", 1500))
     log_every = int(cfg.get("log_every", 10))
-    print(f"training {task_name}: {env.num_envs} envs on {env.device}, horizon "
-          f"{ppo_cfg.horizon_length}, {max_iters} epochs, seed {seed}", flush=True)
+    if rank == 0:
+        print(f"training {task_name}: {env.num_envs} envs on {env.device}, horizon "
+              f"{ppo_cfg.horizon_length}, {max_iters} epochs, seed {seed}", flush=True)
     env_state, obs = env.reset()
     steps_per_epoch = env.num_envs * ppo_cfg.horizon_length
     t_start = t_last = time.time()
@@ -79,7 +108,7 @@ def main(argv, run_root: str = "runs"):
         for k, v in metrics.items():
             if k in EPISODE_SUMS or (k.startswith("event_") and k.endswith("_sum")):
                 pending[k] = pending[k] + v if k in pending else v
-        if it < 3 or it % log_every == 0:
+        if rank == 0 and (it < 3 or it % log_every == 0):
             scalar = {k: float(v) for k, v in metrics.items()}   # waits for the epoch
             now = time.time()
             scalar["env_steps_per_s"] = steps_per_epoch * (it - it_last + 1) / max(now - t_last, 1e-9)
@@ -97,13 +126,16 @@ def main(argv, run_root: str = "runs"):
                   f"ep_len {scalar['episode_length_mean']:6.1f}  "
                   f"a_loss {scalar['a_loss']:.4f}  c_loss {scalar['c_loss']:.4f}  "
                   f"kl {scalar['kl']:.4f}  {scalar['env_steps_per_s']:,.0f} steps/s", flush=True)
-        if save_freq and (it + 1) % save_freq == 0:
+        if rank == 0 and save_freq and (it + 1) % save_freq == 0:
             ckpt.save(os.path.join(run_dir, f"ckpt_{it + 1:07d}.pt"), ts)
-    ckpt.save(os.path.join(run_dir, "ckpt_final.pt"), ts)
-    observer.close()
     if device == "cuda":
         torch.cuda.synchronize()
-    print(f"done in {time.time() - t_start:.0f}s; checkpoints in {run_dir}", flush=True)
+    if rank == 0:
+        ckpt.save(os.path.join(run_dir, "ckpt_final.pt"), ts)
+        observer.close()
+        print(f"done in {time.time() - t_start:.0f}s; checkpoints in {run_dir}", flush=True)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     return ts
 
 

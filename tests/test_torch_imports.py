@@ -8,9 +8,12 @@ C8 scenes with paddle force sensors (K2-tau, K3-tau) read
 through the tensor API, the DR env and one PPO epoch with a checkpoint, a
 camera through ``enableCameraSensors`` and the tensor API, a motion clip and
 the AMP loss, a ``flatten_optimizer`` epoch, a recorded rollout and the joint
-monkey on the CPU; an AST scan of every file finds no such import. The entry
+monkey, an MJCF asset, the observers, the reward hooks with the
+``model_size_multiplier`` and the mesh arithmetic on the CPU; an AST scan
+of every file finds no such import. The entry
 points (the env, the launcher, the camera, the motion library, the joint
-monkey and the two tools) default to the card and raise without one.
+monkey, the two tools, PBT, ``profile_ppo`` and ``probe_ball``) default to
+the card and raise without one.
 """
 
 import ast
@@ -152,6 +155,23 @@ fts, state, obs, metrics = ft.train_epoch(fts, state, obs)
 assert fts.opt_state.count > 0 and all(bool(torch.isfinite(v)) for v in metrics.values())
 assert trajectory.record_env_rollout(envc, steps=2).stacked().shape[0] == 2
 assert joint_monkey.run(steps=2, device="cpu").stacked().shape == (2, 1, 83, 13)
+from isaacgym_tpu_torch.models.kinematics import load_asset
+from isaacgym_tpu_torch.parallel import mesh
+from isaacgym_tpu_torch.utils import logging as L
+from isaacgym_tpu_torch.utils.config import compose, preprocess_train_config
+with tempfile.TemporaryDirectory() as d:
+    with open(os.path.join(d, "a.xml"), "w") as f:
+        f.write('<mujoco model="a"><worldbody><body name="b"><inertial mass="1" '
+                'diaginertia="1 1 1"/><body name="c"><joint name="j" type="hinge"/>'
+                '<inertial mass="1" diaginertia="1 1 1"/></body></body></worldbody></mujoco>')
+    assert load_asset(os.path.join(d, "a.xml")).n_dof == 1
+    obs_ = L.MultiObserver([L.EpisodeStatsObserver(), L.JsonlObserver(), L.PbtObserver(1)])
+    obs_.after_init(d, {{}})
+c8 = compose("Humanoid12PingpongTiltG1", ["two_player=true", "hit_reward=500",
+                                          "train.params.network.mlp.model_size_multiplier=2"])
+assert c8["task"]["env"]["twoPlayer"] is True and c8["task"]["env"]["hitTableReward"] == 500
+assert preprocess_train_config(c8)["params"]["network"]["mlp"]["units"][0] == 4096
+assert mesh.make_mesh(4, 2) == {{"dp": 2, "mdl": 2}}
 for bad in {FORBIDDEN!r}:
     assert bad not in sys.modules, bad
 print("ok")
@@ -277,14 +297,32 @@ def _joint_monkey_on_the_card(tmp_path):
     run(steps=1)
 
 
+def _pbt_on_the_card(tmp_path):
+    from isaacgym_tpu_torch.pbt import main
+    main(["num_envs=2", "population=2", "rounds=1"], run_root=str(tmp_path))
+
+
+def _profile_ppo_on_the_card():
+    from isaacgym_tpu_torch.profile_ppo import main
+    main(["--num-envs", "4"])
+
+
+def _probe_ball_on_the_card():
+    from isaacgym_tpu_torch.probe_ball import main
+    main(["--envs", "4", "--steps", "1"])
+
+
 @pytest.mark.parametrize("entry", ("camera", "motion_lib", "amp_demo", "record_policy",
-                                   "joint_monkey"))
+                                   "joint_monkey", "pbt", "profile_ppo", "probe_ball"))
 def test_camera_amp_and_viewer_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fn = {"camera": lambda: _camera_on_the_card(),
           "motion_lib": lambda: _motion_lib_on_the_card(tmp_path),
           "amp_demo": lambda: _amp_demo_on_the_card(tmp_path),
           "record_policy": lambda: _record_policy_on_the_card(tmp_path),
-          "joint_monkey": lambda: _joint_monkey_on_the_card(tmp_path)}[entry]
+          "joint_monkey": lambda: _joint_monkey_on_the_card(tmp_path),
+          "pbt": lambda: _pbt_on_the_card(tmp_path),
+          "profile_ppo": lambda: _profile_ppo_on_the_card(),
+          "probe_ball": lambda: _probe_ball_on_the_card()}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn()
