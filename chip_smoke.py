@@ -139,13 +139,13 @@ Each phase prints one JSON line with its seconds:
           force and moment lanes against the same step through the plain
           version in float32 and float64 (SENSOR_TOL beyond the float32
           run's rounding);
-  c10_main  make(seed=0, C10, 2048 envs), 3 windows of 100 steps under
+  c10_main  make(seed=0, C10, 2048 envs), 3 windows of 50 steps under
           random actions: K4 exactly 2 launches per step, every state
           finite; env-steps/s and ms per step;
   c10_profile  torch.profiler over 10 C10 steps: device kernels per step,
           K4's share and the device busy share;
   terrain_main  the flagship on the seeded 8 m x 6 m rough heightfield with
-          the heightmap block (obs 305) at 4096 envs, 3 windows of 100 steps
+          the heightmap block (obs 305) at 4096 envs, 3 windows of 50 steps
           under random actions: K1 exactly 2 launches per step and K2 none,
           every state finite, a ball bounces; env-steps/s; terrain_profile
           torch.profiler over 10 steps (device kernels per step, busy
@@ -185,14 +185,14 @@ Each phase prints one JSON line with its seconds:
           launches per epoch, episodes of 169, every metric finite, the loss
           on the first minibatch falls;
   dr/c8, dr/c10  make(..., task.randomize=true) at 4096 and 2048 envs, DR
-          at full strength (global step 3000), 20 env steps under random
+          at full strength (global step 3000), 10 env steps under random
           actions: the non-kernel step, K3 and K4 launched 0 times, every
           state finite, env-steps/s; then from the last state one
           Simulator.step with an identity DR channel against the kernel
           route's step (within NONKERNEL_GATE, flip-aware; not the contact
           moments, which the sensor-less kernel route leaves at zero) and
           one with the full-strength channel, which must fail that gate;
-  dr_train/c8, dr_train/c10  one PPO epoch each on its train config with
+  dr_train/c8, dr_train/c10  one PPO epoch each (horizon 16) on its train config with
           task.randomize=true: every metric finite, K3 and K4 launched 0
           times, seconds per epoch;
   routes/biped, routes/arm3  the JAX tests' 4-DOF floating biped and a
@@ -211,7 +211,7 @@ Each phase prints one JSON line with its seconds:
           negated moment rows too; k3c11_timing, k3tauc11_timing  their
           time per launch on the rollout states, plain version, bound,
           ptxas usage and launch geometry (one env a block);
-  c11_main  make(seed=0, C11, 4096 envs), 100 steps under random actions:
+  c11_main  make(seed=0, C11, 4096 envs), 50 steps under random actions:
           route k3, K3 exactly 2 launches per step, every state finite,
           env-steps/s; torch.profiler over 10 more steps (device busy
           share, device kernels per step, K3's share);
@@ -224,7 +224,7 @@ Each phase prints one JSON line with its seconds:
           narrowphase (link_collision) through the non-kernel step: the JAX
           tests' two pendulums and sibling arms at 4096 envs with per-env
           swing velocities (30 steps), and the flagship with linkCollision
-          on at 4096 envs (20 steps): route nonkernel and no kernel held,
+          on at 4096 envs (10 steps): route nonkernel and no kernel held,
           the pair count, ms per step, and one step against the CPU's
           non-kernel step within NONKERNEL_GATE, flip-aware;
   flatten_train  three flagship epochs at 4096 envs with
@@ -269,13 +269,39 @@ Each phase prints one JSON line with its seconds:
           a clone keeping its bits while its donor trains on, ckpt_best.pt
           restoring the best member;
   ddp/flagship  the data-parallel epoch (parallel/data_parallel.py) in two
-          processes on the one card over gloo, 2 x 2048 envs, two epochs
+          processes on the one card over gloo, 2 x 2048 envs, one epoch
           with DR: K2-dr 2 x 32 launches an epoch on each rank, bit-equal
           parameters on both ranks, only rank 0's files; each rank's seconds
           an epoch beside the one-process 4096-env epoch of train;
   profile_ppo/flagship, probe_ball/flagship  each tool at 4096 envs, its
           JSON line (the epoch's halves, FLOPs and MFU; the ball's arrival
-          statistics over 170 zero-action steps), K2's launches counted.
+          statistics over 170 zero-action steps), K2's launches counted;
+  parity_dr/<scene> or parity_dr_fixture/<scene> (flagship, c8, c10)
+          the parity tool's DR rows (the env step under domain randomization
+          with every JAX draw replayed, the new DR parameters bit for bit):
+          parity_dr/ at the gates' widths from build/parity/<scene>_dr.npz
+          where tools/torch_parity_export.py --dr wrote them (they are not
+          committed: 40 MB), else parity_dr_fixture/ on the committed 64-env
+          fixture; within the gates, K2-dr twice a step on the flagship, no
+          launch on C8 and C10 (the non-kernel step); parity_dr_gates  each
+          fixture with identity DR parameters and with the redraw dropped,
+          and the flagship's with its noise dropped, must fail;
+  switches/<scene>_<switch>  each physics switch (sim/switches.py) on the
+          flagship (K2), C8 (K3) and C10 (K4) where it reaches them, 1024
+          envs (C10 512) of contact states: one step on the card against
+          the CPU's under the same switch, the route's kernel twice (its
+          -tau build under torque; switches/flagship_torque_dr K2-dr-tau
+          under DR), no kernel under pallas off, the default's bits under
+          ccd and native off;
+  tp/flagship  the PPO epoch with the trunks sharded over mdl
+          (parallel/tensor_parallel.py), two processes on the one card over
+          gloo, dp 1 x mdl 2, 4096 envs, the full trunk in float32
+          (DTensor's parallelize_module): the first minibatch's gradients,
+          the clip norm and the rollout's metrics against one process's
+          epoch; the update's metrics and the parameters after it within 4x
+          their spread against a second one-process epoch with float64
+          trunks; the trunks still cut after the update; seconds per epoch
+          beside the one process's.
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; with
 no CUDA device, or run outside the repository, it exits non-zero at once.
@@ -332,6 +358,25 @@ NONKERNEL_GATE_C10 = dict(root=5e-3, dof_pos=1e-5, dof_vel=3e-3, dof_force=5e-3,
                           net_contact_force=0.1, net_contact_torque=5e-3)
 C_F32 = 1.0                    # see compare
 # a kernel's numbers per built shape in the kernels line (K3, K3-tau)
+# tp/flagship: the sharded float32 epoch against the one-process epoch (the
+# first minibatch's gradients relative to their largest entry; the metrics
+# and the clip norm relative to their own size, the metrics with an absolute
+# floor for the near-zero bounds loss): 4096 envs x 32 steps may part at a
+# paddle strike where the two trunks' float32 sums differ in the last place,
+# so the gates sit above the CPU tests' 1e-5 and 1e-4
+TP_GRAD_TOL, TP_METRIC_RTOL, TP_METRIC_ATOL = 1e-3, 1e-3, 1e-6
+# the update's metrics (the last mini-epoch's means) and the parameters after
+# it come after 160 Adam steps, which grow last-place differences. Their
+# gate is measured in the same run: a second one-process epoch with its
+# trunks computed in float64 gives the spread that the float32 trunks'
+# rounding alone makes, and the sharded epoch (whose trunks only sum in
+# another order) may part from the float32 one-process epoch by at most
+# TP_SPREAD_FACTOR times that spread, metric by metric (plus the rollout's
+# TP_METRIC_RTOL; TP_PARAM_ATOL for the parameters). A reordered float32 twin (the loss means summed in reverse
+# row order) is no witness: the means' gradients do not depend on the order,
+# and on the H100 it gave the same parameters bit for bit
+TP_UPDATE_METRICS = ("a_loss", "c_loss", "entropy", "b_loss", "kl")
+TP_SPREAD_FACTOR, TP_PARAM_ATOL = 4.0, 1e-6
 SHAPE_FIELDS = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "registers",
                 "stack_bytes", "spill_bytes", "smem_bytes")
 
@@ -1542,7 +1587,7 @@ def nonkernel_compare(got, want, gate):
     return {"max_dev": dev, "flip_rate": flip_rate, "finite": finite, "within_gate": within}
 
 
-def dr_checks(dev, steps=20):
+def dr_checks(dev, steps=10):
     """Domain randomization on C8 (4096 envs) and C10 (2048): ``make`` with
     ``task.randomize=true``, every DR term at full strength (global step
     3000), ``steps`` env steps under random actions through the non-kernel
@@ -1730,9 +1775,9 @@ def k1_checks(dev, host, env_t):
             **usage, "geometry": k1_geometry(B)}
 
 
-def terrain_main(dev, env_t):
-    """The terrain flagship at 4096 envs through K1: 3 windows of 100 steps
-    under uniform random actions, K1 exactly 2 launches per step and K2
+def terrain_main(dev, env_t, window=50):
+    """The terrain flagship at 4096 envs through K1: 3 windows of ``window``
+    steps (formerly 100) under uniform random actions, K1 exactly 2 launches per step and K2
     none, every state finite, some ball bounces; then torch.profiler over
     10 steps. Returns K1's launches."""
     import torch
@@ -1752,7 +1797,7 @@ def terrain_main(dev, env_t):
     for _ in range(3):
         torch.cuda.synchronize()
         tw = time.perf_counter()
-        for _ in range(100):
+        for _ in range(window):
             state, obs, rew, done, info = env_t.step(state, act())
             zs.append(state.sim.root[:, 2, 2].clone())
             steps += 1
@@ -1763,11 +1808,11 @@ def terrain_main(dev, env_t):
     finite = all(bool(torch.isfinite(t_).all()) for t_ in state.sim) and bool(
         torch.isfinite(obs).all() and torch.isfinite(rew).all())
     bounced = bounced_envs(zs, dev)
-    rates = [B * 100 / w for w in windows]
+    rates = [B * window / w for w in windows]
     emit({"phase": "terrain_main", "num_envs": B, "steps": steps, "k1_launches": launches,
           "k2_launches": k2, "route": sim.route, "obs_shape": list(obs.shape),
           "env_steps_per_s": rates, "env_steps_per_s_median": statistics.median(rates),
-          "ms_per_step": [w * 10 for w in windows], "bounced_envs": bounced,
+          "ms_per_step": [w * 1e3 / window for w in windows], "bounced_envs": bounced,
           "ball_z_min": float(torch.stack(zs).min()),
           "seconds": time.perf_counter() - t0})
     if (launches != 2 * steps or k2 != 0 or not finite or bounced == 0
@@ -2488,7 +2533,8 @@ def pbt_flagship(dev, root):
 
 def ddp_flagship(repo, root, one_process_epoch_s, extra=()):
     """ddp/flagship: the data-parallel epoch in two processes on the one
-    card over gloo, 2 x B/2 envs, two epochs with DR through K2-dr. Checks:
+    card over gloo, 2 x B/2 envs, one epoch with DR through K2-dr (formerly
+    two). Checks:
     both ranks end with bit-equal parameters; only rank 0 writes the
     metrics, config and checkpoint; each rank launches K2-dr 2 x 32 times
     an epoch and K2 none. Prints each rank's seconds per epoch beside the
@@ -2507,7 +2553,7 @@ def ddp_flagship(repo, root, one_process_epoch_s, extra=()):
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), PYTHONPATH=repo)
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "isaacgym_tpu_torch.parallel.data_parallel", f"task={TASK}",
-             f"num_envs={B}", "task.randomize=true", "epochs=2", "backend=gloo",
+             f"num_envs={B}", "task.randomize=true", "epochs=1", "backend=gloo",
              "seed=0", f"out={out}", *extra], cwd=repo, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT))
     logs = []
@@ -2561,6 +2607,324 @@ def tool_checks():
     if out["kernel_launches"]["fused_substep"] != 2 * 170 or not out["cross_rate"] > 0.5:
         raise SystemExit(f"probe_ball/flagship: {out}")
     return rep["kernel_launches"]["fused_substep"], out["kernel_launches"]["fused_substep"]
+
+
+def parity_dr_checks(dev, repo):
+    """The parity tool's DR rows (the env step under domain randomization,
+    every JAX draw replayed) for the flagship (K2-dr, 2 launches a step), C8
+    and C10 (the non-kernel step, no launch): ``parity_dr/<scene>`` at the
+    gates' widths from ``build/parity/<scene>_dr.npz`` where
+    ``tools/torch_parity_export.py --dr`` wrote them (on a machine with JAX),
+    else ``parity_dr_fixture/<scene>`` on the committed 64-env fixture
+    (``parity/data/``, cut from those files). Then parity_dr_gates: each
+    scene's fixture with the DR parameters at the identity and with the
+    redraw dropped, and the flagship's with the noise dropped, must fail
+    (the CPU tests run every scene with all three). Returns K2-dr's
+    launches."""
+    from isaacgym_tpu_torch.parity import env_step as E
+    data = os.path.join(os.path.dirname(E.__file__), "data")
+    full = os.path.join(repo, "build", "parity")
+    k2dr = 0
+    for name, per_step in (("flagship", {"fused_substep": 0, "fused_substep_dr": 2}),
+                           ("c8", {"fused_substep_multi": 0}),
+                           ("c10", {"fused_substep_floating": 0})):
+        fname = f"{name}_dr.npz"
+        at_width = os.path.exists(os.path.join(full, fname))
+        path = os.path.join(full if at_width else data, fname)
+        phase = f"parity_dr/{name}" if at_width else f"parity_dr_fixture/{name}"
+        res = E.check(path, "cuda")
+        res["file"] = os.path.relpath(path, repo)
+        emit({"phase": phase, **res})
+        want = {k: n * res["samples"] for k, n in per_step.items()}
+        if res["gate"] != "PASS" or res["launches_by_kernel"] != want:
+            raise SystemExit(f"{phase}: {res['gate_failures']}, "
+                             f"{res['launches_by_kernel']} launches for {want}")
+        k2dr += res["launches_by_kernel"].get("fused_substep_dr", 0)
+    t0 = time.perf_counter()
+    forms = [("flagship", "identity_dr"), ("flagship", "no_noise"), ("flagship", "no_redraw"),
+             ("c8", "identity_dr"), ("c8", "no_redraw"), ("c10", "identity_dr"),
+             ("c10", "no_redraw")]
+    rejected = {f"{name}/{form}": E.check(os.path.join(data, f"{name}_dr.npz"), "cuda",
+                                          mutate_inputs=E.DR_WRONG_INPUTS[form])["gate_failures"]
+                for name, form in forms}
+    emit({"phase": "parity_dr_gates", "rejected": rejected,
+          "seconds": time.perf_counter() - t0})
+    if not all(rejected.values()):
+        raise SystemExit(f"parity_dr_gates: a wrong input passed the gates: {rejected}")
+    return k2dr
+
+
+# each switch of sim/switches.py on the scenes whose kernel it reaches
+SWITCH_SCENES = {"flagship": ("kappa", "art_static", "ccd", "pallas", "torque", "reach_prune",
+                              "native"),
+                 "c8": ("kappa", "art_static", "pallas", "torque", "reach_prune"),
+                 "c10": ("kappa", "art_static", "pallas", "torque")}
+
+
+def switch_states(label, env, b):
+    """A scene's contact states for the switch checks: the flagship (raised
+    table) half paddle strikes, half the paddle in the table; C8 paddle
+    strikes of humanoid 1; C10 (raised table) half strikes, half standing on
+    the table. Returns ``(state, targets, efforts)`` on the env's device."""
+    import numpy as np
+    import torch
+    from isaacgym_tpu_torch.sim import scripted
+    rng = np.random.RandomState(23)
+    if label == "c8":
+        state, tgt = scripted.strike_state(env.sim, "paddle_ball1", b, rng, env.cfg)
+        return state, tgt, torch.zeros_like(tgt)
+    inputs = scripted.k2_inputs if label == "flagship" else scripted.k4_inputs
+    kinds = ("paddle_ball", "paddle_table") if label == "flagship" else ("strike", "table")
+    halves = [inputs(env, kind, b // 2, rng) for kind in kinds]
+    ins = [np.concatenate(x) for x in zip(*halves)]
+    return (scripted.k2_state if label == "flagship" else scripted.k4_state)(env.sim, ins)
+
+
+def switch_checks(dev, b=1024):
+    """switches/<scene>_<switch>: each physics switch (``PhysicsSwitches``)
+    on the flagship (K2), C8 (K3) and C10 (K4, 512 envs) where it reaches
+    them: ``make(..., switches=)`` on the card, one ``Simulator.step`` from
+    the scene's contact states (``switch_states``) against the CPU's step of
+    the same scene under the same switch (the plain versions or the
+    non-kernel step) within the non-kernel gate, flip-aware. Launches: the
+    route's kernel twice (its ``-tau`` build under ``torque``), none and no
+    kernel held under ``pallas=False``. ``ccd=False`` and ``native=False``
+    step the default's bits on the kernel route (the kernels sweep whatever
+    the CCD switch says, as the JAX kernels do); ``kappa=0`` moves the balls'
+    spin, ``art_static=False`` the paddle in the table (C10: the body on it),
+    ``torque=True`` writes non-zero moments. Returns each scene's launches of
+    each kernel, summed over its switches."""
+    import copy
+    import torch
+    import isaacgym_tpu_torch
+    from isaacgym_tpu_torch.ops import fused_substep as F
+    from isaacgym_tpu_torch.ops import fused_substep_floating as FL
+    from isaacgym_tpu_torch.sim import scripted
+    from isaacgym_tpu_torch.sim.simulator import Simulator
+    from isaacgym_tpu_torch.sim.switches import PhysicsSwitches as PS
+    from isaacgym_tpu_torch.utils.config import load_task_config
+
+    switch_of = {"kappa": PS(kappa=0.0), "art_static": PS(art_static=False),
+                 "ccd": PS(ccd=False), "pallas": PS(pallas=False), "torque": PS(torque=True),
+                 "reach_prune": PS(reach_prune=False), "native": PS(native=False)}
+    tasks = {"flagship": (TASK, b, NONKERNEL_GATE), "c8": (C8, b, NONKERNEL_GATE),
+             "c10": (C10, b // 2, NONKERNEL_GATE_C10)}
+    totals = {}
+    for label, switches in SWITCH_SCENES.items():
+        task, n, gate = tasks[label]
+        cfg = copy.deepcopy(load_task_config(task))
+        if label != "c8":
+            cfg = scripted.raised_table_cfg(cfg)
+        base = isaacgym_tpu_torch.make(seed=0, task=task, num_envs=n, cfg=cfg,
+                                       switches=PS())
+        state, tgt, eff = switch_states(label, base, n)
+        route_k = ROUTE_KERNELS[base.sim.route]
+        default_step = base.sim.step(state, tgt, eff)
+        for name in switches:
+            t0 = time.perf_counter()
+            sw = switch_of[name]
+            env = isaacgym_tpu_torch.make(seed=0, task=task, num_envs=n,
+                                          cfg=copy.deepcopy(cfg), switches=sw)
+            sim = env.sim
+            for k in filter(None, [getattr(sim, a) for a in ROUTE_KERNELS.values()]):
+                k.launches = 0
+            got = sim.step(state, tgt, eff)
+            torch.cuda.synchronize()
+            launches = sim.kernel_launches()
+            cpu = Simulator(env.scene, device="cpu", switches=sw)
+            want = cpu.step(type(state)(*[t.cpu() for t in state]), tgt.cpu(), eff.cpu())
+            res = nonkernel_compare(got, want, gate)
+            moved = {f: float((getattr(got, f) - getattr(default_step, f)).abs().max())
+                     for f in ("root", "dof_vel", "net_contact_torque")}
+            spin = float((got.root[:, env.ball_actor, 10:13]
+                          - default_step.root[:, env.ball_actor, 10:13]).abs().max())
+            expect = ({} if name == "pallas" else
+                      {k: 2 if k == route_k else 0 for k in {route_k, *launches}})
+            kernel = getattr(sim, route_k)
+            pairs = None if kernel is None else int(sim.constants[
+                FL.C_ART_STATIC if route_k == "fused_substep_floating" else F.C_NPAIR])
+            ok = res["within_gate"] and launches == expect and (
+                (name != "pallas" or (sim.route == "nonkernel" and kernel is None))
+                and (name != "torque" or (kernel.with_torque
+                                          and moved["net_contact_torque"] > 1e-3))
+                and (name not in ("ccd", "native")
+                     or all(torch.equal(getattr(got, f), getattr(default_step, f))
+                            for f in got._fields))
+                and (name != "kappa" or spin > 1.0)
+                and (name != "art_static" or (pairs == 0 and (
+                    label == "c8" or moved["dof_vel"] > 0.5 or moved["root"] > 0.05))))
+            row = {"num_envs": n, "switches": sw.report(), "route": sim.route,
+                   "route_on_cpu": cpu.route, "launches": launches, "want_launches": expect,
+                   "with_torque": None if kernel is None else kernel.with_torque,
+                   "art_static_pairs_or_flag": pairs, "vs_cpu": res,
+                   "vs_default_step": moved, "ball_spin_moved": spin,
+                   "seconds": time.perf_counter() - t0}
+            emit({"phase": f"switches/{label}_{name}", **row})
+            if not ok:
+                raise SystemExit(f"switches/{label}_{name}: {row}")
+            for k, v in launches.items():
+                key = f"{k}_tau" if name == "torque" else k
+                totals[(label, key)] = totals.get((label, key), 0) + v
+            if label == "flagship" and name == "torque":
+                totals[(label, "fused_substep_dr_tau")] = torque_dr_step(
+                    env, cpu, state, tgt, eff, gate)
+    return totals
+
+
+def torque_dr_step(env, cpu, state, tgt, eff, gate):
+    """switches/flagship_torque_dr: under ``torque=True`` the DR step of the
+    flagship runs K2-dr-tau (twice a step; 0 on the main path, which has no
+    sensor), against the CPU's step with the same full-strength draw.
+    Returns its launches."""
+    import torch
+    from isaacgym_tpu_torch.env.randomize import DomainRandomizer
+    t0 = time.perf_counter()
+    sim, n = env.sim, state.root.shape[0]
+    gen = torch.Generator(device=sim.device)
+    gen.manual_seed(5)
+    dr = DomainRandomizer(env.cfg["task"]["randomization_params"],
+                          env.scene.num_dofs).sample(gen, 3000, n)
+    sim.fused_substep.launches = sim.fused_substep_dr.launches = 0
+    got = sim.step(state, tgt, eff, dr)
+    torch.cuda.synchronize()
+    launches = sim.kernel_launches()
+    want = cpu.step(type(state)(*[t.cpu() for t in state]), tgt.cpu(), eff.cpu(),
+                    type(dr)(*[t.cpu() for t in dr]))
+    res = nonkernel_compare(got, want, gate)
+    row = {"num_envs": n, "launches": launches, "with_torque": sim.fused_substep_dr.with_torque,
+           "vs_cpu": res, "moments": float(got.net_contact_torque.abs().max()),
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "switches/flagship_torque_dr", **row})
+    if (not res["within_gate"] or launches != {"fused_substep": 0, "fused_substep_dr": 2}
+            or not sim.fused_substep_dr.with_torque or not row["moments"] > 1e-3):
+        raise SystemExit(f"switches/flagship_torque_dr: {row}")
+    return launches["fused_substep_dr"]
+
+
+def tp_flagship(repo, root, b=B, extra=()):
+    """tp/flagship: the PPO epoch with the trunks sharded over ``mdl``
+    (``parallel/tensor_parallel.py``) in two processes on the one card over
+    gloo, dp 1 x mdl 2, at the flagship's full width and full trunk
+    ([2048, 1536, 1024, 1024, 512, 512]) in float32 (bfloat16 would round
+    each rank's partial product before the sum), one epoch without DR.
+    Against a one-process epoch of the same config and seed: the first
+    minibatch's reduced gradients within TP_GRAD_TOL of the largest entry,
+    the clip's global norm and the rollout's metrics within TP_METRIC_RTOL;
+    the update's metrics and the gathered parameters after it within
+    TP_SPREAD_FACTOR times their spread between that epoch and a second
+    one-process epoch with float64 trunks; the
+    trunk layers still cut after the update, both ranks' gathered parameters
+    equal. Each rank's seconds per epoch beside the one process's. Returns
+    both ranks' K2 launches."""
+    import socket
+    import numpy as np
+    import torch
+    import isaacgym_tpu_torch
+    from isaacgym_tpu_torch.rl.ppo import PPOConfig, PPOTrainer, global_norm
+    from isaacgym_tpu_torch.utils.config import compose, preprocess_train_config
+    t0 = time.perf_counter()
+    out = os.path.join(root, "tp")
+    args = [f"task={TASK}", f"num_envs={b}", "seed=0", "epochs=1", "model_parallel=2",
+            "backend=gloo", "compute_dtype=float32", *extra]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), PYTHONPATH=repo)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "isaacgym_tpu_torch.parallel.tensor_parallel", *args,
+             f"out={out}"], cwd=repo, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode for p in procs):
+        raise SystemExit("tp/flagship: a rank failed:\n" + "\n".join(l[-3000:] for l in logs))
+    results = [json.load(open(os.path.join(out, f"result_rank{r}.json"))) for r in range(2)]
+    got = [np.load(os.path.join(out, f"params_rank{r}.npz")) for r in range(2)]
+    # the one-process epoch of the same config, and its float64-trunk twin
+    cfg = compose(TASK, [a for a in args if a.split("=")[0] in ("num_envs", "seed", "device")])
+    preprocess_train_config(cfg)
+
+    def one_process(dtype=torch.float32):
+        env1 = isaacgym_tpu_torch.make(seed=0, task=TASK, cfg=cfg["task"])
+        trainer = PPOTrainer(env1, PPOConfig.from_train_cfg(cfg["train"]), seed=0,
+                             compute_dtype=dtype)
+        ts = trainer.init_state()
+        names = [n for n, _ in ts.params.named_parameters()]
+        first = {}
+
+        def record(grads, aux):
+            if not first:
+                first.update({n: g.detach().float().cpu().numpy()
+                              for n, g in zip(names, grads)})
+            return grads, aux
+        trainer._reduce_grads = record
+        state, obs = env1.reset()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ts, state, obs, m = trainer.train_epoch(ts, state, obs)
+        one = {k: float(v) for k, v in m.items()}
+        seconds = time.perf_counter() - t1
+        params = {n: p.detach().float().cpu().numpy() for n, p in ts.params.named_parameters()}
+        del env1, ts, state, obs
+        torch.cuda.empty_cache()
+        return trainer, first, one, params, seconds
+    trainer, first, one, params1, one_s = one_process()
+    _, _, twin, params2, _ = one_process(torch.float64)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-6)
+    spread = {k: rel(twin[k], one[k]) for k in TP_UPDATE_METRICS}
+    param_spread = max(float(np.abs(params2[n] - p).max()) for n, p in params1.items())
+    param_err = max(max(float(np.abs(g[f"param.{n}"] - p).max()) for n, p in params1.items())
+                    for g in got)
+    scale = max(float(np.abs(g).max()) for g in first.values())
+    grad_err = max(float(np.abs(got[0][f"grad0.{n}"] - g).max()) for n, g in first.items()) / scale
+    norm1 = float(global_norm([torch.as_tensor(g) for g in first.values()]))
+    metric_errs = {k: max(abs(r["metrics"][k] - v) / max(abs(v), 1e-6) for r in results)
+                   for k, v in one.items()}
+    update_rtol = {k: TP_SPREAD_FACTOR * v + TP_METRIC_RTOL for k, v in spread.items()}
+    param_atol = TP_SPREAD_FACTOR * param_spread + TP_PARAM_ATOL
+    rtol = lambda k: update_rtol.get(k, TP_METRIC_RTOL)
+    metrics_ok = all(abs(r["metrics"][k] - v) <= rtol(k) * abs(v) + TP_METRIC_ATOL
+                     for r in results for k, v in one.items())
+    place = results[0]["placements"]
+    cut = all(place[f"{t}.layers.{i}.weight"] == ["shard", i % 2]
+              for t in ("actor_mlp", "critic_mlp") for i in range(6))
+    shapes = results[0]["local_shapes"]
+    equal = all(np.array_equal(got[0][k], got[1][k]) for k in got[0].files)
+    row = {"ranks": 2, "dp": 1, "mdl": 2, "num_envs": b, "backend": "gloo",
+           "trunk": list(trainer.cfg.units), "compute_dtype": "float32",
+           "rank_s_per_epoch": [r["seconds_per_epoch"] for r in results],
+           "one_process_s_per_epoch": one_s, "launches_per_epoch":
+               [r["kernel_launches_per_epoch"] for r in results],
+           "first_grad_max_rel_err": grad_err, "grad_tol": TP_GRAD_TOL,
+           "first_grad_norm": [r["first_grad_norm"] for r in results],
+           "first_grad_norm_one_process": norm1, "metric_rtol": TP_METRIC_RTOL,
+           "metric_atol": TP_METRIC_ATOL, "metric_rel_errs": metric_errs,
+           "one_process_metrics": one, "float64_trunk_metrics": twin,
+           "float64_trunk_update_spread": spread, "spread_factor": TP_SPREAD_FACTOR,
+           "update_metric_rtol": update_rtol, "param_max_abs_err": param_err,
+           "float64_trunk_param_spread": param_spread, "param_atol": param_atol,
+           "trunk_cut_after_update": cut,
+           "rank0_local_shapes": {k: shapes[k] for k in ("actor_mlp.layers.0.weight",
+                                                           "actor_mlp.layers.1.weight",
+                                                           "mu.weight")},
+           "ranks_gather_equal": equal, "card": nvidia_smi(),
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "tp/flagship", **row})
+    want = {"fused_substep": 2 * trainer.cfg.horizon_length, "fused_substep_dr": 0}
+    if (grad_err > TP_GRAD_TOL or not metrics_ok or not cut or not equal
+            or not param_err <= param_atol
+            or any(abs(n - norm1) > TP_METRIC_RTOL * norm1 for n in row["first_grad_norm"])
+            or any(e != want for r in row["launches_per_epoch"] for e in r)):
+        raise SystemExit(f"tp/flagship: {row}")
+    return sum(e["fused_substep"] for r in row["launches_per_epoch"] for e in r)
 
 
 def main():
@@ -2787,7 +3151,7 @@ def main():
     del env8, state, obs
 
     # ---- 4b2: the C11 env step through K3 at <26, 2, 2>
-    c11_launches = task_main(dev, C11, "c11", "k3", profile=True)
+    c11_launches = task_main(dev, C11, "c11", "k3", steps=50, profile=True)
 
     # ---- 4c: the C6 env step through K2
     t0 = time.perf_counter()
@@ -2830,11 +3194,11 @@ def main():
         state, obs, rew, done, info = env10.step(state, act10())
     torch.cuda.synchronize()
     k4k.launches = 0
-    windows, steps = [], 0
+    windows, steps, c10_window = [], 0, 50   # formerly 100
     for _ in range(3):
         torch.cuda.synchronize()
         tw = time.perf_counter()
-        for _ in range(100):
+        for _ in range(c10_window):
             state, obs, rew, done, info = env10.step(state, act10())
             steps += 1
         torch.cuda.synchronize()
@@ -2842,10 +3206,10 @@ def main():
     c10_launches = k4k.launches
     finite = all(bool(torch.isfinite(t).all()) for t in state.sim) and bool(
         torch.isfinite(obs).all() and torch.isfinite(rew).all())
-    rates = [B10 * 100 / w for w in windows]
+    rates = [B10 * c10_window / w for w in windows]
     emit({"phase": "c10_main", "num_envs": B10, "steps": steps, "k4_launches": c10_launches,
           "env_steps_per_s": rates, "env_steps_per_s_median": statistics.median(rates),
-          "ms_per_step": [w * 10 for w in windows], "finite": finite,
+          "ms_per_step": [w * 1e3 / c10_window for w in windows], "finite": finite,
           "obs_shape": list(obs.shape),
           "fallen_share": float(state.flags["humanoid_die_calculated"].float().mean()),
           "pelvis_z_mean": float(state.sim.root[:, 0, 2].mean()),
@@ -2967,7 +3331,11 @@ def main():
     dr_checks(dev)
     for label, task, b in (("c8", C8, B), ("c10", C10, B10)):
         t0 = time.perf_counter()
-        env_d, trainer_d = trainer_for(["task.randomize=true"], task=task, b=b)
+        # horizon 16 (formerly 32): the non-kernel DR step is the
+        # script's slowest path
+        env_d, trainer_d = trainer_for(["task.randomize=true",
+                                        "train.params.config.horizon_length=16"],
+                                       task=task, b=b)
         ts_d = trainer_d.init_state()
         state_d, obs_d = env_d.reset()
         k_d = env_d.sim.fused_substep_multi if label == "c8" else env_d.sim.fused_substep_floating
@@ -2990,7 +3358,7 @@ def main():
     route_checks(dev)
 
     # ---- 7g: link-vs-link contacts on the non-kernel step
-    link_checks(dev)
+    link_checks(dev, flagship_steps=10)
 
     # ---- 7h: flatten_optimizer, the camera, AMP with the motion library, the
     # trajectory recorder
@@ -3007,6 +3375,15 @@ def main():
         ddp_launches = ddp_flagship(repo, tmp, statistics.median(r["epoch_s"]
                                                                  for r in epochs[1:]))
     profile_launches, probe_launches = tool_checks()
+
+    # ---- 7j: the DR env step against the JAX step_dr, the physics switches,
+    # the tensor-parallel trunks in two processes
+    parity_dr_launches = parity_dr_checks(dev, repo)
+    sw = switch_checks(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp_launches = tp_flagship(repo, tmp)
+    sw_paths = lambda key: {f"switches/{label}": v for (label, k), v in sw.items() if k == key}
 
     # ---- 8: the kernels line, the card, the verdict
     emit({"kernels": [{
@@ -3028,7 +3405,8 @@ def main():
             "c9_train": c9_train_launches, "flatten_train": flat_launches,
             "camera/flagship": camera_launches, "amp_train": amp_launches,
             "pbt/flagship": pbt_launches, "profile_ppo/flagship": profile_launches,
-            "probe_ball/flagship": probe_launches,
+            "probe_ball/flagship": probe_launches, "tp/flagship": tp_launches,
+            **sw_paths("fused_substep"),
             **{f"parity/{n}": parity_launches[n] for n in ("flagship", "c5", "c6", "c9")}},
         **k2_line, "library_ms": None, "us": k2_line["ms"] * 1e3,
         "plain_us": k2_line["plain_ms"] * 1e3, "bound_us": k2_line["bound_ms"] * 1e3}, {
@@ -3038,7 +3416,7 @@ def main():
                     "isaacgym_tpu/sim/simulator.py:521)",
         "launches": train_launches["k2dr"], "launches_by_path": {
             "main": 0, "train": train_launches["k2dr"], "train_nodr": nodr_launches["k2dr"],
-            "ddp/flagship": ddp_launches},
+            "ddp/flagship": ddp_launches, "parity_dr/flagship": parity_dr_launches},
         **k2dr_line, "library_ms": None, "us": k2dr_line["ms"] * 1e3,
         "plain_us": k2dr_line["plain_ms"] * 1e3, "bound_us": k2dr_line["bound_ms"] * 1e3}, {
         "name": "fused_substep_multi", "route": "cuda",
@@ -3047,7 +3425,8 @@ def main():
         "launches": c8_launches, "launches_by_path": {
             "c8_main": c8_launches, "c8_train": c8_train_launches,
             "parity/c8": parity_launches["c8"], "c11_main": c11_launches,
-            "c11_train": c11_train_launches, "parity/c11": parity_launches["c11"]},
+            "c11_train": c11_train_launches, "parity/c11": parity_launches["c11"],
+            **sw_paths("fused_substep_multi")},
         **k3, "library_ms": None, "us": k3["ms"] * 1e3, "plain_us": k3["plain_ms"] * 1e3,
         "bound_us": k3["bound_ms"] * 1e3,
         "by_shape": {"7,2,1": {f: k3[f] for f in SHAPE_FIELDS},
@@ -3056,21 +3435,24 @@ def main():
         "source": "isaacgym_tpu_torch/csrc/fused_substep.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:754 (with_torque=True)",
         "launches": tau_launches["flagship"],
-        "launches_by_path": {"sensors": tau_launches["flagship"]},
+        "launches_by_path": {"sensors": tau_launches["flagship"],
+                             **sw_paths("fused_substep_tau")},
         **k2tau, "library_ms": None, "us": k2tau["ms"] * 1e3,
         "plain_us": k2tau["plain_ms"] * 1e3, "bound_us": k2tau["bound_ms"] * 1e3}, {
         "name": "fused_substep_dr_tau", "route": "cuda",
         "source": "isaacgym_tpu_torch/csrc/fused_substep.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:754 (with_dr=True, with_torque=True)",
         "launches": tau_launches["flagship_dr"],
-        "launches_by_path": {"sensors": tau_launches["flagship_dr"]},
+        "launches_by_path": {"sensors": tau_launches["flagship_dr"],
+                             **sw_paths("fused_substep_dr_tau")},
         **k2drtau, "library_ms": None, "us": k2drtau["ms"] * 1e3,
         "plain_us": k2drtau["plain_ms"] * 1e3, "bound_us": k2drtau["bound_ms"] * 1e3}, {
         "name": "fused_substep_multi_tau", "route": "cuda",
         "source": "isaacgym_tpu_torch/csrc/fused_substep_multi.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:1477 (with_torque=True)",
         "launches": tau_launches["c8"], "launches_by_path": {
-            "sensors": tau_launches["c8"], "sensors/c11": tau_launches["c11"]},
+            "sensors": tau_launches["c8"], "sensors/c11": tau_launches["c11"],
+            **sw_paths("fused_substep_multi_tau")},
         **k3tau, "library_ms": None, "us": k3tau["ms"] * 1e3,
         "plain_us": k3tau["plain_ms"] * 1e3, "bound_us": k3tau["bound_ms"] * 1e3,
         "by_shape": {"7,2,1": {f: k3tau[f] for f in SHAPE_FIELDS},
@@ -3080,13 +3462,14 @@ def main():
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:2225",
         "launches": c10_launches, "launches_by_path": {
             "c10_main": c10_launches, "c10_train": c10_train_launches,
-            "parity/c10": parity_launches["c10"]},
+            "parity/c10": parity_launches["c10"], **sw_paths("fused_substep_floating")},
         **k4, "library_ms": None, "us": k4["ms"] * 1e3, "plain_us": k4["plain_ms"] * 1e3,
         "bound_us": k4["bound_ms"] * 1e3}, {
         "name": "fused_substep_floating_tau", "route": "cuda",
         "source": "isaacgym_tpu_torch/csrc/fused_substep_floating.cu",
         "replaces": "isaacgym_tpu/ops/pallas_dynamics.py:2225 (with_torque=True)",
-        "launches": tau_launches["c10"], "launches_by_path": {"sensors": tau_launches["c10"]},
+        "launches": tau_launches["c10"], "launches_by_path": {
+            "sensors": tau_launches["c10"], **sw_paths("fused_substep_floating_tau")},
         **k4tau, "library_ms": None, "us": k4tau["ms"] * 1e3,
         "plain_us": k4tau["plain_ms"] * 1e3, "bound_us": k4tau["bound_ms"] * 1e3}]})
     print(f"total seconds {time.perf_counter() - t_all:.1f}", file=sys.stderr)

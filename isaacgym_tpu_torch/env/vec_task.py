@@ -13,7 +13,8 @@ The JAX package's per-env PRNG keys become one ``torch.Generator`` on the
 env's device. With ``enableCameraSensors`` ("1" or "true", as the JAX env
 reads it) the env builds one ray-cast :class:`Camera` per entry of
 ``env.cameras`` (one default camera when the list is absent) on its device;
-``render_camera`` renders one of them over every env.
+``render_camera`` renders one of them over every env. ``switches`` (a
+:class:`PhysicsSwitches`) reaches the asset parsers and the simulator.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 from isaacgym_tpu_torch.env.randomize import DomainRandomizer, DRParams
 from isaacgym_tpu_torch.sim.scene import SceneSpec, compile_scene
 from isaacgym_tpu_torch.sim.simulator import SimState, Simulator
+from isaacgym_tpu_torch.sim.switches import PhysicsSwitches
 
 
 class EnvState(NamedTuple):
@@ -52,8 +54,11 @@ class TorchVecTask:
     #: flag -> event name surfaced per episode in ``info["episode_events"]``
     event_flag_names: Optional[Dict[str, str]] = None
 
-    def __init__(self, cfg: Dict[str, Any], seed: int = 42, device="cuda"):
+    def __init__(self, cfg: Dict[str, Any], seed: int = 42, device="cuda",
+                 switches: Optional[PhysicsSwitches] = None):
         self.cfg = cfg
+        #: the physics switches (``sim/switches.py``), the JAX defaults unless given
+        self.switches = switches or PhysicsSwitches()
         env_cfg = cfg["env"]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -69,7 +74,7 @@ class TorchVecTask:
 
         self.scene_spec: SceneSpec = self.create_scene()
         self.scene = compile_scene(self.scene_spec)
-        self.sim = Simulator(self.scene, device=self.device)
+        self.sim = Simulator(self.scene, device=self.device, switches=self.switches)
 
         # domain randomization: spec-driven, off by default
         task_cfg = cfg.get("task", {}) or {}

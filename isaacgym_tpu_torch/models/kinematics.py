@@ -323,18 +323,23 @@ def compile_tree(model: U.UrdfModel, floating_base: bool = False) -> KinematicTr
     )
 
 
-def load_asset(path: str, floating_base: bool = False) -> KinematicTree:
+def load_asset(path: str, floating_base: bool = False, native: bool = True) -> KinematicTree:
     """Parse + compile a URDF or (``.xml``) MJCF file in one call.
 
     The native C++ parser (``isaacgym_tpu_torch.native``) reads the file; a
     file it cannot parse goes to the Python parser, which raises its own
-    error on a malformed file. A failed build of the native library raises."""
-    from isaacgym_tpu_torch import native
+    error on a malformed file. A failed build of the native library raises.
+    ``native=False`` (the switch ``ISAACGYM_TPU_NATIVE=0``,
+    ``sim/switches.py``) reads it with the Python parser alone, as the JAX
+    package's ``load_asset`` does under that variable (``:342-356``)."""
+    from isaacgym_tpu_torch import native as native_lib
     if path.endswith(".xml"):   # MJCF
         from isaacgym_tpu_torch.models.mjcf import parse_mjcf
-        native_parse, python_parse = native.parse_mjcf_native, parse_mjcf
+        native_parse, python_parse = native_lib.parse_mjcf_native, parse_mjcf
     else:
-        native_parse, python_parse = native.parse_urdf_native, U.parse_urdf
+        native_parse, python_parse = native_lib.parse_urdf_native, U.parse_urdf
+    if not native:
+        return compile_tree(python_parse(path), floating_base=floating_base)
     try:
         model = native_parse(path)
     except ValueError:

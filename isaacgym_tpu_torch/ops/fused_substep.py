@@ -197,12 +197,18 @@ def check_supported(model: ArticulationModel) -> None:
         raise NotImplementedError("fused substep: fixed base, revolute/prismatic only")
 
 
-def static_pairs(model: ArticulationModel, base_pos, art_geoms, true_statics, first=0):
+def static_pairs(model: ArticulationModel, base_pos, art_geoms, true_statics, first=0,
+                 art_static: bool = True, reach_prune: bool = True):
     """(art geom index, static index) pairs the build-time broadphase keeps,
-    in the kernels' order; art geom indices count from ``first``."""
+    in the kernels' order; art geom indices count from ``first``. None
+    without ``art_static``; every pair without ``reach_prune`` (the
+    switches ``ISAACGYM_TPU_ART_STATIC=0`` and ``ISAACGYM_TPU_REACH_PRUNE=0``,
+    ``pallas_dynamics.py:1296-1303``)."""
+    if not art_static:
+        return []
     return [(first + gi, si) for gi, g in enumerate(art_geoms)
             for si, sg in enumerate(true_statics)
-            if not static_pair_unreachable(model, base_pos, g, sg)]
+            if not (reach_prune and static_pair_unreachable(model, base_pos, g, sg))]
 
 
 def over_maxima(n_static: int, n_art: int, n_pairs: int, maxima=None):
@@ -317,7 +323,8 @@ def build_constants(model: ArticulationModel, base_pos, base_quat, kp, kd,
                     gravity, dt_s: float, ball_cfg: dict, static_geoms: list,
                     art_geoms: list, *, bounce_threshold: float = 0.2,
                     n_true_static: int = None, max_depenetration: float = 10.0,
-                    exact_support: bool = False) -> np.ndarray:
+                    exact_support: bool = False, art_static: bool = True,
+                    reach_prune: bool = True) -> np.ndarray:
     """Pack the scene's constants into one float32 array (integers are
     stored as exact small floats).
 
@@ -326,13 +333,15 @@ def build_constants(model: ArticulationModel, base_pos, base_quat, kp, kd,
     lin_damp, ang_damp, drag_k, magnus_k, kappa; ``static_geoms`` dicts of
     kind, pos, quat, size, e, mu in the world frame; ``art_geoms`` dicts of
     kind, link, off_pos, off_quat, size, e, mu, radius_bound and, for the
-    torque lanes, body_off.
+    torque lanes, body_off. ``art_static`` and ``reach_prune`` shape the
+    art-vs-static pair list (:func:`static_pairs`).
     """
     check_supported(model)
     nd = model.tree.n_dof
     if n_true_static is None:
         n_true_static = len(static_geoms)
-    pairs = static_pairs(model, base_pos, art_geoms, static_geoms[:n_true_static])
+    pairs = static_pairs(model, base_pos, art_geoms, static_geoms[:n_true_static],
+                         art_static=art_static, reach_prune=reach_prune)
     why = over_maxima(len(static_geoms), len(art_geoms), len(pairs))
     if why:
         raise ValueError(why)

@@ -125,10 +125,11 @@ def check_supported(model: ArticulationModel) -> None:
                                   "revolute/prismatic only")
 
 
-def pack_refusal(static_geoms: list, art_geoms: list):
+def pack_refusal(static_geoms: list, art_geoms: list, art_static: bool = True):
     """Why K4's pack cannot hold a scene with these geoms (every art-static
-    pair is kept), or None."""
-    return F.over_maxima(len(static_geoms), len(art_geoms), len(static_geoms) * len(art_geoms),
+    pair is kept, none without ``art_static``), or None."""
+    n_pair = len(static_geoms) * len(art_geoms) if art_static else 0
+    return F.over_maxima(len(static_geoms), len(art_geoms), n_pair,
                          (MAX_STATIC, MAX_ART, MAX_PAIRS))
 
 
@@ -148,7 +149,7 @@ def build_floating_constants(model: ArticulationModel, kp, kd, gravity, dt_s: fl
     and max_depen for the articulated geoms' ground contacts."""
     check_supported(model)
     nd = model.tree.n_dof
-    why = pack_refusal(static_geoms, art_geoms)
+    why = pack_refusal(static_geoms, art_geoms, art_static)
     if why:
         raise ValueError(why)
     lay = layout(nd)

@@ -101,10 +101,12 @@ def n_out(nd_tot: int, nb: int, ng: int, with_torque: bool = False) -> int:
     return 3 * nd_tot + 9 * nb + 3 * (ng + 2 * nb) + (3 * (ng + nb) if with_torque else 0)
 
 
-def art_pairs(arts: list, art_geoms: list, true_statics: list):
+def art_pairs(arts: list, art_geoms: list, true_statics: list, art_static: bool = True,
+              reach_prune: bool = True):
     """The art-vs-static pairs the build-time broadphase keeps, articulation
-    by articulation (``F.static_pairs``), and each articulation's ranges of
-    geoms and pairs -> ``(pairs, geom_lo, geom_hi, pair_lo, pair_hi)``."""
+    by articulation (``F.static_pairs``, under the switches ``art_static``
+    and ``reach_prune``), and each articulation's ranges of geoms and pairs
+    -> ``(pairs, geom_lo, geom_hi, pair_lo, pair_hi)``."""
     arts_of = [int(g["art"]) for g in art_geoms]
     if arts_of != sorted(arts_of):
         raise ValueError("fused multi substep: articulated geoms must be grouped by "
@@ -115,13 +117,14 @@ def art_pairs(arts: list, art_geoms: list, true_statics: list):
     for a, spec in enumerate(arts):
         pair_lo.append(len(pairs))
         pairs += F.static_pairs(spec["model"], spec["base_pos"],
-                                art_geoms[geom_lo[a]:geom_hi[a]], true_statics, geom_lo[a])
+                                art_geoms[geom_lo[a]:geom_hi[a]], true_statics, geom_lo[a],
+                                art_static=art_static, reach_prune=reach_prune)
         pair_hi.append(len(pairs))
     return pairs, geom_lo, geom_hi, pair_lo, pair_hi
 
 
 def pack_refusal(arts: list, n_balls: int, static_geoms: list, art_geoms: list,
-                 n_true_static: int = None):
+                 n_true_static: int = None, art_static: bool = True, reach_prune: bool = True):
     """Why the K3 pack cannot hold the scene (the arguments of
     :func:`build_multi_constants`), or None: articulations of unequal DOF
     counts, a ball count outside 1 .. ``MAX_BALLS``, or more geoms or pairs
@@ -134,7 +137,8 @@ def pack_refusal(arts: list, n_balls: int, static_geoms: list, art_geoms: list,
         return f"fused multi substep: {n_balls} balls (1 to {MAX_BALLS})"
     if n_true_static is None:
         n_true_static = len(static_geoms)
-    pairs = art_pairs(arts, art_geoms, static_geoms[:n_true_static])[0]
+    pairs = art_pairs(arts, art_geoms, static_geoms[:n_true_static], art_static,
+                      reach_prune)[0]
     return F.over_maxima(len(static_geoms), len(art_geoms), len(pairs),
                          (MAX_STATIC, MAX_ART, MAX_PAIRS))
 
@@ -142,7 +146,8 @@ def pack_refusal(arts: list, n_balls: int, static_geoms: list, art_geoms: list,
 def build_multi_constants(arts: list, balls: list, static_geoms: list, art_geoms: list,
                           gravity, dt_s: float, *, bounce_threshold: float = 0.2,
                           n_true_static: int = None, max_depenetration: float = 10.0,
-                          exact_support: bool = False) -> np.ndarray:
+                          exact_support: bool = False, art_static: bool = True,
+                          reach_prune: bool = True) -> np.ndarray:
     """Pack the scene's constants into one float32 array.
 
     Arguments are those of ``build_fused_substep_multi``: ``arts`` dicts of
@@ -150,7 +155,8 @@ def build_multi_constants(arts: list, balls: list, static_geoms: list, art_geoms
     in list order); ``balls`` the ball dicts of ``build_constants``;
     ``art_geoms`` entries carry the ``art`` index of their articulation.
     """
-    why = pack_refusal(arts, len(balls), static_geoms, art_geoms, n_true_static)
+    why = pack_refusal(arts, len(balls), static_geoms, art_geoms, n_true_static, art_static,
+                       reach_prune)
     if why:
         raise NotImplementedError(why)
     nd, K, NB = arts[0]["model"].tree.n_dof, len(arts), len(balls)
@@ -159,7 +165,8 @@ def build_multi_constants(arts: list, balls: list, static_geoms: list, art_geoms
     if n_true_static is None:
         n_true_static = len(static_geoms)
     pairs, geom_lo, geom_hi, pair_lo, pair_hi = art_pairs(arts, art_geoms,
-                                                          static_geoms[:n_true_static])
+                                                          static_geoms[:n_true_static],
+                                                          art_static, reach_prune)
     lay = multi_layout(nd, K)
     c = np.zeros(lay["total"], np.float64)
     scene = (nd, dt_s, gravity, bounce_threshold, max_depenetration, len(static_geoms),

@@ -110,8 +110,9 @@ class DataParallelPPOTrainer(PPOTrainer):
 
     def init_state(self):
         ts = super().init_state()
-        for p in ts.params.parameters():   # seeded alike; rank 0's copy holds
-            dist.broadcast(p.data, 0, group=self.group)
+        src = 0 if self.group is None else dist.get_global_rank(self.group, 0)
+        for p in ts.params.parameters():   # seeded alike; the group's rank 0's copy holds
+            dist.broadcast(p.data, src, group=self.group)
         return ts
 
     def _all_sum(self, x):

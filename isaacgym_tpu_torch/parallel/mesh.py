@@ -11,6 +11,12 @@ gradients and the batch statistics over ``torch.distributed``.
 The backend is the caller's: ``nccl`` across cards, ``gloo`` on the CPU.
 NCCL does not take two ranks on one card; ``gloo`` does, and all-reduces
 CUDA tensors through the host.
+
+:func:`device_mesh` is the JAX ``make_mesh``'s ``(dp, mdl)`` mesh as a
+``torch.distributed`` ``DeviceMesh``, and :func:`shard_params_tp` the
+tensor-parallel placement of the MLP trunks over its ``mdl`` axis with
+``torch.distributed.tensor.parallel`` (``parallel/tensor_parallel.py`` has
+the sharded epoch).
 """
 
 from __future__ import annotations
@@ -55,6 +61,56 @@ def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1) -> Dict[
     return {"dp": n // model_parallel, "mdl": model_parallel}
 
 
+def device_mesh(model_parallel: int = 1, device_type: str = "cuda"):
+    """The 2-D ``DeviceMesh`` of shape :func:`make_mesh` over the process
+    group's ranks, ``mesh_dim_names=("dp", "mdl")``: rank ``d * mdl + m`` is
+    ``dp`` index ``d``, ``mdl`` index ``m`` (the JAX mesh's row-major
+    layout)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = make_mesh(model_parallel=model_parallel)
+    return init_device_mesh(device_type, (shape["dp"], shape["mdl"]),
+                            mesh_dim_names=("dp", "mdl"))
+
+
+def shard_params_tp(net, mesh, layers=("actor_mlp", "critic_mlp")):
+    """Tensor-parallel placement of the MLP trunks over ``mesh``'s ``mdl``
+    axis (``isaacgym_tpu/parallel/mesh.py:75-101``): in each trunk the even
+    layers shard their output dimension (``ColwiseParallel``), the odd ones
+    their input dimension (``RowwiseParallel``); a trunk that ends on a
+    column-parallel layer gathers its output. The heads and everything else
+    stay replicated plain tensors. The JAX kernels are ``(in, out)``, the
+    torch weights ``(out, in)``: the column-parallel weight is cut along dim
+    0, the row-parallel along dim 1. Each rank cuts its shard from its own
+    copy (``src_data_rank=None``): the ranks hold equal copies, seeded alike.
+    With ``mdl == 1`` every parameter is replicated (:func:`replicate_tree`).
+    Changes ``net`` in place and returns it; build the optimizer state from
+    its parameters afterwards.
+
+    DTensor's all-gather crashes over gloo on CUDA tensors (torch 2.11), so
+    there a trunk that ends column-parallel is refused."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.parallel import (ColwiseParallel, RowwiseParallel,
+                                                   parallelize_module)
+    mdl = mesh["mdl"]
+    if mdl.size() == 1:
+        replicate_tree(list(net.parameters()))
+        return net
+    for name in layers:
+        mlp = getattr(net, name, None)
+        if mlp is None:
+            continue
+        n = len(mlp.layers)
+        if n % 2 and mesh.device_type == "cuda" and dist.get_backend(mdl.get_group()) == "gloo":
+            raise ValueError(f"{name} ends on a column-parallel layer ({n} layers), whose "
+                             "output gather DTensor cannot run over gloo on CUDA")
+        plan = {f"layers.{i}": ColwiseParallel() if i % 2 == 0 else RowwiseParallel()
+                for i in range(n)}
+        if n % 2:
+            plan[f"layers.{n - 1}"] = ColwiseParallel(output_layouts=Replicate())
+        parallelize_module(mlp, mdl, plan, src_data_rank=None)
+    return net
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, torch.Tensor):
         return fn(tree)
@@ -86,6 +142,6 @@ def replicate_tree(tree, src: int = 0):
     JAX ``replicate_tree``'s ``P()`` placement); returns the tree."""
     def bcast(x):
         if dist.is_initialized():
-            dist.broadcast(x, src)
+            dist.broadcast(x.data, src)
         return x
     return _tree_map(bcast, tree)

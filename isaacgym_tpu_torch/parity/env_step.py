@@ -28,6 +28,19 @@ the envs that reset being handed the JAX step's own new ball roots through
   reward are held to the task's row of ``GATES``, and the rate of contact
   and event flips to its ``max_flip_rate``.
 
+A file written with the exporter's ``--dr`` (``<task>_dr.npz``: the
+flagship, C8 and C10 under domain randomization) carries each state's
+``DRParams``, ``randomize_buf`` and ``global_step``, and every draw the JAX
+step made from them: its action and observation noise and the fresh
+parameters it drew for every env, of which it kept those of the envs it
+re-randomized. The two packages' RNG streams differ, so the port's env is
+built with ``task.randomize: true`` and its randomizer replays those draws
+(:class:`ReplayRandomizer`) in place of its own; ``randomize_buf`` and
+``global_step`` join the event check, and on every env whose done flag
+agrees each field of the port's new ``DRParams`` must equal the JAX step's
+bit for bit (``dr_mismatches``, gated at 0: the redraw, its mask and its
+merge). The gate rows are the same.
+
 It prints one JSON line per task and exits non-zero when a task fails.
 The port imports nothing of the JAX package: ``GATES`` is a copy.
 """
@@ -44,6 +57,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from isaacgym_tpu_torch.env.randomize import DRParams
+from isaacgym_tpu_torch.interop import dr_params_from_numpy
 from isaacgym_tpu_torch.parity import nvidia_smi
 
 # A copy of ``GATES`` in ``tools/parity_tpu.py:56-84``: per task, the most
@@ -105,6 +120,9 @@ def make_env(meta, device):
     cfg = None
     if meta.get("terrain_seed") is not None:
         cfg = rough_terrain_cfg(load_task_config(meta["task"]), seed=int(meta["terrain_seed"]))
+    if meta.get("dr"):
+        cfg = load_task_config(meta["task"])
+        cfg["task"]["randomize"] = True
     return make(seed=0, task=meta["task"], num_envs=int(meta["num_envs"]), device=device,
                 cfg=cfg)
 
@@ -115,10 +133,36 @@ def env_state(arrays, prefix: str, i: int, device):
     from isaacgym_tpu_torch.interop import env_state_from_numpy
     pick = lambda part: {k[len(prefix) + len(part) + 2:]: v[i] for k, v in arrays.items()
                          if k.startswith(f"{prefix}.{part}.")}
+    dr = pick("dr") or None
+    get = lambda k: arrays[f"{prefix}.{k}"][i] if dr else None
     return env_state_from_numpy(dict(sim=pick("sim"), flags=pick("flags"),
                                      progress=arrays[f"{prefix}.progress"][i],
                                      pre_ball_root=arrays[f"{prefix}.pre_ball_root"][i],
-                                     ep_return=arrays[f"{prefix}.ep_return"][i]), device)
+                                     ep_return=arrays[f"{prefix}.ep_return"][i], dr=dr,
+                                     randomize_buf=get("randomize_buf"),
+                                     global_step=get("global_step")), device)
+
+
+class ReplayRandomizer:
+    """A ``DomainRandomizer`` that hands out the JAX step's own draws: set
+    ``draws`` to ``dict(dr=DRParams, action_noise=..., obs_noise=...)`` before
+    each step. ``dr`` is the JAX step's fresh draw for every env, before its
+    mask kept it on the envs it re-randomized."""
+
+    def __init__(self, inner):
+        self._inner, self.draws = inner, None
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def sample(self, generator, global_step, batch: int):
+        return self.draws["dr"]
+
+    def action_noise(self, generator, actions):
+        return actions + self.draws["action_noise"]
+
+    def observation_noise(self, generator, obs):
+        return obs + self.draws["obs_noise"]
 
 
 def route_launches(sim) -> int:
@@ -150,12 +194,16 @@ def _per_env_max(a, b):
     return d.reshape(d.shape[0], -1).amax(dim=1)
 
 
-def check(path: str, device="cuda", mutate: Optional[Callable] = None) -> dict:
+def check(path: str, device="cuda", mutate: Optional[Callable] = None,
+          mutate_inputs: Optional[Callable] = None) -> dict:
     """One file's comparison. ``mutate``, if given, rewrites the port's
-    step outputs ``(state, obs, reward, done, info)`` before the comparison
-    (the wrong forms that a gate must reject)."""
+    step outputs ``(state, obs, reward, done, info)`` before the comparison,
+    and ``mutate_inputs`` the file's arrays before the port reads them (the
+    wrong forms that a gate must reject)."""
     t0 = time.time()
     meta, arrays = load(path)
+    if mutate_inputs is not None:
+        arrays = mutate_inputs(dict(arrays))
     task, B = meta["task"], int(meta["num_envs"])
     dev = torch.device(device)
     env = make_env(meta, dev)
@@ -165,11 +213,20 @@ def check(path: str, device="cuda", mutate: Optional[Callable] = None) -> dict:
         lanes[C10_Y_INTERCEPT_LANE] = False
     T = lambda k, i: torch.as_tensor(arrays[k][i], device=dev)
     dev_max = {k: 0.0 for k in GATED_FIELDS}
-    counts = dict(reset_flips=0, contact_flips=0, event_flips=0, unmoved_resets=0, resets=0)
-    launches0 = route_launches(env.sim)
+    counts = dict(reset_flips=0, contact_flips=0, event_flips=0, unmoved_resets=0, resets=0,
+                  dr_mismatches=0)
+    launches0, by_kernel0 = route_launches(env.sim), env.sim.kernel_launches()
     S = int(meta["states"])
+    dr = bool(meta.get("dr"))
+    if dr:
+        env.randomizer = ReplayRandomizer(env.randomizer)
     for i in range(S):
         inject_launches(env, T("out.sim.root", i))
+        if dr:
+            fresh = {f: arrays[f"draw.dr.{f}"][i] for f in DRParams._fields}
+            env.randomizer.draws = dict(dr=dr_params_from_numpy(fresh, dev),
+                                        action_noise=T("draw.action_noise", i),
+                                        obs_noise=T("draw.obs_noise", i))
         sp2, op, rp, dp, ip = env.step(env_state(arrays, "in", i, dev), T("action", i))
         if mutate is not None:
             sp2, op, rp, dp, ip = mutate(sp2, op, rp, dp, ip)
@@ -187,6 +244,13 @@ def check(path: str, device="cuda", mutate: Optional[Callable] = None) -> dict:
             same &= sp2.flags[k] == sj.flags[k]
         for k in ("time_outs", "episode_done", "episode_length"):
             same &= ip[k].to(torch.int32) == T(f"out.info.{k}", i).to(torch.int32)
+        if dr:
+            redraw_ok = torch.ones_like(keep)
+            for f in DRParams._fields:
+                redraw_ok &= _per_env_max(getattr(sp2.dr, f), getattr(sj.dr, f)) == 0
+            counts["dr_mismatches"] += int((keep & ~redraw_ok).sum())
+            same &= sp2.randomize_buf == sj.randomize_buf
+            same &= bool(sp2.global_step == sj.global_step)
         counts["event_flips"] += int((clean & ~same).sum())
         clean &= same
         pairs = dict(dof_pos=(sp2.sim.dof_pos, sj.sim.dof_pos),
@@ -201,9 +265,11 @@ def check(path: str, device="cuda", mutate: Optional[Callable] = None) -> dict:
     compared = S * B
     flip_rate = (counts["contact_flips"] + counts["event_flips"]) / compared
     out = {"task": meta["name"], "registry_task": task, "num_envs": B, "samples": S,
-           "env_steps_compared": compared, "device": dev.type,
+           "env_steps_compared": compared, "device": dev.type, "dr": dr,
            "card": nvidia_smi() if dev.type == "cuda" else None, "route": env.sim.route,
-           "kernel_launches": route_launches(env.sim) - launches0, **counts,
+           "kernel_launches": route_launches(env.sim) - launches0,
+           "launches_by_kernel": {k: v - by_kernel0[k]
+                                  for k, v in env.sim.kernel_launches().items()}, **counts,
            "flip_rate": flip_rate, **{f"max_{k}_no_flip": v for k, v in dev_max.items()},
            "gate_row": gate}
     failures = [f"{k}: {dev_max[k]:.3e} > {gate[f'max_{k}']:.3e}" for k in GATED_FIELDS
@@ -213,6 +279,9 @@ def check(path: str, device="cuda", mutate: Optional[Callable] = None) -> dict:
     if counts["unmoved_resets"]:
         failures.append(f"unmoved_resets: {counts['unmoved_resets']} done flags the state "
                         "contradicts")
+    if counts["dr_mismatches"]:
+        failures.append(f"dr_mismatches: {counts['dr_mismatches']} envs whose new DRParams "
+                        "differ from the JAX step's")
     out["gate"] = "PASS" if not failures else "FAIL"
     out["gate_failures"] = failures
     out["seconds"] = time.time() - t0
@@ -232,6 +301,34 @@ def flip_one_done(sp2, op, rp, dp, ip):
 
 
 WRONG_FORMS = {"negated_dof_vel": negate_dof_vel, "flipped_done": flip_one_done}
+
+
+def identity_dr(arrays):
+    """A wrong DR input: every env's parameters at the identity (scales 1,
+    shifts and the gravity offset 0), as if the port dropped them."""
+    for k in [k for k in arrays if k.startswith("in.dr.")]:
+        arrays[k] = (np.ones_like(arrays[k]) if k.endswith("_scale")
+                     else np.zeros_like(arrays[k]))
+    return arrays
+
+
+def no_noise(arrays):
+    """A wrong DR input: the action and observation noise dropped."""
+    for k in ("draw.action_noise", "draw.obs_noise"):
+        arrays[k] = np.zeros_like(arrays[k])
+    return arrays
+
+
+def no_redraw(arrays):
+    """A wrong DR input: the fresh draw equal to each env's old parameters,
+    as if the port dropped the redraw of the envs it re-randomizes."""
+    for k in [k for k in arrays if k.startswith("draw.dr.")]:
+        arrays[k] = arrays["in.dr." + k[len("draw.dr."):]].copy()
+    return arrays
+
+
+#: the DR files' wrong inputs, each of which the gates must reject
+DR_WRONG_INPUTS = {"identity_dr": identity_dr, "no_noise": no_noise, "no_redraw": no_redraw}
 
 
 def files(directory: str, tasks=None):

@@ -3,11 +3,14 @@
 Rolls a task with zero actions and reports the ball's arrival at the paddle
 plane: when, where and how fast it crosses, the paddle-ball y-z distance the
 Gauss reward sees, spin magnitudes and ground drops, under the JAX tool's
-output keys. The JAX tool's physics switches (``ISAACGYM_TPU_PALLAS``,
-``ISAACGYM_TPU_BALL_KAPPA``, ``ISAACGYM_TPU_CCD``) have no counterpart in
-the port: it runs the physics as the port stands, so those three keys are
-null; ``route`` names the simulator's route and ``kernel_launches`` counts
-each kernel wrapper's launches.
+output keys. The physics switches come from the same ``ISAACGYM_TPU_*``
+variables as the JAX tool's (``sim/switches.py``, read once when the env is
+built): ``ISAACGYM_TPU_PALLAS=0 python -m isaacgym_tpu_torch.probe_ball``
+takes the non-kernel step as ``ISAACGYM_TPU_PALLAS=0 python
+tools/probe_ball.py`` takes the XLA one. ``pallas``, ``kappa_override`` and
+``ccd`` report them as the JAX tool does (``tools/probe_ball.py:88-90``;
+the forced kappa as a number); ``route`` names the simulator's route and
+``kernel_launches`` counts each kernel wrapper's launches.
 
     python -m isaacgym_tpu_torch.probe_ball [--envs 512] [--steps 170]
         [--device cuda|cpu] [--seed 1] [--task T]
@@ -78,8 +81,10 @@ def arrival_stats(balls, paddles, rews) -> dict:
 
 def probe(env, state, steps: int, task: str) -> dict:
     stats = arrival_stats(*roll(env, state, steps))
-    return {"task": task, **stats, "pallas": None, "kappa_override": None, "ccd": None,
-            "route": env.sim.route, "kernel_launches": env.sim.kernel_launches()}
+    sw = env.sim.switches.report()
+    return {"task": task, **stats, "pallas": sw["pallas"], "kappa_override": sw["kappa_override"],
+            "ccd": sw["ccd"], "route": env.sim.route,
+            "kernel_launches": env.sim.kernel_launches()}
 
 
 def main(argv=None):

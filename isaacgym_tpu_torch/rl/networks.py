@@ -11,7 +11,9 @@ truncated_normal)``, flax's default) and biases zero; torch's own
 ``nn.Linear`` start differs and changes early training.
 
 The products are ``torch.nn.functional.linear``: the JAX package computes
-them outside any Pallas kernel.
+them outside any Pallas kernel. The trunk's layers are called as modules, so
+that ``shard_params_tp`` (``parallel/mesh.py``) can shard them with
+``torch.distributed.tensor.parallel``.
 """
 
 from __future__ import annotations
@@ -42,20 +44,27 @@ def lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator] = None) 
     return w
 
 
+class CastLinear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype: the weight and the bias
+    are cast to it."""
+
+    def forward(self, x):
+        return Fn.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 class MLP(nn.Module):
     def __init__(self, in_dim: int, units: Sequence[int], activation: str = "elu",
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         dims = [in_dim] + list(units)
-        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.layers = nn.ModuleList(CastLinear(a, b) for a, b in zip(dims[:-1], dims[1:]))
         self.act = _ACTIVATIONS[activation]
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        dt = self.compute_dtype
-        x = x.to(dt)
+        x = x.to(self.compute_dtype)
         for layer in self.layers:
-            x = self.act(Fn.linear(x, layer.weight.to(dt), layer.bias.to(dt)))
+            x = self.act(layer(x))
         return x
 
 

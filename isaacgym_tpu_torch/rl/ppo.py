@@ -147,6 +147,11 @@ def minibatch_permutation(T: int, generator: torch.Generator, device) -> torch.T
     return torch.randperm(T, generator=generator, device=device)
 
 
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """optax's ``global_norm``: the norm of the tensors' norms."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+
+
 def clip_and_adam(params: List[torch.Tensor], grads: List[torch.Tensor], state: AdamState,
                   lr: torch.Tensor, max_norm: float = None) -> AdamState:
     """One optimizer step in place on ``params``: optax's
@@ -154,7 +159,7 @@ def clip_and_adam(params: List[torch.Tensor], grads: List[torch.Tensor], state: 
     then ``adam(lr, eps=1e-8)``."""
     grads = list(grads)
     if max_norm is not None:
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = global_norm(grads)
         coef = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
         grads = torch._foreach_mul(grads, coef)
     count = state.count + 1

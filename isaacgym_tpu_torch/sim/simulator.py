@@ -72,6 +72,15 @@ origin and at each ball its moments about its centre (``:410-425``,
 ``net_contact_torque`` at zero; the non-kernel contact phase always fills
 it.
 
+The physics switches (``sim/switches.py``, the JAX package's
+``ISAACGYM_TPU_*`` variables) come in as ``Simulator(scene, device,
+switches=)``: ``pallas`` off sends every scene to the non-kernel step;
+``art_static`` and ``reach_prune`` shape the art-vs-static pairs of the
+non-kernel phase and of every pack; ``kappa`` forces the balls' spin
+coupling in both; ``torque`` builds the ``-tau`` kernels; ``ccd`` off sets
+the non-kernel phase's swept window to 0 and leaves the kernels' sweep as
+the JAX kernels leave it.
+
 State layout (the reference tensor-API contract), batched over B envs:
   root (B, num_actors, 13) = pos(3) + quat(4, xyzw) + linvel(3) + angvel(3),
   dof_pos / dof_vel / dof_force (B, num_dofs), net contact force and torque
@@ -102,6 +111,7 @@ from isaacgym_tpu_torch.ops.fused_substep_floating import (
 from isaacgym_tpu_torch.ops.fused_substep_multi import FusedSubstepMulti, build_multi_constants
 from isaacgym_tpu_torch.ops.linalg import chol_solve
 from isaacgym_tpu_torch.sim.scene import DRIVE_EFFORT, DRIVE_POS, CompiledScene
+from isaacgym_tpu_torch.sim.switches import DEFAULT as DEFAULT_SWITCHES, PhysicsSwitches
 from isaacgym_tpu_torch.utils import rotations as rot
 
 
@@ -150,14 +160,6 @@ def _integrate_quat(quat, omega, dt):
     wq = torch.cat([omega, torch.zeros_like(omega[..., :1])], dim=-1)
     q2 = quat + 0.5 * dt * rot.quat_mul(wq, quat)
     return q2 / torch.linalg.norm(q2, dim=-1, keepdim=True)
-
-
-def _ball_kappa(ball) -> float:
-    """Spin-coupling ratio kappa = m r^2 / I of a free sphere; 0 when no
-    inertia is recorded (spin decoupled)."""
-    if getattr(ball, "inertia", 0.0) > 0.0:
-        return float(ball.mass * ball.radius ** 2 / ball.inertia)
-    return 0.0
 
 
 def _compose(p1, q1, p2, q2):
@@ -241,14 +243,15 @@ def floating_geom_lists(scene: CompiledScene):
     return static_list, art_list, np.asarray(art_bodies, np.int64)
 
 
-def fused_ball_cfg(scene: CompiledScene, index: int = 0) -> dict:
+def fused_ball_cfg(scene: CompiledScene, index: int = 0,
+                   switches: PhysicsSwitches = DEFAULT_SWITCHES) -> dict:
     ball, plane = scene.free_bodies[index], scene.spec.plane
     return dict(mass=ball.mass, radius=ball.radius, restitution=ball.restitution,
                 friction=ball.friction, plane_e=plane.restitution,
                 plane_mu=plane.dynamic_friction, max_lin=ball.max_linear_velocity,
                 max_ang=ball.max_angular_velocity, lin_damp=ball.linear_damping,
                 ang_damp=ball.angular_damping, drag_k=ball.drag_k,
-                magnus_k=ball.magnus_k, kappa=_ball_kappa(ball))
+                magnus_k=ball.magnus_k, kappa=switches.ball_kappa(ball))
 
 
 def multi_art_specs(scene: CompiledScene):
@@ -285,27 +288,30 @@ def topology_route(scene: CompiledScene) -> str:
     return "k3"
 
 
-def kernel_refusal(scene: CompiledScene, route: str, device_type: str):
+def kernel_refusal(scene: CompiledScene, route: str, device_type: str,
+                   switches: PhysicsSwitches = DEFAULT_SWITCHES):
     """Why the port's kernel of ``route`` cannot take the scene on a device
     of ``device_type``, or None: its constant pack cannot hold the scene
-    (on any device), or on CUDA its library is not built for the scene's
-    shape."""
+    (on any device; the pairs counted as the build packs them under
+    ``switches.art_static`` and ``switches.reach_prune``), or on CUDA its
+    library is not built for the scene's shape."""
     arts = scene.articulations
     nds = [sl.model.tree.n_dof for sl in arts]
+    sw = dict(art_static=switches.art_static, reach_prune=switches.reach_prune)
     if route == "k4":
         static_list, art_list, _ = floating_geom_lists(scene)
-        why = FF.pack_refusal(static_list, art_list)
+        why = FF.pack_refusal(static_list, art_list, switches.art_static)
         built = nds == [FF.KERNEL_ND]
     elif route in ("k2", "k3"):
         static_list, n_true, art_list, _ = fused_geom_lists(scene)
         if route == "k2":
             base = scene.initial_root[arts[0].actor_index][0:3]
-            pairs = F.static_pairs(arts[0].model, base, art_list, static_list[:n_true])
+            pairs = F.static_pairs(arts[0].model, base, art_list, static_list[:n_true], **sw)
             why = F.over_maxima(len(static_list), len(art_list), len(pairs))
             built = nds == [F.KERNEL_ND]
         else:
             why = M.pack_refusal(multi_art_specs(scene), len(scene.free_bodies), static_list,
-                                 art_list, n_true)
+                                 art_list, n_true, **sw)
             built = (nds[0], len(arts), len(scene.free_bodies)) in M.KERNEL_SHAPES
     elif route == "k1":
         why, built = None, all(nd == A.KERNEL_ND for nd in nds)
@@ -316,26 +322,32 @@ def kernel_refusal(scene: CompiledScene, route: str, device_type: str):
     return why
 
 
-def route_for(scene: CompiledScene, device_type: str) -> str:
+def route_for(scene: CompiledScene, device_type: str,
+              switches: PhysicsSwitches = DEFAULT_SWITCHES) -> str:
     """Which substep ``Simulator.step`` runs on a device of ``device_type``
     ("cpu" or "cuda"): the topology's route (:func:`topology_route`), or
     "nonkernel" where that route's kernel cannot take the scene
     (:func:`kernel_refusal`). The JAX package steps every such scene through
     its own kernel; the non-kernel step computes what its XLA path computes.
     A scene with ``link_collision`` takes "nonkernel" on every device: no
-    kernel carries the link-vs-link contacts."""
-    if scene.spec.link_collision:
+    kernel carries the link-vs-link contacts. So does every scene with the
+    switch ``pallas`` off (``ISAACGYM_TPU_PALLAS=0``, ``:276-277``)."""
+    if scene.spec.link_collision or not switches.pallas:
         return "nonkernel"
     route = topology_route(scene)
-    return "nonkernel" if kernel_refusal(scene, route, device_type) else route
+    return "nonkernel" if kernel_refusal(scene, route, device_type, switches) else route
 
 
 class Simulator:
-    """Compiled simulator for one pingpong-class scene on one device."""
+    """Compiled simulator for one pingpong-class scene on one device, under
+    the physics ``switches`` (``sim/switches.py``; the JAX package's
+    defaults unless given)."""
 
-    def __init__(self, scene: CompiledScene, device="cuda"):
+    def __init__(self, scene: CompiledScene, device="cuda",
+                 switches: Optional[PhysicsSwitches] = None):
         self.scene = scene
         self.device = torch.device(device)
+        self.switches = switches or DEFAULT_SWITCHES
         spec = scene.spec
         self.dt = float(spec.dt)
         self.substeps = int(spec.substeps)
@@ -359,7 +371,7 @@ class Simulator:
         self.arm_steps = None
         self.fused_substep = self.fused_substep_dr = self.fused_substep_multi = None
         self.fused_substep_floating = None
-        self.route = route_for(scene, self.device.type)
+        self.route = route_for(scene, self.device.type, self.switches)
         baked = set()
         if self.route == "k4":
             baked = {g.actor_index for g in scene.static_geoms}
@@ -368,10 +380,10 @@ class Simulator:
             self._art_bodies_t = torch.as_tensor(self.art_bodies, device=self.device)
             self.constants = build_floating_constants(
                 self.slot.model, self.slot.stiffness, self.slot.damping, gravity, dt_s,
-                fused_ball_cfg(scene), static_list, art_list,
+                fused_ball_cfg(scene, switches=self.switches), static_list, art_list,
                 dict(e=spec.plane.restitution, mu=spec.plane.dynamic_friction,
                      max_depen=self.max_depenetration),
-                bounce_threshold=self.bounce_threshold,
+                bounce_threshold=self.bounce_threshold, art_static=self.switches.art_static,
                 drive_mode=self.slot.drive_mode,
                 max_angular_velocity=self.slot.max_angular_velocity,
                 max_linear_velocity=self.slot.max_linear_velocity,
@@ -405,9 +417,11 @@ class Simulator:
         """The K2 (and K2-dr) or K3 wrapper and its constant pack."""
         scene, spec, arts = self.scene, self.scene.spec, self.scene.articulations
         static_list, n_true, art_list, self.art_bodies = fused_geom_lists(scene)
+        sw = self.switches
         common = dict(bounce_threshold=self.bounce_threshold, n_true_static=n_true,
                       max_depenetration=self.max_depenetration,
-                      exact_support=bool(spec.exact_link_support))
+                      exact_support=bool(spec.exact_link_support),
+                      art_static=sw.art_static, reach_prune=sw.reach_prune)
         self._art_bodies_t = torch.as_tensor(self.art_bodies, device=self.device)
         if self.route == "k2":
             self.slot = arts[0]
@@ -415,15 +429,15 @@ class Simulator:
             init = scene.initial_root[self.slot.actor_index]
             self.constants = build_constants(
                 self.slot.model, init[0:3], init[3:7], self.slot.stiffness,
-                self.slot.damping, gravity, dt_s, fused_ball_cfg(scene), static_list,
-                art_list, **common)
+                self.slot.damping, gravity, dt_s, fused_ball_cfg(scene, switches=sw),
+                static_list, art_list, **common)
             self.fused_substep = FusedSubstep(self.constants, with_torque=self.with_torque)
             self.fused_substep_dr = FusedSubstep(self.constants, with_dr=True,
                                                  with_torque=self.with_torque)
             return
         self.constants = build_multi_constants(
             multi_art_specs(scene),
-            [fused_ball_cfg(scene, i) for i in range(len(scene.free_bodies))],
+            [fused_ball_cfg(scene, i, sw) for i in range(len(scene.free_bodies))],
             static_list, art_list, gravity, dt_s, **common)
         self.fused_substep_multi = FusedSubstepMulti(self.constants,
                                                      with_torque=self.with_torque)
@@ -487,10 +501,11 @@ class Simulator:
                                                     np.asarray([g.kind for g in gs_all]))
 
     def _sensors_want_torque(self) -> bool:
-        """Whether the scene registers a force sensor
-        (``simulator.py:313-321``): only then are the kernels built with
-        their moment rows, so sensor-less scenes do no moment arithmetic."""
-        return self.scene.force_sensor_bodies.size > 0
+        """Whether the scene registers a force sensor, or the switch
+        ``torque`` forces the lanes on (``simulator.py:313-321``): only then
+        are the kernels built with their moment rows, so sensor-less scenes
+        do no moment arithmetic."""
+        return self.scene.force_sensor_bodies.size > 0 or self.switches.torque
 
     def initial_state(self, batch: int) -> SimState:
         sc, dev = self.scene, self.device
@@ -804,7 +819,7 @@ class Simulator:
         gravity = self.gravity if dr is None else self.gravity + dr.gravity_offset
         ncf, nct = ncf.clone(), nct.clone()
         inv_dt = 1.0 / self.dt
-        ccd = dt_s   # the swept-CCD window, one substep (``_ccd_dt``)
+        ccd = self.switches.ccd_dt(dt_s)   # the swept-CCD window (``_ccd_dt``)
 
         def add(acc, bodies, val):
             idx, S = self._index(bodies)
@@ -815,7 +830,7 @@ class Simulator:
         for ball in scene.free_bodies:
             ra = root[:, ball.actor_index]
             pos, vel, omega = ra[:, 0:3], ra[:, 7:10], ra[:, 10:13]
-            kappa = _ball_kappa(ball)
+            kappa = self.switches.ball_kappa(ball)
             vel = vel + gravity * dt_s
             ld = float(getattr(ball, "linear_damping", 0.0))
             ad = float(getattr(ball, "angular_damping", 0.5))
@@ -866,11 +881,12 @@ class Simulator:
                 a, b = fb[i], fb[j]
                 pa, va, wa = ball_states[i]
                 pb, vb, wb = ball_states[j]
-                ka, kb = _ball_kappa(a), _ball_kappa(b)
+                ka, kb = self.switches.ball_kappa(a), self.switches.ball_kappa(b)
                 inv_ma, inv_mb = 1.0 / a.mass, 1.0 / b.mass
                 v_rel = va - vb
-                dist = torch.stack([torch.linalg.norm(pa - pb + v_rel * (ccd * s_ / 4), dim=-1)
-                                    for s_ in range(5)]).min(dim=0).values - a.radius - b.radius
+                offs = [0.0] if ccd == 0.0 else [ccd * s_ / 4 for s_ in range(5)]
+                dist = torch.stack([torch.linalg.norm(pa - pb + v_rel * t, dim=-1)
+                                    for t in offs]).min(dim=0).values - a.radius - b.radius
                 d = pa - pb
                 dn = torch.linalg.norm(d, dim=-1)
                 n = d / torch.clamp(dn, min=1e-9)[:, None]
@@ -918,7 +934,8 @@ class Simulator:
             root[:, ball.actor_index] = torch.cat([pos, bq, vel, omega], dim=1)
 
         # articulated geoms vs the static geoms, scene order per articulation
-        for art_idx, grp in self.art_ground_groups.items():
+        # (none with the switch ``art_static`` off, ``:1053``)
+        for art_idx, grp in (self.art_ground_groups.items() if self.switches.art_static else ()):
             rt = art_runtime[art_idx]
             for sgrp in self.static_groups:
                 du, P_sum, tq_sum = self._art_vs_static_group(rt, grp, sgrp, root, dt_s)
@@ -990,7 +1007,7 @@ class Simulator:
 
     def _ball_vs_static_group(self, root, grp: _GeomGroup, ball, pos, vel, omega, dt_s):
         """The ball against one static kind-group (``:1123-1144``), swept over
-        two samples."""
+        two samples of the CCD window."""
         roots = root[:, grp.actor_index]                                   # (B,k,13)
         k = len(grp.actor_index)
         gpos = roots[..., 0:3] + rot.quat_rotate(
@@ -999,11 +1016,12 @@ class Simulator:
                              self._t(grp.offset_quat, pos).expand(pos.shape[0], k, 4))
         geom_fn = lambda p: self._frames_for_group(grp.kind, p[:, None].expand(-1, k, 3),
                                                    ball.radius, gpos, gquat, grp.size)
-        frame, now_dist = C.swept_frame(geom_fn, pos, vel, dt_s, samples=2)
+        frame, now_dist = C.swept_frame(geom_fn, pos, vel, self.switches.ccd_dt(dt_s),
+                                        samples=2)
         e, mu = C.combine_material(ball.restitution, self._t(grp.restitution, pos),
                                    ball.friction, self._t(grp.friction, pos))
         dv, dw, _, active = C.resolve_sphere_impulse_spin(
-            vel[:, None], omega[:, None], ball.radius, _ball_kappa(ball), frame,
+            vel[:, None], omega[:, None], ball.radius, self.switches.ball_kappa(ball), frame,
             torch.zeros_like(gpos), e, mu, self.bounce_threshold)
         dv_tot = dv.sum(dim=1)
         push = torch.where(active[..., None],
@@ -1043,16 +1061,20 @@ class Simulator:
         MinvJT = self._minv_jt(rt, J)
         v_point = torch.einsum("zkav,zv->zka", J, rt["u"])
         v_rel0 = vel[:, None] - v_point
-        # four swept samples, the geom-point velocity folded in; the first
-        # penetrating one is the entry side (``C.swept_frame``)
-        frames = [frame0] + [fn(pos[:, None] + v_rel0 * (dt_s * s_ / 4)) for s_ in range(1, 5)]
-        dists = torch.stack([f.dist for f in frames])
-        normals = torch.stack([f.normal for f in frames])
-        j = torch.argmax((dists < 0.0).to(torch.int8), dim=0, keepdim=True)
-        frame = C.ContactFrame(
-            torch.gather(dists, 0, j)[0],
-            torch.gather(normals, 0, j[..., None].expand((1,) + normals.shape[1:]))[0],
-            frame0.point)
+        # four swept samples of the CCD window, the geom-point velocity
+        # folded in; the first penetrating one is the entry side
+        # (``C.swept_frame``); none with the window at 0
+        ccd = self.switches.ccd_dt(dt_s)
+        frame = frame0
+        if ccd > 0.0:
+            frames = [frame0] + [fn(pos[:, None] + v_rel0 * (ccd * s_ / 4)) for s_ in range(1, 5)]
+            dists = torch.stack([f.dist for f in frames])
+            normals = torch.stack([f.normal for f in frames])
+            j = torch.argmax((dists < 0.0).to(torch.int8), dim=0, keepdim=True)
+            frame = C.ContactFrame(
+                torch.gather(dists, 0, j)[0],
+                torch.gather(normals, 0, j[..., None].expand((1,) + normals.shape[1:]))[0],
+                frame0.point)
         n = frame.normal
         v_rel = vel[:, None] - v_point
         vn = torch.sum(v_rel * n, dim=-1)
@@ -1064,7 +1086,7 @@ class Simulator:
         e, mu = C.combine_material(ball.restitution, grp_e, ball.friction, grp_mu)
         e_eff = torch.where(torch.abs(vn) > self.bounce_threshold, e, 0.0)
         inv_m = 1.0 / ball.mass
-        kappa = _ball_kappa(ball)
+        kappa = self.switches.ball_kappa(ball)
         w_n = inv_m + torch.einsum("zka,zkav,zkbv,zkb->zk", n, J, MinvJT, n)
         Pn = torch.where(active, -(1.0 + e_eff) * vn / torch.clamp(w_n, min=1e-9), 0.0)
         slip = v_rel - ball.radius * _cross(omega[:, None].expand_as(n), n)

@@ -28,7 +28,7 @@ class PingpongFamilyTask(TorchVecTask):
     BALL_START_YZ = False        # True: the ball starts at a random y, z (C10)
     BALL_3D_LAUNCH = True        # False: C5's planar launch (vz = 0)
 
-    def __init__(self, cfg, seed: int = 42, device="cuda"):
+    def __init__(self, cfg, seed: int = 42, device="cuda", switches=None):
         env = cfg["env"]
         self.alpha = float(env["alphaVelocityReward"])
         self.power_coefficient = float(env["powerCoefficient"])
@@ -51,14 +51,14 @@ class PingpongFamilyTask(TorchVecTask):
                 int(hm.get("xSplit", 15)), int(hm.get("ySplit", 15)))
             self._hm_offset = float(hm.get("heightOffset", 0.9))
             env["numObservations"] = int(env["numObservations"]) + int(self._hm_grid.shape[0])
-        super().__init__(cfg, seed=seed, device=device)
+        super().__init__(cfg, seed=seed, device=device, switches=switches)
         self._init_root = torch.as_tensor(self.scene.initial_root, device=self.device)
         if self._heightmap_enabled:
             self._hm_grid = self._hm_grid.to(self.device)
 
     def create_scene(self):
         return P.build_pingpong_scene(self.cfg["env"], self.cfg["sim"],
-                                      humanoids=self.HUMANOIDS)
+                                      humanoids=self.HUMANOIDS, native=self.switches.native)
 
     def rb_body_ids(self):
         return self.body_states_id

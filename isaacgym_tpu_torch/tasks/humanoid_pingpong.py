@@ -23,10 +23,10 @@ class HumanoidPingpong(PingpongFamilyTask):
     BALL_3D_LAUNCH = False
     RESTORE_DOF_ON_RESET = True
 
-    def __init__(self, cfg, seed: int = 42, device="cuda"):
+    def __init__(self, cfg, seed: int = 42, device="cuda", switches=None):
         cfg["env"]["numObservations"] = 80
         cfg["env"]["numActions"] = 7
-        super().__init__(cfg, seed=seed, device=device)
+        super().__init__(cfg, seed=seed, device=device, switches=switches)
 
     def reward(self, pre_ball_root, sim: SimState, rb_states, flags, progress):
         """``reward_single`` over the batch -> (reward, reset, flags)."""

@@ -41,7 +41,7 @@ class HumanoidPingpongTiltNESSparse27DOF(PingpongFamilyTask):
     RESTORE_DOF_ON_RESET = True
     BALL_START_YZ = True
 
-    def __init__(self, cfg, seed: int = 42, device="cuda"):
+    def __init__(self, cfg, seed: int = 42, device="cuda", switches=None):
         env = cfg["env"]
         env["numObservations"] = 121 + 192
         env["numActions"] = 27
@@ -62,7 +62,7 @@ class HumanoidPingpongTiltNESSparse27DOF(PingpongFamilyTask):
         self._ping_rows = torch.as_tensor(np.searchsorted(self._all_ids, pingpong))
         self._bal_rows = torch.as_tensor(np.searchsorted(self._all_ids, balance))
         self._pelvis_row = int(np.searchsorted(self._all_ids, 0))
-        super().__init__(cfg, seed=seed, device=device)
+        super().__init__(cfg, seed=seed, device=device, switches=switches)
         self._paddle_row = int(np.searchsorted(self._all_ids, self.PADDLE_BODY))
         self._ping_rows = self._ping_rows.to(self.device)
         self._bal_rows = self._bal_rows.to(self.device)
@@ -80,7 +80,7 @@ class HumanoidPingpongTiltNESSparse27DOF(PingpongFamilyTask):
 
     def create_scene(self):
         return P.build_pingpong_scene(self.cfg["env"], self.cfg["sim"], humanoids=1,
-                                      floating_base=True)
+                                      floating_base=True, native=self.switches.native)
 
     def rb_body_ids(self):
         return self._all_ids

@@ -30,7 +30,7 @@ class Humanoid12PingpongTilt(HumanoidPingpongTilt):
 
     HUMANOIDS = 2
 
-    def __init__(self, cfg, seed: int = 42, device="cuda"):
+    def __init__(self, cfg, seed: int = 42, device="cuda", switches=None):
         env = cfg["env"]
         self.two_player = bool(env.get("twoPlayer", False))
         env["numObservations"] = 188 if self.two_player else 94
@@ -40,7 +40,7 @@ class Humanoid12PingpongTilt(HumanoidPingpongTilt):
         self.hit_table_reward = float(env["hitTableReward"])
         self.not_hit_table_penalty = float(env["nothitTablePenalty"])
         self._mirror_2cx = 2.0 * float(env["scene"]["tablePos"][0])
-        PingpongFamilyTask.__init__(self, cfg, seed=seed, device=device)
+        PingpongFamilyTask.__init__(self, cfg, seed=seed, device=device, switches=switches)
         if self.two_player:
             self.event_flag_names = dict(HumanoidPingpongTilt.event_flag_names,
                                          condition_calculated2="hit_paddle2",

@@ -30,13 +30,13 @@ class HumanoidPingpongAlignment(PingpongFamilyTask):
     BALL_3D_LAUNCH = True
     RESTORE_DOF_ON_RESET = True
 
-    def __init__(self, cfg, seed: int = 42, device="cuda"):
+    def __init__(self, cfg, seed: int = 42, device="cuda", switches=None):
         env = cfg["env"]
         env["numObservations"] = 80
         env["numActions"] = 7
         self.hit_table_reward = float(env["hitTableReward"])
         self.not_hit_table_penalty = float(env["nothitTablePenalty"])
-        super().__init__(cfg, seed=seed, device=device)
+        super().__init__(cfg, seed=seed, device=device, switches=switches)
 
     def init_flags(self) -> Dict[str, bool]:
         return {"reward_calculated": False}

@@ -24,13 +24,13 @@ from isaacgym_tpu_torch.sim.simulator import SimState
 from isaacgym_tpu_torch.tasks import pingpong_common as P
 
 
-def build_5actor_scene(sim_cfg) -> SceneSpec:
+def build_5actor_scene(sim_cfg, native: bool = True) -> SceneSpec:
     """The 5-actor scene (``:48-72``): [robot1, robot2, table, ball1, ball2],
     both robots fixed-base and effort-driven, at the config's dt and
     substeps."""
-    g1 = P.load_tree("g1_26dof_pingpong.urdf")
-    table = P.load_tree("pingpong_table.urdf")
-    ball = P.load_tree("small_ball.urdf")
+    g1 = P.load_tree("g1_26dof_pingpong.urdf", native=native)
+    table = P.load_tree("pingpong_table.urdf", native=native)
+    ball = P.load_tree("small_ball.urdf", native=native)
     robots = [
         ActorSpec("robot1", g1, pos=(0.0, 0.0, 1.0), fixed_base=True,
                   restitution=0.6, friction=0.5, drive_mode=DRIVE_EFFORT),
@@ -58,7 +58,7 @@ class HumanoidPingpong5Actor(TorchVecTask):
     ROBOT1, ROBOT2, TABLE, BALL1, BALL2 = 0, 1, 2, 3, 4
     ball_actor = BALL2   # the primary ball of ``pre_ball_root``, as in the JAX class
 
-    def __init__(self, cfg, seed: int = 42, device="cuda"):
+    def __init__(self, cfg, seed: int = 42, device="cuda", switches=None):
         env = cfg["env"]
         env["numObservations"] = 24
         env["numActions"] = 52
@@ -66,14 +66,14 @@ class HumanoidPingpong5Actor(TorchVecTask):
         ball = env["ball"]
         self.initial_speed_range = tuple(ball["initialSpeedRange"])
         self.tilt_angle_range = tuple(ball["tiltAngleRange"])
-        super().__init__(cfg, seed=seed, device=device)
+        super().__init__(cfg, seed=seed, device=device, switches=switches)
         tree = self.scene.articulations[0].model.tree
         self._motor_efforts = torch.as_tensor(np.concatenate([tree.effort, tree.effort]),
                                               dtype=torch.float32, device=self.device)
         self._init_root = torch.as_tensor(self.scene.initial_root, device=self.device)
 
     def create_scene(self) -> SceneSpec:
-        return build_5actor_scene(self.cfg["sim"])
+        return build_5actor_scene(self.cfg["sim"], native=self.switches.native)
 
     def rb_body_ids(self):
         # robot 1's paddle (39), robot 2's (40 + 39)

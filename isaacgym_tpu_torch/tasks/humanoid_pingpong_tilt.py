@@ -32,14 +32,14 @@ class HumanoidPingpongTilt(PingpongFamilyTask):
                         "hit_table_good": "hit_opponent_table",
                         "crossed_net": "cross_net"}
 
-    def __init__(self, cfg, seed: int = 42, device="cuda"):
+    def __init__(self, cfg, seed: int = 42, device="cuda", switches=None):
         env = cfg["env"]
         env["numObservations"] = 80
         env["numActions"] = 7
         self.hit_table_reward = float(env["hitTableReward"])
         self.not_hit_table_penalty = float(env["nothitTablePenalty"])
         self.landing_shaping_weight = float(env.get("landingShapingWeight", 0.0))
-        super().__init__(cfg, seed=seed, device=device)
+        super().__init__(cfg, seed=seed, device=device, switches=switches)
 
     def init_flags(self) -> Dict[str, bool]:
         return {"condition_calculated": False, "reward_calculated": False,

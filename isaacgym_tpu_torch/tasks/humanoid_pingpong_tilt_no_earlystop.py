@@ -23,10 +23,10 @@ class HumanoidPingpongTiltNoEarlyStop(PingpongFamilyTask):
     event_flag_names = {"paddle_condition_calculated": "hit_paddle",
                         "missed_ball_calculated": "missed_ball"}
 
-    def __init__(self, cfg, seed: int = 42, device="cuda"):
+    def __init__(self, cfg, seed: int = 42, device="cuda", switches=None):
         cfg["env"]["numObservations"] = 80   # 30+30+7+7+3+3
         cfg["env"]["numActions"] = 7
-        super().__init__(cfg, seed=seed, device=device)
+        super().__init__(cfg, seed=seed, device=device, switches=switches)
 
     def init_flags(self) -> Dict[str, bool]:
         return {"paddle_condition_calculated": False, "missed_ball_calculated": False}

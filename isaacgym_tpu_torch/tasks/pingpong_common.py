@@ -26,8 +26,9 @@ from isaacgym_tpu_torch.sim.scene import DRIVE_POS, ActorSpec, PlaneParams, Scen
 from isaacgym_tpu_torch.utils import rotations as rot
 
 
-def load_tree(filename: str, floating_base: bool = False) -> K.KinematicTree:
-    return K.load_asset(os.path.join(ASSET_DIR, filename), floating_base=floating_base)
+def load_tree(filename: str, floating_base: bool = False, native: bool = True) -> K.KinematicTree:
+    return K.load_asset(os.path.join(ASSET_DIR, filename), floating_base=floating_base,
+                        native=native)
 
 
 def quat_from_yaw_deg(deg: float):
@@ -35,16 +36,19 @@ def quat_from_yaw_deg(deg: float):
     return (0.0, 0.0, float(np.sin(half)), float(np.cos(half)))
 
 
-def build_pingpong_scene(env_cfg, sim_cfg, *, humanoids=1, floating_base=False) -> SceneSpec:
+def build_pingpong_scene(env_cfg, sim_cfg, *, humanoids=1, floating_base=False,
+                         native=True) -> SceneSpec:
     """The 3-actor (or 4-actor) scene: humanoid(s) + table + ball, in that
     actor order. The second humanoid stands at ``humanoid2Pos`` with yaw
     ``humanoid2YawDeg``. The humanoids' bases are fixed unless
-    ``floating_base`` (C10's whole-body humanoid balances on its feet)."""
+    ``floating_base`` (C10's whole-body humanoid balances on its feet).
+    ``native=False`` parses the assets with the Python parsers."""
     sc = env_cfg["scene"]
     plane_cfg = env_cfg.get("plane", {})
-    g1 = load_tree(env_cfg["asset"]["assetFileName"], floating_base=floating_base)
-    table = load_tree("pingpong_table.urdf")
-    ball = load_tree("small_ball.urdf")
+    g1 = load_tree(env_cfg["asset"]["assetFileName"], floating_base=floating_base,
+                   native=native)
+    table = load_tree("pingpong_table.urdf", native=native)
+    ball = load_tree("small_ball.urdf", native=native)
     kp = np.asarray(sc["pdGains"], np.float32)
     kd = kp / 40.0
     ball_aero = env_cfg.get("ball", {}) or {}
