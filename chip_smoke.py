@@ -209,8 +209,10 @@ Each phase prints one JSON line with its seconds:
           +-C11_EFFORT; k3_gates/c11  K3's two wrong forms (as k3_gates)
           must each fail the gates on some C11 set, and K3-tau's zeroed or
           negated moment rows too; k3c11_timing, k3tauc11_timing  their
-          time per launch on the rollout states, plain version, bound,
-          ptxas usage and launch geometry (one env a block);
+          time per launch on the rollout states (the tree-blocked body),
+          plain version, bound (the body's counted ops), ptxas usage
+          (registers, stack, spills, shared bytes) and launch geometry
+          (envs a block, blocks per SM asked and fitting, waves);
   c11_main  make(seed=0, C11, 4096 envs), 50 steps under random actions:
           route k3, K3 exactly 2 launches per step, every state finite,
           env-steps/s; torch.profiler over 10 more steps (device busy

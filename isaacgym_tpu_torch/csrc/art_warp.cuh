@@ -47,6 +47,8 @@
 // K2's, K3's) in the same order, so the outputs are the same bits, with one
 // saving: those bodies formed I_l axw_j again for every entry of M, these
 // phases once per column.
+// K3 at <26, 2, 2> runs tree_warp.cuh's blocked form of these phases, on the
+// same per-DOF steps (dof_drive, fk_dof, link_terms_fixed, dof_euler).
 #pragma once
 
 #include "fused_substep.cuh"
@@ -188,86 +190,105 @@ IGT_HD bool dof_rev(const float* c, int d) { return ldc(c + DOF_OFF + d * DOF_ST
 
 // --------------------------------------------------------------- dynamics --
 // sin and cos of revolute DOF d's q / 2, for its FK rotation.
-template <class T, int ND>
-IGT_HD void dof_half_angle(const float* c, ArmState<T, ND>& ar, int d) {
+template <class T, int ND, class Ar>
+IGT_HD void dof_half_angle(const float* c, Ar& ar, int d) {
   if (!dof_rev(c, d)) return;
   const T half = T(0.5f) * ar.q[d];
   ar.sn[d] = sin_(half);
   ar.cs[d] = cos_(half);
 }
 
-// The articulation's DOF frames and world axes at ar.q from the base pose
-// (bp, bq) (sin and cos from dof_half_angle), DOF by DOF in index order on
-// one lane; with ``vel`` also the velocity and bias propagation (qdd = 0). A
-// DOF's parent frame and rates come from registers when the parent is the
-// DOF just formed (every DOF of a chain), else from the block (C11's 26-DOF
-// tree: four chains off the base, each chain's root from the base pose).
-// C8's arms, the flagship's and the check scene's are chains, where one
-// phase per depth of the tree (K4's fk_levels) has no parallelism to offer
-// and costs a sync and a reload per depth.
-template <class T, int ND>
-IGT_HD void fk_walk(const float* c, V3<T> bp, Q4<T> bq, ArmState<T, ND>& ar, ArmDyn<T, ND>& dy,
-                    bool vel) {
+// The FK walk's carry: the frame and rates of the DOF just formed.
+template <class T>
+struct FkCarry {
+  V3<T> p, w, wd, ao;
+  Q4<T> q;
+};
+
+template <class T>
+IGT_HD FkCarry<T> fk_start(V3<T> bp, Q4<T> bq) {
   const V3<T> zero3 = v3<T>(T(0.0f), T(0.0f), T(0.0f));
-  V3<T> lp = bp, lw = zero3, lwd = zero3, lao = zero3;   // DOF d - 1's
-  Q4<T> lq = bq;
-  for (int d = 0; d < ND; ++d) {
-    const float* dc = c + DOF_OFF + d * DOF_STRIDE;
-    const int par = dof_parent(c, d);
-    V3<T> pp = bp, w_p = zero3, wd_p = zero3, ao_p = zero3;
-    Q4<T> pq = bq;
-    if (par >= 0 && par == d - 1) {
-      pp = lp; pq = lq; w_p = lw; wd_p = lwd; ao_p = lao;
-    } else if (par >= 0) {
-      pp = ar.fp[par]; pq = ar.fq[par];
-      if (vel) { w_p = dy.w[par]; wd_p = dy.wd[par]; ao_p = dy.ao[par]; }
-    }
-    const V3<T> jp = add(pp, qrot(pq, cv3<T>(dc + D_PRE_POS)));
-    const Q4<T> jq = qmul(pq, cq4<T>(dc + D_PRE_QUAT));
-    const V3<T> ax = cv3<T>(dc + D_AXIS);
-    Q4<T> fq;
-    V3<T> fp;
-    const bool rev = ldc(dc + D_REV) != 0.0f;
-    if (rev) {
-      const T s = ar.sn[d];
-      Q4<T> r; r.x = ax.x * s; r.y = ax.y * s; r.z = ax.z * s; r.w = ar.cs[d];
-      fq = qmul(jq, r);
-      fp = jp;
-    } else {
-      fq = jq;
-      fp = add(jp, scale(qrot(jq, ax), ar.q[d]));
-    }
-    const V3<T> axw = qrot(fq, ax);
-    ar.fq[d] = fq;
-    ar.fp[d] = fp;
-    ar.axw[d] = axw;
-    lp = fp;
-    lq = fq;
-    if (!vel) continue;
-    const T qd = ar.u[d];
-    const V3<T> r = sub(fp, pp);
-    V3<T> ao_d = add(ao_p, add(cross(wd_p, r), cross(w_p, cross(w_p, r))));
-    if (rev) {
-      lw = add(w_p, scale(axw, qd));
-      lwd = add(wd_p, scale(cross(w_p, axw), qd));
-    } else {
-      lw = w_p;
-      lwd = wd_p;
-      ao_d = add(ao_d, scale(cross(w_p, axw), T(2.0f) * qd));
-    }
-    lao = ao_d;
-    dy.w[d] = lw;
-    dy.wd[d] = lwd;
-    dy.ao[d] = lao;
+  FkCarry<T> k;
+  k.p = bp; k.q = bq; k.w = zero3; k.wd = zero3; k.ao = zero3;
+  return k;
+}
+
+// DOF d's frame and world axis at ar.q from the base pose (bp, bq) (sin and
+// cos from dof_half_angle); with ``vel`` also its velocity and bias rates
+// (qdd = 0). Its parent's frame and rates come from the carry ``k`` when the
+// parent is ``last``, the DOF just formed, else from the block (or the base
+// pose, at rest); d's own go into the carry.
+template <class T, class Ar, class Dy>
+IGT_HD void fk_dof(const float* c, int d, int last, V3<T> bp, Q4<T> bq, Ar& ar, Dy& dy, bool vel,
+                   FkCarry<T>& k) {
+  const V3<T> zero3 = v3<T>(T(0.0f), T(0.0f), T(0.0f));
+  const float* dc = c + DOF_OFF + d * DOF_STRIDE;
+  const int par = dof_parent(c, d);
+  V3<T> pp = bp, w_p = zero3, wd_p = zero3, ao_p = zero3;
+  Q4<T> pq = bq;
+  if (par >= 0 && par == last) {
+    pp = k.p; pq = k.q; w_p = k.w; wd_p = k.wd; ao_p = k.ao;
+  } else if (par >= 0) {
+    pp = ar.fp[par]; pq = ar.fq[par];
+    if (vel) { w_p = dy.w[par]; wd_p = dy.wd[par]; ao_p = dy.ao[par]; }
   }
+  const V3<T> jp = add(pp, qrot(pq, cv3<T>(dc + D_PRE_POS)));
+  const Q4<T> jq = qmul(pq, cq4<T>(dc + D_PRE_QUAT));
+  const V3<T> ax = cv3<T>(dc + D_AXIS);
+  Q4<T> fq;
+  V3<T> fp;
+  const bool rev = ldc(dc + D_REV) != 0.0f;
+  if (rev) {
+    const T s = ar.sn[d];
+    Q4<T> r; r.x = ax.x * s; r.y = ax.y * s; r.z = ax.z * s; r.w = ar.cs[d];
+    fq = qmul(jq, r);
+    fp = jp;
+  } else {
+    fq = jq;
+    fp = add(jp, scale(qrot(jq, ax), ar.q[d]));
+  }
+  const V3<T> axw = qrot(fq, ax);
+  ar.fq[d] = fq;
+  ar.fp[d] = fp;
+  ar.axw[d] = axw;
+  k.p = fp;
+  k.q = fq;
+  if (!vel) return;
+  const T qd = ar.u[d];
+  const V3<T> r = sub(fp, pp);
+  V3<T> ao_d = add(ao_p, add(cross(wd_p, r), cross(w_p, cross(w_p, r))));
+  if (rev) {
+    k.w = add(w_p, scale(axw, qd));
+    k.wd = add(wd_p, scale(cross(w_p, axw), qd));
+  } else {
+    k.w = w_p;
+    k.wd = wd_p;
+    ao_d = add(ao_d, scale(cross(w_p, axw), T(2.0f) * qd));
+  }
+  k.ao = ao_d;
+  dy.w[d] = k.w;
+  dy.wd[d] = k.wd;
+  dy.ao[d] = k.ao;
+}
+
+// The articulation's DOF frames and world axes (fk_dof), DOF by DOF in index
+// order on one lane, a DOF's parent frame and rates in registers when the
+// parent is the DOF just formed (every DOF of a chain). C8's arms, the
+// flagship's and the check scene's are chains, where one phase per depth of
+// the tree (K4's fk_levels) has no parallelism to offer and costs a sync and
+// a reload per depth. (C11's 26-DOF trees walk a lane per base subtree,
+// tree_warp.cuh.)
+template <class T, int ND, class Ar, class Dy>
+IGT_HD void fk_walk(const float* c, V3<T> bp, Q4<T> bq, Ar& ar, Dy& dy, bool vel) {
+  FkCarry<T> k = fk_start(bp, bq);
+  for (int d = 0; d < ND; ++d) fk_dof<T>(c, d, d - 1, bp, bq, ar, dy, vel, k);
 }
 
 // Link l's world COM, inertia, force and moment; with WITH_DR the force
 // (a_com - g - g_offset) m ms and the moment times ms, articulation a's mass
 // scale ms and gravity offset from io.
-template <class T, int ND, bool WITH_DR, class Io>
-IGT_HD void link_terms_fixed(const float* c, const ArmState<T, ND>& ar, ArmDyn<T, ND>& dy, int l,
-                             const Io& io, int a) {
+template <class T, int ND, bool WITH_DR, class Io, class Ar, class Dy>
+IGT_HD void link_terms_fixed(const float* c, const Ar& ar, Dy& dy, int l, const Io& io, int a) {
   const float* lc = c + DOF_OFF + l * DOF_STRIDE;
   const Q4<T> qq = ar.fq[l];
   const V3<T> com = add(ar.fp[l], qrot(qq, cv3<T>(lc + D_COM)));
@@ -319,6 +340,57 @@ IGT_HD void link_terms_fixed(const float* c, const ArmState<T, ND>& ar, ArmDyn<T
   iw[3] = Iw[1][1]; iw[4] = Iw[1][2]; iw[5] = Iw[2][2];
 }
 
+// DOF d's drive (PD, or with ``effort_drive``, the block's C_DRIVE, the
+// effort input) with the effort clamp, its q and u before the step and its
+// half angle; with WITH_DR the kp and kd scales of articulation a's env (io).
+template <class T, int ND, bool WITH_DR, class Io, class Ar>
+IGT_HD void dof_drive(const float* c, const Io& io, int a, Ar& ar, int d, bool effort_drive) {
+  const float* dc = c + DOF_OFF + d * DOF_STRIDE;
+  const T q = T(io.in(0, a, d)), qd = T(io.in(1, a, d));
+  T t;
+  if (effort_drive) {
+    t = T(io.in(3, a, d));
+  } else {
+    T kp = T(ldc(dc + D_KP)), kd = T(ldc(dc + D_KD));
+    if constexpr (WITH_DR) {   // DR rows d and ND + d: the kp and kd scales
+      kp = kp * T(io.dr(a, d));
+      kd = kd * T(io.dr(a, ND + d));
+    }
+    t = kp * (T(io.in(2, a, d)) - q) - kd * qd + T(io.in(3, a, d));
+  }
+  const T eff = T(ldc(dc + D_EFFORT));
+  ar.tau[d] = clip_(t, -eff, eff);
+  ar.q[d] = q;
+  ar.u[d] = qd;
+  dof_half_angle<T, ND>(c, ar, d);
+}
+
+// DOF d's semi-implicit Euler step of dt from qdd, with the velocity clamp
+// and the joint limits (WITH_DR: shifted by articulation a's env's
+// randomization), its new half angle, and its q and tau out.
+template <class T, int ND, bool WITH_DR, class Io, class Ar>
+IGT_HD void dof_euler(const float* c, const Io& io, int a, Ar& ar, int d, T dt, T qdd) {
+  const float* dc = c + DOF_OFF + d * DOF_STRIDE;
+  T v = ar.u[d] + dt * qdd;
+  const float mv = ldc(dc + D_MAXVEL);
+  if (mv > 0.0f) v = clip_(v, T(-mv), T(mv));
+  T p = ar.q[d] + dt * v;
+  T lo = T(ldc(dc + D_LO)), hi = T(ldc(dc + D_HI));
+  if constexpr (WITH_DR) {   // DR rows 2 ND + d and 3 ND + d: the limit shifts
+    lo = lo + T(io.dr(a, 2 * ND + d));
+    hi = hi + T(io.dr(a, 3 * ND + d));
+  }
+  const bool at_lo = p < lo, at_hi = p > hi;
+  p = clip_(p, lo, hi);
+  if (at_lo) v = max_(v, T(0.0f));
+  if (at_hi) v = min_(v, T(0.0f));
+  ar.q[d] = p;
+  ar.u[d] = v;
+  dof_half_angle<T, ND>(c, ar, d);
+  io.out(0, a, d, p);
+  io.out(2, a, d, ar.tau[d]);
+}
+
 // The packed lower factor L of M in place (left-looking Cholesky: each sum in
 // ascending k), y = L^-1 rhs and x = L^-T y.
 template <class T, int ND>
@@ -346,8 +418,8 @@ IGT_HD void factor_solve(T* L, const T* rhs, T* y, T* x) {
 }
 
 // Link l's inertia times a.
-template <class T, int ND>
-IGT_HD V3<T> inertia_times(const ArmDyn<T, ND>& dy, int l, V3<T> a) {
+template <class T, class Dy>
+IGT_HD V3<T> inertia_times(const Dy& dy, int l, V3<T> a) {
   const T* iw = dy.Iw[l];
   return v3<T>(iw[0] * a.x + iw[1] * a.y + iw[2] * a.z, iw[1] * a.x + iw[3] * a.y + iw[4] * a.z,
                iw[2] * a.x + iw[4] * a.y + iw[5] * a.z);
@@ -370,34 +442,13 @@ template <class T, int ND, int K, bool WITH_DR = false, bool SERIAL_FACTOR = fal
           class Io, class Sh>
 IGT_HD void arms_dynamics(Art art, const Io& io, Sh& sh, const Lanes& w) {
   constexpr int HW = WARP / K;
-#define IGT_IN(blk, a, d) T(io.in(blk, a, d))
-#define IGT_OUT(blk, a, d, v) io.out(blk, a, d, v)
 
   // drive; u before the step; each link's active columns
   each_arm<K>(w, [=, &sh](int a, int s) {
     const float* c = art(a);
     auto& ar = sh.arm[a];
     const bool effort_drive = ldc(c + C_DRIVE) != 0.0f;
-    for (int d = s; d < ND; d += HW) {
-      const float* dc = c + DOF_OFF + d * DOF_STRIDE;
-      const T q = IGT_IN(0, a, d), qd = IGT_IN(1, a, d);
-      T t;
-      if (effort_drive) {
-        t = IGT_IN(3, a, d);
-      } else {
-        T kp = T(ldc(dc + D_KP)), kd = T(ldc(dc + D_KD));
-        if constexpr (WITH_DR) {   // DR rows d and ND + d: the kp and kd scales
-          kp = kp * T(io.dr(a, d));
-          kd = kd * T(io.dr(a, ND + d));
-        }
-        t = kp * (IGT_IN(2, a, d) - q) - kd * qd + IGT_IN(3, a, d);
-      }
-      const T eff = T(ldc(dc + D_EFFORT));
-      ar.tau[d] = clip_(t, -eff, eff);
-      ar.q[d] = q;
-      ar.u[d] = qd;
-      dof_half_angle<T, ND>(c, ar, d);
-    }
+    for (int d = s; d < ND; d += HW) dof_drive<T, ND, WITH_DR>(c, io, a, ar, d, effort_drive);
     const float* mask = c + mask_off(ND);
     auto& dy = sh.s.dyn.arm[a];
     for (int l = s; l < ND; l += HW) {
@@ -441,7 +492,7 @@ IGT_HD void arms_dynamics(Art art, const Io& io, Sh& sh, const Lanes& w) {
       const int i = dy.idx[l][k];
       const bool rev = dof_rev(c, i);
       dy.J[l][i] = rev ? cross(ar.axw[i], sub(dy.com[l], ar.fp[i])) : ar.axw[i];
-      if (rev) dy.Ia[l][i] = inertia_times(dy, l, ar.axw[i]);
+      if (rev) dy.Ia[l][i] = inertia_times<T>(dy, l, ar.axw[i]);
     }
   });
 
@@ -535,27 +586,8 @@ IGT_HD void arms_dynamics(Art art, const Io& io, Sh& sh, const Lanes& w) {
     const float* c = art(a);
     auto& ar = sh.arm[a];
     const T dt = T(ldc(c + C_DT));
-    for (int d = s; d < ND; d += HW) {
-      const float* dc = c + DOF_OFF + d * DOF_STRIDE;
-      T v = ar.u[d] + dt * sh.s.dyn.arm[a].qdd[d];
-      const float mv = ldc(dc + D_MAXVEL);
-      if (mv > 0.0f) v = clip_(v, T(-mv), T(mv));
-      T p = ar.q[d] + dt * v;
-      T lo = T(ldc(dc + D_LO)), hi = T(ldc(dc + D_HI));
-      if constexpr (WITH_DR) {   // DR rows 2 ND + d and 3 ND + d: the limit shifts
-        lo = lo + T(io.dr(a, 2 * ND + d));
-        hi = hi + T(io.dr(a, 3 * ND + d));
-      }
-      const bool at_lo = p < lo, at_hi = p > hi;
-      p = clip_(p, lo, hi);
-      if (at_lo) v = max_(v, T(0.0f));
-      if (at_hi) v = min_(v, T(0.0f));
-      ar.q[d] = p;
-      ar.u[d] = v;
-      dof_half_angle<T, ND>(c, ar, d);
-      IGT_OUT(0, a, d, p);
-      IGT_OUT(2, a, d, ar.tau[d]);
-    }
+    for (int d = s; d < ND; d += HW)
+      dof_euler<T, ND, WITH_DR>(c, io, a, ar, d, dt, sh.s.dyn.arm[a].qdd[d]);
   });
   // FK at the new q
   each_arm<K>(w, [=, &sh](int a, int s) {
@@ -565,8 +597,6 @@ IGT_HD void arms_dynamics(Art art, const Io& io, Sh& sh, const Lanes& w) {
     io.base(a, art(a), bp, bq);
     fk_walk<T, ND>(art(a), bp, bq, sh.arm[a], sh.s.dyn.arm[a], false);
   });
-#undef IGT_IN
-#undef IGT_OUT
 }
 
 // --------------------------------------------------------------- contacts --
@@ -708,9 +738,8 @@ IGT_HD bool apart(T gap, T ra, T rb, T reach) {
 // The frame of ``link`` as the ball-vs-art and art-vs-static contacts take it: the link's
 // post-step frame, or for a link outside the articulation the origin with
 // the base's orientation.
-template <class T, int ND>
-IGT_HD void link_frame(const float* ca, const ArmState<T, ND>& ar, int link, V3<T>& lp,
-                       Q4<T>& lq) {
+template <class T, int ND, class Ar>
+IGT_HD void link_frame(const float* ca, const Ar& ar, int link, V3<T>& lp, Q4<T>& lq) {
   if (link >= 0 && link < ND) {
     lp = ar.fp[link];
     lq = ar.fq[link];
@@ -724,9 +753,9 @@ IGT_HD void link_frame(const float* ca, const ArmState<T, ND>& ar, int link, V3<
 // sg): the art-vs-static contact's narrowphase of the geom's bounding sphere, with exact
 // support of a cylinder or box along the normal where the pair says so: the
 // contact point, normal and depth.
-template <class T, int ND>
-IGT_HD void pair_narrowphase(const float* ca, const ArmState<T, ND>& ar, const float* pr,
-                             const float* g, const float* sg, V3<T>& point, V3<T>& n, T& dist) {
+template <class T, int ND, class Ar>
+IGT_HD void pair_narrowphase(const float* ca, const Ar& ar, const float* pr, const float* g,
+                             const float* sg, V3<T>& point, V3<T>& n, T& dist) {
   const T rbound = T(ldc(g + A_RBOUND));
   V3<T> lp;
   Q4<T> lq;

@@ -273,6 +273,31 @@ extern "C" int igt_multi_layout(int nd, int k, int* out, int n) {
   return igt::fill_multi_layout(nd, k, out, n);
 }
 
+// The blocks tree_warp.cuh derives from one articulation's block of a K3
+// pack (``art``: its header, DOF table and ancestor mask at nd DOFs): out[0]
+// the blocks, out[1] the factor's entries, out[2] the active columns, out[3
+// ..] each block's DOFs in block order. Returns 0, or 1 for a DOF count the
+// library is not built for (3, 7, 26) or too short an ``out``.
+template <int ND>
+int tree_of(const float* art, int* out, int n) {
+  igt::Tree<ND> tr;
+  for (int l = 0; l < ND; ++l) igt::tree_link<ND>(art, tr, l);
+  igt::tree_blocks<ND>(art, tr);
+  if (n < 3 + tr.nblk) return 1;
+  out[0] = tr.nblk;
+  out[1] = tr.nent;
+  out[2] = tr.ncol;
+  for (int b = 0; b < tr.nblk; ++b) out[3 + b] = tr.bs[b + 1] - tr.bs[b];
+  return 0;
+}
+
+extern "C" int igt_multi_tree(const float* art, int nd, int* out, int n) {
+  if (nd == 3) return tree_of<3>(art, out, n);
+  if (nd == 7) return tree_of<7>(art, out, n);
+  if (nd == 26) return tree_of<26>(art, out, n);
+  return 1;
+}
+
 #endif  // K3
 
 #if IGT_PART(5)

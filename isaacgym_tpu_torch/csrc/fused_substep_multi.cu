@@ -16,11 +16,11 @@
 //   - <7, 2, 1> and <3, 2, 2>: 4 envs (14-21 KB) a block, 8 blocks per SM,
 //     so at most 64 registers a thread; at C8's 4096 envs that is 1,024
 //     blocks, all resident at once on the card's 132 SMs (32 warps on most);
-//   - <26, 2, 2>: one env a block, 45,816 B of shared memory (the two 26 x 26
-//     J and I axw tables of the dynamics' scratch are most of it), so 4
-//     blocks fit an SM's 228 KB: 4 warps per SM, and no register cap below
-//     the 255 a thread may hold. Taking 4 envs a block in dynamic shared
-//     memory would give one block of the same 4 warps per SM.
+//   - <26, 2, 2>: the tree-blocked body (tree_warp.cuh: each articulation's
+//     tables for its blocks' entries only, TREE_CAP of them), one env a
+//     block, 17,560 B of shared memory, so 12 blocks fit an SM's 228 KB: 12
+//     warps per SM, at most 168 registers a thread, and C11's 4096 envs in 3
+//     waves (the dense body's 45,816 B held 4 an SM, 8 waves).
 // Inputs and outputs are channel-major (channel, B) float32 buffers; a warp
 // reads and writes its env's column, one channel per lane. The constants are
 // read with __ldg.
@@ -60,7 +60,7 @@ struct Geometry {
 template <>
 struct Geometry<26, 2, 2> {
   static constexpr int envs = 1;
-  static constexpr int blocks_per_sm = 4;
+  static constexpr int blocks_per_sm = 12;
 };
 
 template <int ND, int K, int NB, bool WITH_TORQUE>

@@ -30,7 +30,9 @@
 //
 // One warp per env (warp.cuh), the articulations side by side: articulation
 // a runs on lanes a 32/K .. (a + 1) 32/K - 1, all of them through the same
-// phases of art_warp.cuh (the dynamics; a contact's columns and solves). The
+// phases of art_warp.cuh (the dynamics; a contact's columns and solves), or
+// at the shapes TREE_CAP names (<26, 2, 2>) of tree_warp.cuh, which runs
+// each articulation as the subtrees of its base, block by block. The
 // env's state lives in its block of shared memory (MultiShared: each
 // articulation's factor, u and frames; the dynamics' scratch and the
 // contacts' overlaid). The contacts, in the one-thread order:
@@ -73,6 +75,7 @@
 
 #include "art_warp.cuh"
 #include "fused_substep.cuh"
+#include "tree_warp.cuh"
 #include "warp.cuh"
 
 namespace igt {
@@ -201,14 +204,45 @@ struct MultiContact {
   long long ga_ops[COUNTS<T> ? ART_CHUNK : 1];
 };
 
+// The shapes whose articulations run in tree_warp.cuh's blocked form, and
+// its tables' capacity, factor entries an articulation (sum over its blocks
+// of tri(DOFs)): <26, 2, 2>, C11's two 26-DOF G1s, 98 of them each. Every
+// other shape keeps art_warp.cuh's dense form (0).
+template <int ND, int K, int NB>
+constexpr int TREE_CAP = 0;
+template <>
+constexpr int TREE_CAP<26, 2, 2> = 128;
+
 // One env's block: each articulation's state, and the scratch (the
-// dynamics' and the contacts' in one storage where T allows it, warp.cuh).
+// dynamics' and the contacts' in one storage where T allows it, warp.cuh);
+// with CAP (TREE_CAP) the tree-blocked forms of the state and the dynamics'
+// scratch.
 template <class T, int ND, int K, int NB, bool WITH_TORQUE>
 struct MultiShared {
-  ArmState<T, ND> arm[K];
-  Overlay<ArmsDyn<T, ND, K>, MultiContact<T, ND, K, NB, WITH_TORQUE>,
+  static constexpr int CAP = TREE_CAP<ND, K, NB>;
+  std::conditional_t<CAP == 0, ArmState<T, ND>, TreeState<T, ND, CAP>> arm[K];
+  Overlay<std::conditional_t<CAP == 0, ArmsDyn<T, ND, K>, TreesDyn<T, ND, K, CAP>>,
+          MultiContact<T, ND, K, NB, WITH_TORQUE>,
           std::is_trivially_default_constructible<T>::value> s;
 };
+
+// A contact's forward solves, its sum of squares and its back solve on
+// articulation a (art_warp.cuh's, or tree_warp.cuh's on the contact's block).
+template <class T, int ND, int K, class Sh>
+IGT_HD void arm_solve(Sh& sh, const Lanes& w) {
+  if constexpr (Sh::CAP > 0) tree_contact_solve<T, ND, K>(sh, w);
+  else contact_solve<T, ND, K>(sh, w);
+}
+template <class T, int ND, class Sh>
+IGT_HD T arm_sum_sq(const Sh& sh, int a, const T* sq) {
+  if constexpr (Sh::CAP > 0) return tree_sum_sq<T, ND>(sh.arm[a], sq);
+  else return sum_sq<T, ND>(sq);
+}
+template <class T, int ND, int K, class Sh>
+IGT_HD void arm_back(Sh& sh, const Lanes& w) {
+  if constexpr (Sh::CAP > 0) tree_contact_back<T, ND, K>(sh, w);
+  else contact_back<T, ND, K>(sh, w);
+}
 
 // ---------------------------------------------------------------- contacts --
 // Ball bi's flight and plane, from the inputs (K2's phase functions): its
@@ -339,9 +373,15 @@ IGT_HD void ball_art_tests(const float* c, int bi, int g0, int ng, Sh& sh, const
     const V3<T> pos = ct.ball[bi].pos, vel = ct.ball[bi].vel;
     const T rb = T(ldc(cb + C_RB));
     T vb = T(0.0f);
-    for (int i = 0; i < ND; ++i) {
+    const auto reach = [&](int i, bool rev) {
       const V3<T> d = sub(pos, ar.fp[i]);
-      vb = vb + abs_(ar.u[i]) * (dof_rev(art(a), i) ? sqrt_(dot(d, d)) + rb : T(1.0f));
+      vb = vb + abs_(ar.u[i]) * (rev ? sqrt_(dot(d, d)) + rb : T(1.0f));
+    };
+    if constexpr (Sh::CAP > 0) {   // the DOFs that move the geom's link
+      for (unsigned anc = tree_anc(ar.tr, (int)ldc(g + A_LINK)); anc; anc &= anc - 1u)
+        reach(low_bit(anc), ar.tr.rev >> low_bit(anc) & 1u);
+    } else {
+      for (int i = 0; i < ND; ++i) reach(i, dof_rev(art(a), i));
     }
     V3<T> lp;
     Q4<T> lq;
@@ -382,28 +422,60 @@ IGT_HD void ball_art_tests(const float* c, int bi, int g0, int ng, Sh& sh, const
     if constexpr (COUNTS<T>) ct.ga_ops[lane] += ops_now(T()) - o;
   });
   each(w, [=, &sh, &ct](int lane) {
-    for (int t = lane; t < ng * ND; t += WARP) {
-      const int k = t / ND, i = t % ND, a = arm_of(g0 + k);
-      const float* ca = art(a);
-      auto& at = ct.at[k];
-      if (!at.near) continue;
-      const long long o = ops_now(T());
-      bool on;
-      const V3<T> col = jac_col<T, ND>(ca, ca + mask_off(ND), (int)ldc(geom(k) + A_LINK), i, at.cp,
-                                       sh.arm[a].fp, sh.arm[a].axw, on);
-      at.Jc[i] = col;
-      at.on[i] = on;
-      if (on) at.cu[i] = scale(col, sh.arm[a].u[i]);
-      if constexpr (COUNTS<T>) ct.ga_ops[k] += ops_now(T()) - o;
+    if constexpr (Sh::CAP > 0) {
+      // the tree form: the chunk's (geom, ancestor of its link) pairs, a lane
+      // each; a column off the ancestors is zero and never read
+      for (int t = lane;; t += WARP) {
+        int k = 0, m = t;
+        unsigned anc = 0u;
+        for (; k < ng; ++k) {
+          anc = tree_anc(sh.arm[arm_of(g0 + k)].tr, (int)ldc(geom(k) + A_LINK));
+          if (m < pop_count(anc)) break;
+          m -= pop_count(anc);
+        }
+        if (k == ng) break;
+        auto& at = ct.at[k];
+        if (!at.near) continue;
+        const long long o = ops_now(T());
+        for (; m > 0; --m) anc &= anc - 1u;
+        const int i = low_bit(anc), a = arm_of(g0 + k);
+        const auto& ar = sh.arm[a];
+        const V3<T> col = ar.tr.rev >> i & 1u ? cross(ar.axw[i], sub(at.cp, ar.fp[i])) : ar.axw[i];
+        at.Jc[i] = col;
+        at.on[i] = 1;
+        at.cu[i] = scale(col, ar.u[i]);
+        if constexpr (COUNTS<T>) ct.ga_ops[k] += ops_now(T()) - o;
+      }
+    } else {
+      for (int t = lane; t < ng * ND; t += WARP) {
+        const int k = t / ND, i = t % ND, a = arm_of(g0 + k);
+        const float* ca = art(a);
+        auto& at = ct.at[k];
+        if (!at.near) continue;
+        const long long o = ops_now(T());
+        bool on;
+        const V3<T> col = jac_col<T, ND>(ca, ca + mask_off(ND), (int)ldc(geom(k) + A_LINK), i,
+                                         at.cp, sh.arm[a].fp, sh.arm[a].axw, on);
+        at.Jc[i] = col;
+        at.on[i] = on;
+        if (on) at.cu[i] = scale(col, sh.arm[a].u[i]);
+        if constexpr (COUNTS<T>) ct.ga_ops[k] += ops_now(T()) - o;
+      }
     }
   });
-  each(w, [=, &ct](int lane) {
+  each(w, [=, &sh, &ct](int lane) {
     if (lane >= ng || !ct.at[lane].near) return;
     const long long o = ops_now(T());
     auto& at = ct.at[lane];
     V3<T> v_point = v3<T>(T(0.0f), T(0.0f), T(0.0f));
-    for (int i = 0; i < ND; ++i)
-      if (at.on[i]) v_point = add(v_point, at.cu[i]);
+    if constexpr (Sh::CAP > 0) {
+      for (unsigned anc = tree_anc(sh.arm[arm_of(g0 + lane)].tr, (int)ldc(geom(lane) + A_LINK));
+           anc; anc &= anc - 1u)
+        v_point = add(v_point, at.cu[low_bit(anc)]);
+    } else {
+      for (int i = 0; i < ND; ++i)
+        if (at.on[i]) v_point = add(v_point, at.cu[i]);
+    }
     at.v_rel = sub(ct.ball[bi].vel, v_point);
     const V3<T> dv_l = qrot(conj(at.gq), scale(at.v_rel, T(ldc(cb + C_DT_QUARTER))));
     V3<T> ck = at.c0;
@@ -472,14 +544,14 @@ IGT_HD void ball_art_react(const float* c, int a, int gi, int bi, Sh& sh, const 
   const float* ca = c + MULTI_HEAD + a * multi_art_stride(ND);
   const float* cb = c + multi_ball_off(ND, K) + bi * BALL_STRIDE;
   const float* g = c + multi_art_off(ND, K) + gi * MULTI_ART_STRIDE;
-  contact_solve<T, ND, K>(sh, w);
+  arm_solve<T, ND, K>(sh, w);
   each(w, [=, &sh, &ct](int lane) {
     if (lane != a * (WARP / K)) return;
     auto& ac = ct.arm[a];
     auto& bs = ct.ball[bi];
     const T rb = T(ldc(cb + C_RB)), inv_mb = T(ldc(cb + C_INV_MB));
-    const T Pn = -(T(1.0f) + ac.e_eff) * ac.vn / (inv_mb + sum_sq<T, ND>(ac.sqn));
-    const T w_t = T(ldc(cb + C_WT0)) + sum_sq<T, ND>(ac.sqt);
+    const T Pn = -(T(1.0f) + ac.e_eff) * ac.vn / (inv_mb + arm_sum_sq<T, ND>(sh, a, ac.sqn));
+    const T w_t = T(ldc(cb + C_WT0)) + arm_sum_sq<T, ND>(sh, a, ac.sqt);
     const T Pt = min_(T(ldc(g + A_MUB + 2 * bi)) * Pn, ac.vt_n / w_t);
     const V3<T> n = ac.n, t_hat = ac.t_hat;
     const V3<T> P = sub(scale(n, Pn), scale(t_hat, Pt));
@@ -500,7 +572,7 @@ IGT_HD void ball_art_react(const float* c, int a, int gi, int bi, Sh& sh, const 
     ct.geom_imp[gi] = sub(ct.geom_imp[gi], P);
     bs.b_art = add(bs.b_art, P);
   });
-  contact_back<T, ND, K>(sh, w);
+  arm_back<T, ND, K>(sh, w);
 }
 
 // Ball bi against articulated geom gi = g0 + k of articulation a, which
@@ -513,14 +585,26 @@ IGT_HD void ball_art_take(const float* c, int a, int gi, int bi, int k, Sh& sh, 
   auto& ct = sh.s.ct;
   const float* cb = c + multi_ball_off(ND, K) + bi * BALL_STRIDE;
   const float* g = c + multi_art_off(ND, K) + gi * MULTI_ART_STRIDE;
-  each_arm<K>(w, [=, &ct](int a2, int s) {
+  each_arm<K>(w, [=, &sh, &ct](int a2, int s) {
     const auto& at = ct.at[k];
     auto& ac = ct.arm[a2];
     if (s == 0) ac.act = a2 == a;
     if (a2 != a) return;
-    for (int i = s; i < ND; i += HW) {
-      ac.Jc[i] = at.Jc[i];
-      ac.on[i] = at.on[i];
+    if constexpr (Sh::CAP > 0) {   // the columns of the link's block
+      auto& ar = sh.arm[a];
+      const int link = (int)ldc(g + A_LINK), bk = tree_blk(ar.tr, link);
+      const unsigned anc = tree_anc(ar.tr, link);
+      if (s == 0) ar.cb = bk;
+      for (int m = bk < 0 ? 0 : ar.tr.bs[bk] + s; bk >= 0 && m < ar.tr.bs[bk + 1]; m += HW) {
+        const int i = ar.tr.bm[m];
+        ac.on[i] = anc >> i & 1u;
+        if (ac.on[i]) ac.Jc[i] = at.Jc[i];
+      }
+    } else {
+      for (int i = s; i < ND; i += HW) {
+        ac.Jc[i] = at.Jc[i];
+        ac.on[i] = at.on[i];
+      }
     }
     if (s != 0) return;
     ct.d_now = at.d_now;
@@ -552,11 +636,15 @@ IGT_HD void pair_round(const float* c, const int* plo, const bool* hit, int p, S
   };
   const auto art = [c](int a) { return c + MULTI_HEAD + a * multi_art_stride(ND); };
   each_arm<K>(w, [=, &sh, &ct](int a, int s) {
-    if (h[a])
+    if (!h[a]) return;
+    if constexpr (Sh::CAP > 0)
+      tree_contact_cols<T, ND, HW>(sh.arm[a], ct.arm[a], ct.pr_pt[lo[a] + p],
+                                   (int)ldc(geom(a) + A_LINK), s);
+    else
       contact_cols<T, ND, HW>(art(a), sh.arm[a], ct.arm[a], ct.pr_pt[lo[a] + p],
                               (int)ldc(geom(a) + A_LINK), s);
   });
-  each_arm<K>(w, [=, &ct](int a, int s) {
+  each_arm<K>(w, [=, &sh, &ct](int a, int s) {
     if (s != 0) return;
     auto& ac = ct.arm[a];
     ac.act = 0;
@@ -564,7 +652,9 @@ IGT_HD void pair_round(const float* c, const int* plo, const bool* hit, int p, S
     const float* ca = art(a);
     const int pi = lo[a] + p;
     const V3<T> n = ct.pr_n[pi];
-    const V3<T> v_point = point_velocity<T, ND>(ac);
+    V3<T> v_point;
+    if constexpr (Sh::CAP > 0) v_point = tree_point_velocity<T, ND>(sh.arm[a], ac);
+    else v_point = point_velocity<T, ND>(ac);
     const T vn = dot(v_point, n);
     if (!(vn < T(0.1f))) return;   // separating: no impulse
     ac.act = 1;
@@ -581,7 +671,7 @@ IGT_HD void pair_round(const float* c, const int* plo, const bool* hit, int p, S
   bool acts = false;
   for (int a = 0; a < K; ++a) acts = acts || ct.arm[a].act;
   if (!acts) return;
-  contact_solve<T, ND, K>(sh, w);
+  arm_solve<T, ND, K>(sh, w);
   each_arm<K>(w, [=, &sh, &ct](int a, int s) {
     auto& ac = ct.arm[a];
     if (!ac.act || s != 0) return;
@@ -590,8 +680,9 @@ IGT_HD void pair_round(const float* c, const int* plo, const bool* hit, int p, S
     const int pi = lo[a] + p, gi = (int)ldc(pr + P_ART);
     const T bounce = T(ldc(ca + C_BOUNCE)), dist = ct.pr_dist[pi];
     T Pn = (-(T(1.0f) + ac.e_eff) * min_(ac.vn, T(0.0f)) + ac.bias)
-        / max_(sum_sq<T, ND>(ac.sqn), T(1e-9f));
-    T Pt = min_(T(ldc(pr + P_MU)) * Pn, ac.vt_n / max_(sum_sq<T, ND>(ac.sqt), T(1e-9f)));
+        / max_(arm_sum_sq<T, ND>(sh, a, ac.sqn), T(1e-9f));
+    T Pt = min_(T(ldc(pr + P_MU)) * Pn,
+                ac.vt_n / max_(arm_sum_sq<T, ND>(sh, a, ac.sqt), T(1e-9f)));
     // resting-contact band: ramp the impulse over the first 2 mm
     const T s_r = sel(abs_(ac.vn) > bounce, T(1.0f), clip_(-dist / T(0.002f), T(0.0f), T(1.0f)));
     Pn = Pn * s_r;
@@ -609,7 +700,7 @@ IGT_HD void pair_round(const float* c, const int* plo, const bool* hit, int p, S
                            cross(sub(ct.pr_pt[pi], add(lp, qrot(lq, cv3<T>(geom(a) + A_BODY_OFF)))), P));
     }
   });
-  contact_back<T, ND, K>(sh, w);
+  arm_back<T, ND, K>(sh, w);
 }
 
 // ------------------------------------------------------------- the body --
@@ -627,7 +718,21 @@ IGT_HD void fused_substep_multi_env(const float* __restrict__ c, const float* __
   const size_t sB = (size_t)B;
 #define IGT_OUT(ch, v) (y[(size_t)(ch) * sB + b] = to_f(v))
   const auto art = [c](int a) { return c + MULTI_HEAD + a * multi_art_stride(ND); };
-  arms_dynamics<T, ND, K>(art, ArmRows<ND>{x, y, b, sB, NDT}, sh, w);
+  const ArmRows<ND> rows{x, y, b, sB, NDT};
+  if constexpr (MultiShared<T, ND, K, NB, WITH_TORQUE>::CAP > 0) {
+    constexpr int CAP = MultiShared<T, ND, K, NB, WITH_TORQUE>::CAP;
+    if (!tree_dynamics<T, ND, K, CAP>(art, rows, sh, w)) {
+      // a tree whose blocks need more than CAP factor entries: NaN out
+      const int n_out = 3 * NDT + 9 * NB + 3 * ((int)ldc(c + C_NART) + 2 * NB)
+                        + (WITH_TORQUE ? 3 * ((int)ldc(c + C_NART) + NB) : 0);
+      each(w, [=](int lane) {
+        for (int ch = lane; ch < n_out; ch += WARP) IGT_OUT(ch, T(NAN));
+      });
+      return;
+    }
+  } else {
+    arms_dynamics<T, ND, K>(art, rows, sh, w);
+  }
 
   auto& ct = sh.s.ct;
   const int ng = (int)ldc(c + C_NART);

@@ -54,6 +54,22 @@ IGT_HD void one(const Lanes& w, F f) {
   });
 }
 
+// The lowest set bit's index (x != 0) and the set bits' count of a word.
+IGT_HD int low_bit(unsigned x) {
+#ifdef __CUDA_ARCH__
+  return __ffs((int)x) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
+}
+IGT_HD int pop_count(unsigned x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
 // where row i of a packed lower triangle starts
 IGT_HD constexpr int tri(int i) { return i * (i + 1) / 2; }
 

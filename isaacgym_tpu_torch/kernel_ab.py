@@ -30,8 +30,10 @@ allocated once:
   sets (``sim/scripted.k3_inputs``) and its random-action states
   (``sim/scripted.k3_random_inputs``, as ``chip_smoke.py``'s ``k3/rollout``)
   at <7, 2, 1>; the two-arm, two-ball check scene's ball_ball set (PD
-  drive) and effort set (effort drive) at <3, 2, 2>. K3-tau runs on the
-  same inputs with the packs of the same scenes with paddle sensors.
+  drive) and effort set (effort drive) at <3, 2, 2>; C11's reset,
+  paddle_ball1, paddle_ball2 and ball_rest sets (efforts uniform in +-20)
+  and its random-action states at <26, 2, 2> (``c11_*``). K3-tau runs on
+  the same inputs with the packs of the same scenes with paddle sensors.
 - K4 at 2048 envs: C10's stand, strike and fall sets
   (``sim/scripted.k4_inputs``) and its random-action states
   (``sim/scripted.k4_random_inputs``); K4-tau with the pack of C10's scene
@@ -53,6 +55,8 @@ from concurrent.futures import ThreadPoolExecutor
 TASK = "HumanoidPingpongTiltNoEarlyStopG1"
 C8 = "Humanoid12PingpongTiltG1"
 C10 = "HumanoidPingpongTiltNESSparse27DOFG1"
+C11 = "HumanoidPingpong5ActorG1"
+C11_EFFORT = 20.0   # N m: C11's sets' efforts are uniform in +-20 (effort drive)
 K2_BUILDS = {"k2": (False, False), "k2dr": (True, False), "k2tau": (False, True),
              "k2drtau": (True, True)}   # (with_dr, with_torque)
 KERNELS = ("k1",) + tuple(K2_BUILDS) + ("k3", "k3tau", "k4", "k4tau")
@@ -119,6 +123,7 @@ def _k3_cases(kernels, dev, b=4096):
     from isaacgym_tpu_torch.sim import scripted
     from isaacgym_tpu_torch.sim.scene import DRIVE_EFFORT, DRIVE_POS
     from isaacgym_tpu_torch.sim.simulator import Simulator
+    from isaacgym_tpu_torch.tasks.humanoid_pingpong_draft_5actor import build_5actor_scene
     from isaacgym_tpu_torch.utils.config import load_task_config
 
     env = isaacgym_tpu_torch.make(seed=0, task=C8, num_envs=b, device=dev)
@@ -141,6 +146,18 @@ def _k3_cases(kernels, dev, b=4096):
                 continue
             sim = (toys[(e, tau)].sim if toy else c8tau if tau else env.sim)
             yield kname, name, sim.fused_substep_multi, ins
+    env = isaacgym_tpu_torch.make(seed=0, task=C11, num_envs=b, device=dev)
+    c11tau = Simulator(scripted.with_paddle_sensor(
+        build_5actor_scene(load_task_config(C11)["sim"])), device=dev)
+    for i, kind in enumerate(("reset", "paddle_ball1", "paddle_ball2", "ball_rest", "random")):
+        if kind == "random":
+            ins = scripted.k3_random_inputs(env, b)
+        else:
+            ins = tuple(torch.as_tensor(a, device=dev) for a in scripted.k3_inputs(
+                env, kind, b, np.random.RandomState(701 + i), C11_EFFORT))
+        for kname, sim in (("k3", env.sim), ("k3tau", c11tau)):
+            if kname in kernels:
+                yield kname, f"c11_{kind}", sim.fused_substep_multi, ins
 
 
 def _k4_cases(kernels, dev, b=2048):

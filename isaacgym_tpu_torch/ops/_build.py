@@ -133,6 +133,8 @@ _SIGNATURES = {
     "igt_arm_step_host": ([_VP, _VP, _VP, _IP, _IP], _IP),
     "igt_arm_step_count_ops": ([_VP, _VP, _VP, _IP, _IP], ctypes.c_longlong),
     "igt_multi_layout": ([_IP, _IP, _VP, _IP], _IP),
+    # the blocks of one articulation's tree in a K3 pack (tree_warp.cuh)
+    "igt_multi_tree": ([_VP, _IP, _VP, _IP], _IP),
     "igt_fused_substep_floating_launch": ([_VP, _VP, _VP, _IP, _IP, _IP, _VP], _IP),
     "igt_floating_layout": ([_IP, _VP, _IP], _IP),
     "igt_fused_substep_floating_host": ([_VP, _VP, _VP, _IP, _IP], _IP),

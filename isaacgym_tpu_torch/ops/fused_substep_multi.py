@@ -42,7 +42,11 @@ moment about its frame origin | each ball's contact moment about its centre]
 -> (B, 2 ng + 3 NB, 3) (``:2144-2171``). The moments of the ball pair are
 -r_i (n x P) on each ball, as the JAX package's ball-pair block takes them.
 ``FusedSubstepMulti`` runs the plain version on CPU tensors and the kernel on
-CUDA tensors, counting launches.
+CUDA tensors, counting launches. At <26, 2, 2> (``TREE_CAP``) the kernel
+runs each articulation as the subtrees of its base (``tree_blocks``), each
+block's mass matrix and factor apart, its tables sized for ``TREE_CAP``
+factor entries; a tree that needs more takes the non-kernel step
+(``tree_refusal``).
 """
 
 from __future__ import annotations
@@ -58,6 +62,11 @@ from isaacgym_tpu_torch.ops.fused_substep import FusedStepOutputs, stack
 #: (DOF count per articulation, articulations, balls) the kernel is built for:
 #: C8, the two-arm, two-ball check scene, and C11
 KERNEL_SHAPES = ((7, 2, 1), (3, 2, 2), (26, 2, 2))
+#: the shapes whose kernel runs each articulation's tree as its base subtrees,
+#: block by block (``csrc/tree_warp.cuh``), and the factor entries (sum over
+#: the blocks of n (n + 1) / 2) its tables hold an articulation: TREE_CAP in
+#: ``csrc/fused_substep_multi.cuh``
+TREE_CAP = {(26, 2, 2): 128}
 MAX_BALLS = 2
 MAX_STATIC = 24
 MAX_ART = 16
@@ -121,6 +130,46 @@ def art_pairs(arts: list, art_geoms: list, true_statics: list, art_static: bool 
                                 art_static=art_static, reach_prune=reach_prune)
         pair_hi.append(len(pairs))
     return pairs, geom_lo, geom_hi, pair_lo, pair_hi
+
+
+def tree_blocks(mask) -> list:
+    """The blocks ``csrc/tree_warp.cuh`` splits a fixed-base tree into, from
+    its (nd, nd) ancestor mask (``mask[l, i]`` nonzero where DOF i moves link
+    l): each subtree of the base as its DOFs in ascending order, a DOF with no
+    other ancestor starting one."""
+    mask = np.asarray(mask) != 0
+    blocks, of = [], {}
+    for d in range(mask.shape[0]):
+        anc = np.flatnonzero(mask[d, :d])
+        of[d] = of[int(anc[0])] if anc.size else len(blocks)
+        if not anc.size:
+            blocks.append([])
+        blocks[of[d]].append(d)
+    return blocks
+
+
+def tree_refusal(shape, masks):
+    """Why the CUDA kernel at ``shape`` (nd, K, NB) cannot hold articulations
+    of these ancestor masks, or None: at a tree-blocked shape, a tree whose
+    blocks' factors need more than ``TREE_CAP`` entries."""
+    cap = TREE_CAP.get(tuple(shape))
+    if cap is None:
+        return None
+    for a, mask in enumerate(masks):
+        need = sum(len(b) * (len(b) + 1) // 2 for b in tree_blocks(mask))
+        if need > cap:
+            return (f"fused multi substep: articulation {a}'s tree blocks need {need} factor "
+                    f"entries, the kernel at {tuple(shape)} holds {cap}")
+    return None
+
+
+def pack_masks(consts) -> list:
+    """Each articulation's (nd, nd) ancestor mask in a K3 pack."""
+    c = np.asarray(consts)
+    nd, K = int(c[F.C_ND]), int(c[H_K])
+    lay, m = multi_layout(nd, K), F.layout(nd)["mask"]
+    return [c[o + m:o + m + nd * nd].reshape(nd, nd)
+            for o in (lay["art0"] + a * lay["art_stride"] for a in range(K))]
 
 
 def pack_refusal(arts: list, n_balls: int, static_geoms: list, art_geoms: list,
@@ -464,6 +513,9 @@ class FusedSubstepMulti:
             raise NotImplementedError(f"fused multi substep kernel is built for (DOFs per "
                                       f"articulation, articulations, balls) in "
                                       f"{KERNEL_SHAPES}, scene has {shape}")
+        why = tree_refusal(shape, pack_masks(self.consts))
+        if why:
+            raise NotImplementedError(why)
         for t, rows in ((x, n_in(self.nd_tot, self.nb)),
                         (y, n_out(self.nd_tot, self.nb, self.ng, self.with_torque))):
             if (t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != 2

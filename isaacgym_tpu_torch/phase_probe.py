@@ -2,7 +2,7 @@
 cycles go.
 
     python -m isaacgym_tpu_torch.phase_probe [--kernel k3|k2|k1] [--csrc DIR]
-        [--num-envs 528,4096] [--set random]
+        [--num-envs 528,4096] [--set random] [--scene c8|c11]
 
 Copies a ``csrc`` directory (this package's by default) into
 ``build/probe/<hash>/``, inserts a mark before each phase group of the
@@ -12,7 +12,8 @@ for K3, ``fused_substep_warp.cuh`` for K2, ``arm_step.cuh`` for K1; a
 missing one raises), where lane 0 of each warp writes ``clock64()`` into a
 device array, builds that copy with the flags of ``ops/_build.py``, and runs
 the kernel on its random-action states (``sim/scripted.k3_random_inputs``
-on C8; ``k2_random_inputs`` on the flagship, and for K1 those states'
+on C8, or with ``--scene c11`` on C11 at <26, 2, 2>; ``k2_random_inputs``
+on the flagship, and for K1 those states'
 joints with the arm's base pose, ``k1_inputs``; ``--set``: another of the
 flagship's sets, ``scripted.k2_inputs``) at each env count. Prints,
 per env count, the time per launch (CUDA events, median of 7 runs of 20
@@ -37,6 +38,7 @@ import subprocess
 import sys
 
 C8 = "Humanoid12PingpongTiltG1"
+C11 = "HumanoidPingpong5ActorG1"
 TASK = "HumanoidPingpongTiltNoEarlyStopG1"
 SLOTS = 32   # marks per warp in the device array
 MAX_ENVS = 4096
@@ -62,14 +64,27 @@ FACTOR_SERIAL = (
 )
 INTEGRATE = (
     ("art_warp.cuh", "  // FK at the new q", "euler"),
-    ("art_warp.cuh", "#undef IGT_IN\n#undef IGT_OUT\n}\n", "fk"),
+    ("art_warp.cuh", "}\n\n// --------------------------------------------------------------- contacts --",
+     "fk"),
 )
-#: each kernel's marks, the first before its dynamics
-MARKS = {
-    "k3": (("fused_substep_multi.cuh",
-            "  arms_dynamics<T, ND, K>(art, ArmRows<ND>{x, y, b, sB, NDT}, sh, w);\n", None),)
-    + DYNAMICS + FACTOR_PHASES + INTEGRATE + (
-        ("fused_substep_multi.cuh", "  // the statics in order: each (ball, static)", "flight_pairs"),
+#: tree_warp.cuh's dynamics phase groups (K3 at <26, 2, 2>, C11)
+TREE = (
+    ("tree_warp.cuh", "  // the blocks, one lane per articulation", "drive"),
+    ("tree_warp.cuh", "  // FK with the velocity and bias propagation, one lane per block", "blocks"),
+    ("tree_warp.cuh", "  // per link: world COM, inertia, force and moment; per DOF i", "fk_vel"),
+    ("tree_warp.cuh", "  // every link's active columns, a lane per link", "link_terms"),
+    ("tree_warp.cuh", "  // each entry of a block's M sums over its links", "columns"),
+    ("tree_warp.cuh", "  // each block's first pivot and its y", "entries"),
+    ("tree_warp.cuh", "  // Cholesky in place (left-looking) with the forward solve, the blocks",
+     "pivot0"),
+    ("tree_warp.cuh", "  // qdd = L^-T y, one lane per block", "cholesky"),
+    ("tree_warp.cuh", "  // semi-implicit Euler, velocity clamp, joint limits", "back_solve"),
+    ("tree_warp.cuh", "  // FK at the new q, one lane per block", "euler"),
+    ("tree_warp.cuh", "  return true;\n}\n", "fk"),
+)
+#: K3's contact phase groups, after its dynamics
+K3_CONTACTS = (
+    ("fused_substep_multi.cuh", "  // the statics in order: each (ball, static)", "flight_pairs"),
         ("fused_substep_multi.cuh",
          "  // each ball against every articulated geom of every articulation, in\n", "statics"),
         ("fused_substep_multi.cuh", "  if constexpr (NB == 2) {\n    one(w,", "ball_art"),
@@ -77,7 +92,12 @@ MARKS = {
          "  // articulated geoms vs the true statics: pairs pruned at pack time\n", "ball_pair"),
         ("fused_substep_multi.cuh",
          "  // outputs: qd, the impulse rows (and moment rows); each ball capped", "pairs"),
-        ("fused_substep_multi.cuh", "  });\n#undef IGT_OUT\n}\n", "outputs")),
+        ("fused_substep_multi.cuh", "  });\n#undef IGT_OUT\n}\n", "outputs"))
+K3_START = (("fused_substep_multi.cuh", "  const ArmRows<ND> rows{x, y, b, sB, NDT};\n", None),)
+#: each kernel's marks (K3 at <26, 2, 2>: "k3c11"), the first before its dynamics
+MARKS = {
+    "k3": K3_START + DYNAMICS + FACTOR_PHASES + INTEGRATE + K3_CONTACTS,
+    "k3c11": K3_START + TREE + K3_CONTACTS,
     "k2": (("fused_substep_warp.cuh",
             "  arms_dynamics<T, ND, G, WITH_DR, true>([c](int) { return c; }, io, sh, w);\n",
             None),)
@@ -94,14 +114,16 @@ MARKS = {
             "  arms_dynamics<T, ND, G, false, true>([c](int) { return c; }, io, sh, w);\n", None),)
     + DYNAMICS + FACTOR_SERIAL + INTEGRATE + (("arm_step.cuh", "}\n\n}  // namespace igt\n", "outputs"),),
 }
-SOURCES = {"k3": "fused_substep_multi", "k2": "fused_substep", "k1": "arm_step"}
-ENVS_PER_WARP = {"k3": 1, "k2": 2, "k1": 4}   # K2_ENVS and K1_ENVS of the headers
+SOURCES = {"k3": "fused_substep_multi", "k3c11": "fused_substep_multi", "k2": "fused_substep",
+           "k1": "arm_step"}
+ENVS_PER_WARP = {"k3": 1, "k3c11": 1, "k2": 2, "k1": 4}   # K2_ENVS and K1_ENVS of the headers
 MARK = """#ifdef __CUDACC__
 __device__ long long g_probe[%d * %d];
 #endif
 #ifdef __CUDA_ARCH__
 #define IGT_MARK(i) do { if ((threadIdx.x & 31) == 0) \\
-    g_probe[(blockIdx.x * 4 + threadIdx.x / 32) * %d + (i)] = clock64(); } while (0)
+    g_probe[(blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32) * %d + (i)] = clock64(); \
+    } while (0)
 #else
 #define IGT_MARK(i) do {} while (0)
 #endif
@@ -141,10 +163,10 @@ def _replace(path, old, new):
         fh.write(s.replace(old, new, 1))
 
 
-def _cases(kernel, dev, kind="random"):
+def _cases(kernel, dev, kind="random", scene="c8"):
     """(wrapper, inputs at MAX_ENVS, pack, output rows) of ``kernel`` on the
-    state set ``kind``: the random-action states, or for K2 and K1 one of
-    the flagship's ``scripted.k2_inputs`` sets."""
+    state set ``kind``: the random-action states (K3's of ``scene``), or for
+    K2 and K1 one of the flagship's ``scripted.k2_inputs`` sets."""
     import numpy as np
     import torch
     import isaacgym_tpu_torch
@@ -158,7 +180,8 @@ def _cases(kernel, dev, kind="random"):
     if kernel == "k3":
         if kind != "random":
             raise ValueError("phase probe: K3 runs on its random-action states only")
-        env = isaacgym_tpu_torch.make(seed=0, task=C8, num_envs=MAX_ENVS, device=dev)
+        env = isaacgym_tpu_torch.make(seed=0, task={"c8": C8, "c11": C11}[scene],
+                                      num_envs=MAX_ENVS, device=dev)
         k = env.sim.fused_substep_multi
         return (k, scripted.k3_random_inputs(env, MAX_ENVS), M.pack_inputs,
                 M.n_out(k.nd_tot, k.nb, k.ng))
@@ -184,11 +207,13 @@ def main(argv) -> int:
     from isaacgym_tpu_torch.ops import _build
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", default="k3", choices=sorted(MARKS))
+    ap.add_argument("--kernel", default="k3", choices=("k1", "k2", "k3"))
     ap.add_argument("--csrc", default=_build.CSRC)
     ap.add_argument("--num-envs", default="528,4096")
     ap.add_argument("--set", default="random",
                     help="K2 and K1: random, or a scripted.k2_inputs kind")
+    ap.add_argument("--scene", default="c8", choices=("c8", "c11"),
+                    help="K3: C8's states at <7, 2, 1> or C11's at <26, 2, 2>")
     if not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
@@ -196,19 +221,19 @@ def main(argv) -> int:
     counts = [int(n) for n in args.num_envs.split(",")]
     if max(counts) > MAX_ENVS:
         ap.error(f"--num-envs: at most {MAX_ENVS}")
-    marks_of = MARKS[args.kernel]
-    src = marked_copy(args.csrc, os.path.join(os.path.dirname(_build.BUILD_ROOT), "probe"),
-                      args.kernel)
-    name = f"libigt_phase_probe_{args.kernel}.so"
+    key = "k3c11" if (args.kernel, args.scene) == ("k3", "c11") else args.kernel
+    marks_of = MARKS[key]
+    src = marked_copy(args.csrc, os.path.join(os.path.dirname(_build.BUILD_ROOT), "probe"), key)
+    name = f"libigt_phase_probe_{key}.so"
     path = _build._build(name, _build._nvcc(), _build.CUDA_FLAGS,
-                         [os.path.join(src, f"{SOURCES[args.kernel]}.cu")],
+                         [os.path.join(src, f"{SOURCES[key]}.cu")],
                          [os.path.join(src, f) for f in os.listdir(src) if f.endswith(".cuh")])
     lib = _build._bind(path)
     lib.igt_probe_read.argtypes, lib.igt_probe_read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
     print(json.dumps({"kernel": args.kernel, "ptxas": [ln.strip() for ln in _build.build_logs.get(
         name, "").splitlines() if "Used" in ln or "stack frame" in ln]}), flush=True)
     dev = torch.device("cuda")
-    k, ins, pack, rows = _cases(args.kernel, dev, args.set)
+    k, ins, pack, rows = _cases(args.kernel, dev, args.set, args.scene)
     names = [g for _, _, g in marks_of[1:]]
     for b in counts:
         x = pack(*[t[:b] for t in ins])
@@ -219,7 +244,7 @@ def main(argv) -> int:
         buf = (ctypes.c_longlong * (MAX_ENVS * SLOTS))()
         if lib.igt_probe_read(ctypes.addressof(buf), MAX_ENVS * SLOTS) != 0:
             raise RuntimeError("phase probe: reading the marks failed")
-        warps = -(-b // ENVS_PER_WARP[args.kernel])
+        warps = -(-b // ENVS_PER_WARP[key])
         marks = np.frombuffer(buf, dtype=np.int64).reshape(MAX_ENVS, SLOTS)[:warps]
         span = lambda i, j: marks[:, j] - marks[:, i]
         cycles = {g: int(np.median(span(i, i + 1))) for i, g in enumerate(names)}
@@ -234,7 +259,8 @@ def main(argv) -> int:
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end) / 20)
-        print(json.dumps({"kernel": args.kernel, "set": args.set, "num_envs": b, "ms": statistics.median(times),
+        print(json.dumps({"kernel": args.kernel, "scene": args.scene, "set": args.set,
+                          "num_envs": b, "ms": statistics.median(times),
                           "cycles": cycles, "cycles_p90": p90,
                           "total_cycles": int(np.median(total)),
                           "total_cycles_p90": int(np.percentile(total, 90)),

@@ -312,7 +312,9 @@ def kernel_refusal(scene: CompiledScene, route: str, device_type: str,
         else:
             why = M.pack_refusal(multi_art_specs(scene), len(scene.free_bodies), static_list,
                                  art_list, n_true, **sw)
-            built = (nds[0], len(arts), len(scene.free_bodies)) in M.KERNEL_SHAPES
+            shape = (nds[0], len(arts), len(scene.free_bodies))
+            built = shape in M.KERNEL_SHAPES and M.tree_refusal(
+                shape, [sl.model.ancestor_mask[:nds[0], :nds[0]] for sl in arts]) is None
     elif route == "k1":
         why, built = None, all(nd == A.KERNEL_ND for nd in nds)
     else:

@@ -25,8 +25,16 @@ lanes of every phase one after another, the card's own schedule
   the contacts' scratch overlaid in one union, as on the card) and the
   counting build (side by side) give the same bits too, signed zeros
   included.
-- The phase probe (``phase_probe``) finds every anchor it marks, for K3,
-  K2 and K1.
+- The phase probe (``phase_probe``) finds every anchor it marks, for K3
+  (and K3 at <26, 2, 2>), K2 and K1.
+- At <26, 2, 2> the body runs each articulation's tree as the subtrees of
+  its base (``csrc/tree_warp.cuh``): the blocks it derives from the ancestor
+  mask are the G1's four chains (6, 6, 7, 7 DOFs, 98 active columns and 98
+  factor entries), one block for C8's 7-DOF arm and one per base subtree for
+  a branched tree whose subtrees interleave; ``tree_blocks`` derives the
+  same. Its operation count on C11's sets is pinned and below the dense
+  body's (commit 16cb4ab), which summed and factored the zero entries
+  between the blocks.
 """
 
 import numpy as np
@@ -36,6 +44,7 @@ torch.set_num_threads(1)  # the suite runs in several workers: one intra-op thre
 
 import isaacgym_tpu_torch
 from isaacgym_tpu_torch.ops import _build
+from isaacgym_tpu_torch.ops import fused_substep as F
 from isaacgym_tpu_torch.ops import fused_substep_multi as M
 from isaacgym_tpu_torch.sim import scripted
 from isaacgym_tpu_torch.sim.simulator import Simulator
@@ -57,6 +66,13 @@ NEEDED_OPS = {"reset": (118_360, 127_840), "paddle_ball1": (121_880, 132_236),
               "paddle_ball2": (122_063, 132_347), "ball_rest": (116_247, 125_175)}
 PARENT_OPS = {"reset": (155_752, 157_768), "paddle_ball1": (157_889, 160_301),
               "paddle_ball2": (157_877, 160_289), "ball_rest": (156_299, 158_315)}
+#: the same on C11's sets at <26, 2, 2> (8 envs, RandomState(71), efforts in
+#: +-20; K3-tau with a sensor on each paddle): NEEDED_OPS_C11 from the
+#: tree-blocked body, PARENT_OPS_C11 from the dense body of commit 16cb4ab
+NEEDED_OPS_C11 = {"reset": (413_328, 425_008), "paddle_ball1": (420_231, 433_335),
+                  "paddle_ball2": (419_217, 432_323), "ball_rest": (403_810, 414_946)}
+PARENT_OPS_C11 = {"reset": (610_364, 622_044), "paddle_ball1": (639_367, 652_471),
+                  "paddle_ball2": (636_720, 649_826), "ball_rest": (616_630, 627_766)}
 MOMENT_TOL = dict(geom_moments=1e-5, ball_moments=1e-7)
 
 
@@ -219,6 +235,60 @@ def test_operation_count_is_the_work_the_data_needs(c8, host, kind, kernel):
     assert ops < PARENT_OPS[kind][kernel == "k3tau"]
 
 
+@pytest.mark.parametrize("kernel", ["k3", "k3tau"])
+@pytest.mark.parametrize("kind", scripted.C8_KINDS)
+def test_operation_count_is_the_work_the_data_needs_on_c11(c11, host, kind, kernel):
+    k3, k3tau, ins = c11[kind]
+    _, ops = run_host(host, k3tau if kernel == "k3tau" else k3, ins, count=True)
+    assert ops == NEEDED_OPS_C11[kind][kernel == "k3tau"]
+    assert ops < PARENT_OPS_C11[kind][kernel == "k3tau"]
+
+
+def _branched_block(nd=7, parents=(-1, -1, 0, 1, 2, 0, 3)):
+    """An articulation block of a K3 pack whose tree has two base subtrees
+    that interleave in DOF order ({0, 2, 4, 5} and {1, 3, 6}), its mask from
+    ``parents``."""
+    block = np.zeros(M.multi_layout(nd, 2)["art_stride"], np.float32)
+    mask = np.zeros((nd, nd), np.float32)
+    for d in range(nd):
+        a = d
+        while a >= 0:
+            mask[d, a] = 1.0
+            a = parents[a]
+    m = F.layout(nd)["mask"]
+    block[m:m + nd * nd] = mask.reshape(-1)
+    return block, mask
+
+
+@pytest.mark.parametrize("tree", ["c11", "c8", "branched"])
+def test_tree_blocks_from_the_mask(c8, c11, host, tree):
+    """The blocks the <26, 2, 2> body derives from an articulation's
+    ancestor mask (``igt_multi_tree``, the body's own routines): (blocks,
+    factor entries, active columns, DOFs of each block), and
+    ``tree_blocks`` on the same mask."""
+    if tree == "branched":
+        block, mask = _branched_block()
+        want = (2, 16, 14, [4, 3])
+    else:
+        k = (c11 if tree == "c11" else c8)["reset"][0]
+        lay = M.multi_layout(k.nd, k.K)
+        block = np.ascontiguousarray(k.consts[lay["art0"]:lay["art0"] + lay["art_stride"]])
+        mask = M.pack_masks(k.consts)[0]
+        want = (4, 98, 98, [6, 6, 7, 7]) if tree == "c11" else (1, 28, 28, [7])
+    out = np.zeros(32, np.int32)
+    assert host.igt_multi_tree(block.ctypes.data, mask.shape[0], out.ctypes.data, 32) == 0
+    assert (int(out[0]), int(out[1]), int(out[2]), out[3:3 + out[0]].tolist()) == want
+    blocks = M.tree_blocks(mask)
+    assert [len(b) for b in blocks] == want[3]
+    assert sorted(sum(blocks, [])) == list(range(mask.shape[0]))
+    if tree == "branched":
+        assert blocks == [[0, 2, 4, 5], [1, 3, 6]]
+    if tree == "c11":
+        assert M.tree_refusal((26, 2, 2), M.pack_masks(k.consts)) is None
+        chain = np.tril(np.ones((26, 26), np.float32))   # one chain: 351 entries
+        assert "351" in M.tree_refusal((26, 2, 2), [chain])
+
+
 CASES = ([("toy", d, kind) for d, kind in TOY_CASES]
          + [(scene, None, kind) for scene in ("c8", "c11") for kind in scripted.C8_KINDS])
 
@@ -241,13 +311,13 @@ def test_lanes_in_reverse_give_the_same_bits(c8, c11, toy, host, scene, drive, k
 
 
 def test_phase_probe_finds_every_anchor(tmp_path):
-    """``phase_probe``'s copy of ``csrc`` for each kernel it probes (K3, K2,
-    K1) holds its mark macro and each of that kernel's marks once: a renamed
-    phase comment fails here, not on the card."""
+    """``phase_probe``'s copy of ``csrc`` for each kernel it probes (K3, K3
+    at <26, 2, 2>, K2, K1) holds its mark macro and each of that kernel's
+    marks once: a renamed phase comment fails here, not on the card."""
     import os
     import re
     from isaacgym_tpu_torch import phase_probe
-    assert sorted(phase_probe.MARKS) == ["k1", "k2", "k3"]
+    assert sorted(phase_probe.MARKS) == ["k1", "k2", "k3", "k3c11"]
     for kernel, header, name in (("k1", "arm_step.cuh", "K1_ENVS"),
                                  ("k2", "fused_substep_warp.cuh", "K2_ENVS")):
         with open(os.path.join(_build.CSRC, header)) as fh:
